@@ -8,9 +8,9 @@ nothing of ``repro``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``; on the CPU the kernels run their plain
 PyTorch versions.
 """
-from . import analysis, convert, core, kernels
+from . import analysis, convert, core, gnn, kernels
 from .core import (CompiledSpmm, CSRMatrix, compile_spmm, random_csr,
                    spmm)
 
-__all__ = ["analysis", "convert", "core", "kernels", "CompiledSpmm",
+__all__ = ["analysis", "convert", "core", "gnn", "kernels", "CompiledSpmm",
            "CSRMatrix", "compile_spmm", "random_csr", "spmm"]

@@ -1,10 +1,11 @@
 """Carry the reference's state across to the port.
 
-The reference has no weights; its state is the SpMM instance — a
-``CSRMatrix`` whose structure is host numpy and whose values are a JAX
-array — and the dense operand.  These take those as numpy arrays (what
-``np.asarray`` gives for either package) and build the port's objects,
-so one seeded instance can feed both packages.
+The reference's state is the SpMM instance — a ``CSRMatrix`` whose
+structure is host numpy and whose values are a JAX array — the dense
+operand, and the GCN's parameter pytree (``examples/gnn_graphconv.py``).
+These take those as numpy arrays (what ``np.asarray`` gives for either
+package) and build the port's objects, so one seeded instance or model
+can feed both packages.
 """
 from __future__ import annotations
 
@@ -30,3 +31,12 @@ def dense_from_numpy(x, *, device=None) -> torch.Tensor:
     """A float32 tensor on ``device`` holding the numpy array ``x``."""
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(
         resolve_device(device))
+
+
+def params_from_numpy(params, *, device=None, requires_grad: bool = True):
+    """The reference GCN's parameter pytree (a dict of arrays, e.g.
+    ``{"w1": (D_IN, D_H), "w2": (D_H, CLASSES)}``) as a dict of float32
+    leaf tensors on ``device``, ready for ``torch.autograd``."""
+    return {name: dense_from_numpy(np.asarray(value), device=device)
+            .requires_grad_(requires_grad)
+            for name, value in params.items()}

@@ -1,6 +1,6 @@
 # The paper's primary contribution, JIT-specialized SpMM, ported to
 # PyTorch + CUDA (the reference is src/repro/core/).
-from .csr import CSRMatrix, random_csr
+from .csr import CSRMatrix, from_coo, random_csr
 from .ccm import ccm_register_decomposition, plan_d_tiles, DTiling
 from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
                    ShardedFusedWorkspace, BatchedFusedWorkspace,
@@ -21,7 +21,7 @@ from .spmm import (CompiledSpmm, compile_spmm, spmm, BACKENDS,
                    FUSED_BACKENDS)
 
 __all__ = [
-    "CSRMatrix", "random_csr",
+    "CSRMatrix", "from_coo", "random_csr",
     "ccm_register_decomposition", "plan_d_tiles", "DTiling",
     "SpmmPlan", "MixedPlan", "MxuBlockRow", "FusedEllWorkspace",
     "ShardedFusedWorkspace", "BatchedFusedWorkspace",

@@ -111,6 +111,31 @@ class CSRMatrix:
             vals=torch.from_numpy(d[rows, cols].astype(np.float32)
                                   ).to(resolve_device(device)))
 
+    @staticmethod
+    def from_coo(shape: Shape, rows, cols, vals, *,
+                 device=None) -> "CSRMatrix":
+        """CSR from coordinate triples, sorted by (row, column) as the
+        reference's ``from_coo`` sorts them; a repeated coordinate stays
+        a separate nonzero.  ``rows``/``cols`` are host arrays; ``vals``
+        is a tensor (kept on its device unless ``device`` is given) or a
+        host array (made float32 on ``device``, the card unless the
+        caller passes ``device="cpu"``)."""
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        order = np.lexsort((cols, rows))
+        if isinstance(vals, torch.Tensor):
+            if device is not None:
+                vals = vals.to(resolve_device(device))
+        else:
+            vals = torch.from_numpy(np.asarray(vals, np.float32)).to(
+                resolve_device(device))
+        vals = vals[torch.from_numpy(order).to(vals.device)]
+        row_ptr = np.zeros(shape[0] + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows, minlength=shape[0]), out=row_ptr[1:])
+        return CSRMatrix(shape=tuple(shape), row_ptr=row_ptr,
+                         col_indices=cols[order].astype(np.int32),
+                         vals=vals)
+
     def transpose_structure(self) -> Tuple["CSRMatrix", np.ndarray]:
         """Host-side CSR transpose (structure + value permutation).
 
@@ -131,6 +156,8 @@ class CSRMatrix:
         return CSRMatrix(shape=(n, m), row_ptr=row_ptr, col_indices=t_cols,
                          vals=vals), order
 
+
+from_coo = CSRMatrix.from_coo
 
 # ---------------------------------------------------------------------------
 # Synthetic matrix generators (benchmark/test substrate — the paper uses

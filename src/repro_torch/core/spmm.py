@@ -1,5 +1,5 @@
 """Public JIT-SpMM API: Y = A·X specialized to the runtime instance
-(port of ``src/repro/core/spmm.py``, single device, forward only).
+(port of ``src/repro/core/spmm.py``, single device).
 
 ``compile_spmm`` is the paper's "JIT code generator": given the concrete
 structure of A and the runtime-known d, it plans on the host, checks the
@@ -8,23 +8,32 @@ the resulting ``CompiledSpmm`` under everything the specialization
 depends on.  ``spmm`` is the one-shot convenience wrapper.
 
 Backends (the reference's names, so tests compare like with like):
-  pallas_ell   K1: the whole multi-segment ELL plan is ONE launch of
-               ``kernels/csrc/spmm_ell_fused.cu`` plus one
+  pallas_ell   the whole multi-segment ELL plan is ONE launch — K1
+               (``kernels/csrc/spmm_ell_fused.cu``) resident, K3
+               (``spmm_ell_fused_staged.cu``) staged — plus one
                inverse-permutation gather.
-  pallas_bcsr  K2: the MIXED plan — each bm-aligned row-block tagged VPU
+  pallas_bcsr  the MIXED plan — each bm-aligned row-block tagged VPU
                (gather+FMA) or MXU ((bm x bk) block products) — is still
-               ONE launch, of ``kernels/csrc/spmm_bcsr_fused.cu``.
+               ONE launch, of K2 (``spmm_bcsr_fused.cu``) or K4
+               (``spmm_bcsr_fused_staged.cu``).
   ref          plain torch gather + ``index_add_``.
   dense        densified matmul (tiny tests only).
 
 ``backend="auto"`` resolves to ``pallas_bcsr`` on the card and ``ref`` on
-the CPU, as the reference picks ``pallas_bcsr`` on a TPU.  ``device``
-takes the place of the reference's ``interpret`` knob: resolved once
-(``None`` = the CUDA card, raising when there is none), it joins every
-cache key.  On the CPU the fused backends run the kernels' plain
-versions.  Still to come in later slices, and absent from the
-signature until then: the backward pass, ``staging="dma"``, the sharded
-path (``mesh``/``n_chips``/``x_sharding``) and autotuning.
+the CPU, as the reference picks ``pallas_bcsr`` on a TPU; ``staging``
+``"auto"`` resolves to ``"dma"`` (K3/K4) on the card and ``"resident"``
+on the CPU, as the reference picks ``"dma"`` on a TPU.  ``device`` takes
+the place of the reference's ``interpret`` knob: resolved once (``None``
+= the CUDA card, raising when there is none), it joins every cache key.
+On the CPU the fused backends run the kernels' plain versions.
+
+Gradients: calling an artifact is a ``torch.autograd.Function`` (the
+reference's ``custom_vjp``).  dX = Aᵀ·dY runs through a transposed
+artifact cached beside the forward one, on the same fused kernel and
+staging mode; dvals is the SDDMM ``sum(dY[rows] * X[cols], -1)`` in
+plain torch, as the reference computes it outside any kernel.  Still to
+come in later slices, and absent from the signature until then: the
+sharded path (``mesh``/``n_chips``/``x_sharding``) and autotuning.
 """
 from __future__ import annotations
 
@@ -49,6 +58,10 @@ from ..kernels.ref import spmm_coo_ref, spmm_dense_ref
 __all__ = ["BACKENDS", "FUSED_BACKENDS", "CompiledSpmm",
            "PlanVerificationError", "compile_spmm", "spmm"]
 
+# bound on the (nonzeros x d) products one SDDMM chunk holds at a time:
+# 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]
+SDDMM_CHUNK = 1 << 25
+
 BACKENDS = ("pallas_ell", "pallas_bcsr", "ref", "dense", "auto")
 
 # backends that lower through the fused descriptor-table launch (and
@@ -67,13 +80,13 @@ def _resolve_backend(backend: str, device: str) -> str:
     return "ref" if device == "cpu" else "pallas_bcsr"
 
 
-def _resolve_staging_for(backend: str, staging) -> str:
+def _resolve_staging_for(backend: str, staging, device: str) -> str:
     """Per-backend staging resolution: the knob only exists on the fused
     launch, so non-fused backends pin ``"resident"`` and reject an
     explicit ``"dma"`` — keeping ref/dense cache keys independent of a
     knob they ignore."""
     if backend in FUSED_BACKENDS:
-        return resolve_staging(staging)
+        return resolve_staging(staging, device)
     if staging not in (None, "auto", "resident"):
         raise ValueError(
             f"staging is a fused-dispatch knob ({'/'.join(FUSED_BACKENDS)});"
@@ -110,18 +123,45 @@ class _FusedConsts:
     inv_perm: torch.Tensor     # (m,) int64 — output row -> workspace row
     num_blocks: int
     merge_width: int = 1       # CGCM width (DESIGN.md §7.9)
+    max_span: int = 0          # staged window over the slot stream
+    max_cspan: int = 0         # staged window over the column stream
+
+
+class _Apply(torch.autograd.Function):
+    """The artifact's forward with the reference's custom VJP: dvals by
+    SDDMM, dX through the transposed artifact; a gradient nobody asked
+    for is not computed."""
+
+    @staticmethod
+    def forward(ctx, c: "CompiledSpmm", vals, x):
+        ctx.c = c
+        ctx.save_for_backward(vals, x)
+        return c._forward(vals, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        vals, x = ctx.saved_tensors
+        c = ctx.c
+        dvals = dx = None
+        if ctx.needs_input_grad[1]:
+            dvals = c._sddmm(dy, x).to(vals.dtype)
+        if ctx.needs_input_grad[2]:
+            dx = c._transpose_apply(vals, dy).to(x.dtype)
+        return None, dvals, dx
 
 
 class CompiledSpmm:
     """The "jit-function": structure-specialized, value-generic SpMM on
-    one device.  Forward only in this slice.  On the fused backends the
-    host workspace it was packed from stays readable as ``workspace``."""
+    one device, differentiable in ``vals`` and ``x``.  On the fused
+    backends the host workspace it was packed from stays readable as
+    ``workspace``."""
 
     def __init__(self, a: CSRMatrix, d: int, *, strategy: str,
                  backend: str, device: Optional[str] = None, bm: int = 8,
                  bk: int = 8, mxu_gain: float = 4.0,
                  staging: Optional[str] = None, merge_threshold: int = 0,
-                 validate: Optional[str] = None):
+                 validate: Optional[str] = None,
+                 cache: JitCache = GLOBAL_CACHE):
         # resolved ONCE: the effective device is part of the compiled
         # artifact's identity (and of every jit-cache key touching it)
         self.device = resolve_device(device)
@@ -132,9 +172,19 @@ class CompiledSpmm:
         self.mxu_gain = mxu_gain
         self.merge_threshold = int(merge_threshold)
         self.validate = resolve_validate(validate, self.device)
-        self.staging = _resolve_staging_for(self.backend, staging)
+        self.staging = _resolve_staging_for(self.backend, staging,
+                                            self.device)
         self.d = d
         self.shape = a.shape
+        self.cache = cache
+        # the structure, for the backward's transposed artifact and SDDMM
+        self._fingerprint = a.fingerprint
+        self._row_ptr = a.row_ptr
+        self._col_indices = a.col_indices
+        self._transpose: Optional[CompiledSpmm] = None
+        self._t_order: Optional[torch.Tensor] = None
+        self._rows: Optional[torch.Tensor] = None
+        self._cols: Optional[torch.Tensor] = None
         # the mixed kernel slices (bk, d_pad) X panels per block-column,
         # so X rows are padded up to the block-column grid
         self._x_rows_pad = -(-a.shape[1] // bk) * bk
@@ -175,22 +225,30 @@ class CompiledSpmm:
                 cols_flat=dev(ws.cols_flat),
                 gather_flat=dev(ws.gather_flat, torch.int64),
                 inv_perm=dev(ws.inv_perm, torch.int64),
-                num_blocks=ws.num_blocks, merge_width=ws.merge_width)
+                num_blocks=ws.num_blocks, merge_width=ws.merge_width,
+                max_span=ws.max_span, max_cspan=ws.max_cspan)
             record_build_seconds("plan", plan.plan_seconds)
             record_build_seconds("pack", ws.pack_seconds)
         else:
             # the row expansion is pure structure — precompute it so the
             # serving path never repeats the host-side np.repeat
-            self._rows = dev(np.repeat(np.arange(a.shape[0]),
-                                       a.row_lengths), torch.int64)
-            self._cols = dev(a.col_indices, torch.int64)
+            self._expanded()
+
+    def _expanded(self):
+        """(nnz,) int64 row and column of every nonzero on the device —
+        shared by the ref/dense forwards and the SDDMM gradient (built
+        once, on first use by the fused backends)."""
+        if self._rows is None:
+            m = self.shape[0]
+            self._rows = torch.from_numpy(
+                np.repeat(np.arange(m), np.diff(self._row_ptr))).to(
+                    self.device)
+            self._cols = torch.from_numpy(
+                self._col_indices.astype(np.int64)).to(self.device)
+        return self._rows, self._cols
 
     # -- forward -----------------------------------------------------------
     def _check_operands(self, vals: torch.Tensor, x: torch.Tensor) -> None:
-        if vals.requires_grad or x.requires_grad:
-            raise NotImplementedError(
-                "backward: a later slice of the port (the reference's "
-                "custom_vjp becomes a torch.autograd.Function there)")
         if x.dim() != 2 or x.shape[1] != self.d:
             raise ValueError(f"x must be (n, {self.d}), got "
                              f"{tuple(x.shape)}")
@@ -216,7 +274,8 @@ class CompiledSpmm:
         operands, knobs = self.fused_operands(vals, x)
         op = (spmm_ell_fused_op if backend == "pallas_ell"
               else spmm_bcsr_fused_op)
-        y_ws = op(*operands, **knobs, staging=self.staging)
+        y_ws = op(*operands, **knobs, staging=self.staging,
+                  span=fw.max_span, cspan=fw.max_cspan)
         # single inverse-permutation gather restores row order
         return y_ws[fw.inv_perm, :d]
 
@@ -241,8 +300,46 @@ class CompiledSpmm:
                  fw.cols_flat, vals_flat, x_pad.contiguous()),
                 dict(bm=self.bm, bk=self.bk, mw=fw.merge_width))
 
+    # -- gradients ----------------------------------------------------------
+    def _sddmm(self, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """dvals[p] = sum_d dY[row_p, d] * X[col_p, d], in chunks of
+        nonzeros so the gathered rows stay within :data:`SDDMM_CHUNK`
+        entries; each nonzero's sum is the same as unchunked."""
+        rows, cols = self._expanded()
+        out = torch.empty(rows.shape[0], dtype=torch.float32,
+                          device=dy.device)
+        step = max(1, SDDMM_CHUNK // max(dy.shape[1], 1))
+        for s0 in range(0, rows.shape[0], step):
+            r, c = rows[s0:s0 + step], cols[s0:s0 + step]
+            out[s0:s0 + step] = (dy[r].float() * x[c].float()).sum(-1)
+        return out
+
+    def _transpose_apply(self, vals: torch.Tensor,
+                         dy: torch.Tensor) -> torch.Tensor:
+        """dX = Aᵀ·dY through the transposed artifact: built once, cached
+        in this artifact's ``JitCache`` with every knob of the forward
+        (the staging mode included), and fed ``vals[t_order]``."""
+        if self._transpose is None:
+            a = CSRMatrix(self.shape, self._row_ptr, self._col_indices,
+                          torch.zeros(self._col_indices.shape[0],
+                                      device=self.device))
+            t_struct, order = a.transpose_structure()
+            key = ("spmmT", self._fingerprint, self.d, self.strategy,
+                   self.backend, self.bm, self.bk, self.mxu_gain,
+                   self.device, self.staging, self.merge_threshold,
+                   self.validate)
+            self._transpose = self.cache.get_or_build(
+                key, lambda: CompiledSpmm(
+                    t_struct, self.d, strategy=self.strategy,
+                    backend=self.backend, device=self.device, bm=self.bm,
+                    bk=self.bk, mxu_gain=self.mxu_gain, staging=self.staging,
+                    merge_threshold=self.merge_threshold,
+                    validate=self.validate, cache=self.cache))
+            self._t_order = torch.from_numpy(order).to(self.device)
+        return self._transpose._forward(vals[self._t_order], dy)
+
     def __call__(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return self._forward(vals, x)
+        return _Apply.apply(self, vals, x)
 
 
 def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
@@ -257,8 +354,10 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
     ``"cpu"`` to run the kernels' plain versions) and is part of the
     cache key, like every other knob here.  ``bk`` / ``mxu_gain``
     parameterize the pallas_bcsr mixed plan (block width, VPU-vs-MXU
-    tagging).  ``staging`` accepts ``"auto"``/``"resident"``; ``"dma"``
-    raises until the staged kernels land.  ``merge_threshold`` drives
+    tagging).  ``staging`` selects the fused kernels' operand staging
+    (DESIGN.md §7.7): ``"resident"`` runs K1/K2, ``"dma"`` the staged
+    K3/K4; ``"auto"``/``None`` resolves to ``"dma"`` on the card and
+    ``"resident"`` on the CPU.  ``merge_threshold`` drives
     the CGCM merge stage (DESIGN.md §7.9): 0 disables merging, a
     positive value lets up to ``MAX_MERGE_WIDTH`` short block-rows share
     one CTA; the output is identical either way.  ``validate`` runs the
@@ -267,7 +366,7 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
     CPU and ``"off"`` on the card."""
     device = resolve_device(device)
     backend = _resolve_backend(backend, device)
-    staging = _resolve_staging_for(backend, staging)
+    staging = _resolve_staging_for(backend, staging, device)
     merge_threshold = int(merge_threshold)
     validate = resolve_validate(validate, device)
     key = ("spmm", a.fingerprint, d, strategy, backend, bm, bk, mxu_gain,
@@ -277,7 +376,7 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
                                   device=device, bm=bm, bk=bk,
                                   mxu_gain=mxu_gain, staging=staging,
                                   merge_threshold=merge_threshold,
-                                  validate=validate))
+                                  validate=validate, cache=cache))
 
 
 def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",

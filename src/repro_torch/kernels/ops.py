@@ -21,8 +21,8 @@ import collections
 
 import torch
 
-from .spmm_bcsr_fused import spmm_bcsr_fused
-from .spmm_ell_fused import spmm_ell_fused
+from .spmm_bcsr_fused import spmm_bcsr_fused, spmm_bcsr_fused_staged
+from .spmm_ell_fused import spmm_ell_fused, spmm_ell_fused_staged
 
 # name -> number of fused dispatches issued (host-side)
 DISPATCH_COUNTS: "collections.Counter[str]" = collections.Counter()
@@ -63,10 +63,12 @@ def reset_dispatch_counts() -> None:
     BUILD_SECONDS.clear()
 
 
-# fused-dispatch operand staging modes (DESIGN.md §7.7).  On the GPU
-# "resident" means the slot streams stay in device memory and are read
-# through L2; "dma" — the staged kernels K3/K4 — is queued for the next
-# slice, and ``auto`` flips to it on cuda when they land.
+# fused-dispatch operand staging modes (DESIGN.md §7.7):
+#   resident  K1/K2 read the slot streams and X straight from device
+#             memory — the CPU default and the bit-identity oracle
+#   dma       K3/K4 stage each merged trip's slot and column window in a
+#             double-buffered shared-memory ring (and, in K4, X too) —
+#             the card's default, as "dma" is the TPU's
 STAGING_MODES = ("resident", "dma")
 
 
@@ -93,20 +95,39 @@ def resolve_device(device=None) -> str:
     return f"cuda:{index}"
 
 
-def resolve_staging(staging=None) -> str:
-    """The effective staging mode, same contract as
-    :func:`resolve_device`: ``None``/``"auto"``/``"resident"`` resolve to
-    ``"resident"`` in this slice; ``"dma"`` needs the staged kernels."""
-    if staging in (None, "auto", "resident"):
-        return "resident"
+def resolve_staging(staging=None, device: str = "cpu") -> str:
+    """The effective staging mode for a RESOLVED device, same contract
+    as :func:`resolve_device`: ``None``/``"auto"`` picks ``"dma"`` on a
+    ``cuda:*`` device and ``"resident"`` on the CPU (where the staged
+    kernels' plain versions are an oracle, not a win); the resolved
+    string joins every jit-cache key that touches it."""
+    if staging in (None, "auto"):
+        return "resident" if device == "cpu" else "dma"
+    if staging not in STAGING_MODES:
+        raise ValueError(
+            f"staging must be 'auto' or one of {STAGING_MODES}, "
+            f"got {staging!r}")
+    return staging
+
+
+def _resolve_op_staging(staging, device: str, span: int, cspan: int) -> str:
+    """Wrapper-level resolution: the staged kernels need the planner's
+    windows, so a caller without them (a direct kernel-layer call that
+    never built a workspace) is never auto-routed onto the staged path —
+    ``auto`` falls back to resident, and an EXPLICIT ``"dma"`` without
+    windows is an error."""
+    if span > 0 and cspan > 0:
+        return resolve_staging(staging, device)
     if staging == "dma":
-        raise NotImplementedError(
-            "staging='dma' runs the staged kernels K3/K4 "
-            "(spmm_ell_fused_staged / spmm_bcsr_fused_staged), which are "
-            "queued for the next slice of the port")
-    raise ValueError(
-        f"staging must be 'auto' or one of {STAGING_MODES}, "
-        f"got {staging!r}")
+        raise ValueError(
+            "staging='dma' needs the workspace's staging windows "
+            f"(span/cspan > 0, got span={span}, cspan={cspan}) — build "
+            "them with build_fused_workspace")
+    if staging not in (None, "auto", *STAGING_MODES):
+        raise ValueError(
+            f"staging must be 'auto' or one of {STAGING_MODES}, "
+            f"got {staging!r}")
+    return "resident"
 
 
 def resolve_validate(validate=None, device: str = "cpu") -> str:
@@ -126,26 +147,42 @@ def resolve_validate(validate=None, device: str = "cpu") -> str:
 
 
 def spmm_ell_fused_op(blk_off, blk_L, cols_flat, vals_flat, x, *,
-                      bm: int = 8, mw: int = 1, staging=None):
-    """ONE dispatch for the whole plan; CGCM-merged launches (``mw >
-    1``) also count under ``ell_fused_merged``."""
-    resolve_staging(staging)
+                      bm: int = 8, mw: int = 1, staging=None,
+                      span: int = 0, cspan: int = 0):
+    """ONE dispatch for the whole plan, either staging mode; staged
+    launches also count under ``ell_fused_dma`` so tests can assert
+    WHICH lowering served a forward, and CGCM-merged launches (``mw >
+    1``) under ``ell_fused_merged``."""
+    staging = _resolve_op_staging(staging, str(x.device), span, cspan)
     DISPATCH_COUNTS["ell_fused"] += 1
     if mw > 1:
         DISPATCH_COUNTS["ell_fused_merged"] += 1
+    if staging == "dma":
+        DISPATCH_COUNTS["ell_fused_dma"] += 1
+        return spmm_ell_fused_staged(blk_off, blk_L, cols_flat, vals_flat,
+                                     x, span=span, cspan=cspan, bm=bm,
+                                     mw=mw)
     return spmm_ell_fused(blk_off, blk_L, cols_flat, vals_flat, x,
                           bm=bm, mw=mw)
 
 
 def spmm_bcsr_fused_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                        vals_flat, x, *, bm: int = 8, bk: int = 8,
-                       mw: int = 1, staging=None):
+                       mw: int = 1, staging=None, span: int = 0,
+                       cspan: int = 0):
     """ONE dispatch for a whole mixed VPU/MXU plan (Table IV invariant,
-    covering the MXU block-rows as well); CGCM-merged launches also
-    count under ``bcsr_fused_merged``."""
-    resolve_staging(staging)
+    covering the MXU block-rows as well); staged launches also count
+    under ``bcsr_fused_dma``, CGCM-merged ones under
+    ``bcsr_fused_merged``."""
+    staging = _resolve_op_staging(staging, str(x.device), span, cspan)
     DISPATCH_COUNTS["bcsr_fused"] += 1
     if mw > 1:
         DISPATCH_COUNTS["bcsr_fused_merged"] += 1
+    if staging == "dma":
+        DISPATCH_COUNTS["bcsr_fused_dma"] += 1
+        return spmm_bcsr_fused_staged(blk_tag, blk_off, blk_coff, blk_L,
+                                      cols_flat, vals_flat, x, span=span,
+                                      cspan=cspan, bm=bm, bk=bk, mw=mw)
     return spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                            vals_flat, x, bm=bm, bk=bk, mw=mw)
+

@@ -1,5 +1,5 @@
-"""K2: the fused mixed VPU/MXU SpMM — BCSR block-rows folded into the
-single-launch descriptor stream.
+"""K2 and K4: the fused mixed VPU/MXU SpMM — BCSR block-rows folded into
+the single-launch descriptor stream, resident (K2) or staged (K4).
 
 Replaces the TPU kernel ``src/repro/kernels/spmm_bcsr_fused.py`` ::
 ``spmm_bcsr_fused`` (``_kernel``, resident staging) with the hand-written
@@ -16,7 +16,7 @@ What bounds it on an H100: bytes.  On the block-structured instances
 the planner tags MXU, neighbouring block-rows share X panels that L2
 keeps, so the floor is X once, the value panels once and the output once
 over 3.35 TB/s.  The kernel loads each X panel row once per step and
-reuses it for all ``bm`` rows from registers, in full fp32 FFMA (the
+reuses it for all ``bm`` rows from registers, in full fp32 (the
 reference computes fp32 × fp32 → fp32; tensor cores have no IEEE fp32
 mode); the tag branch is per descriptor, uniform across the CTA.
 
@@ -24,6 +24,19 @@ mode); the tag branch is per descriptor, uniform across the CTA.
 same stream in the same per-row order, vectorised over the descriptors,
 rows and columns of each step.  The wrapper runs it for CPU tensors;
 for CUDA tensors it launches the kernel or raises.
+
+K4, :func:`spmm_bcsr_fused_staged`, replaces the TPU kernel
+``spmm_bcsr_fused_staged`` (``_staged_kernel``, ``staging="dma"``) with
+``csrc/spmm_bcsr_fused_staged.cu``: K3's ring of slot and column
+windows (bulk asynchronous copies, two slots, persistent CTAs, chunks
+for a window over the slot's capacity) plus X through shared memory —
+each VPU step's ``bm`` gathered rows and each MXU step's (bk, 128)
+panel are copied three steps ahead into a four-buffer X ring, as the
+reference's ``xgbuf``/``xpbuf``, each thread copying its own column.
+Bound by bytes like K2; the sums run in K2's order, so K4 is
+bit-identical to K2.
+:func:`spmm_bcsr_fused_staged_plain` walks the same windows and chunks
+on the CPU.
 """
 from __future__ import annotations
 
@@ -32,16 +45,22 @@ import ctypes
 import torch
 
 from . import _build
-from .spmm_ell_fused import _long, check_tables, vpu_trips
+from .spmm_ell_fused import (_long, check_staged, check_tables,
+                             staged_plain, staging_geometry, vpu_trips)
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_STAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                    + [ctypes.c_void_p])
 
 
 def mxu_trips(acc, sel, off, coff, L, cols_flat, vals_flat, x, *, bm: int,
               bk: int):
     """Run the block steps of the MXU descriptors ``sel`` into ``acc``:
     at step ``k`` every descriptor with ``L > k`` adds
-    ``a(bm, bk) @ x[bc*bk : bc*bk + bk]`` with ``bc = cols[coff + k]``."""
+    ``t = a(bm, bk) @ x[bc*bk : bc*bk + bk]`` with ``bc = cols[coff + k]``,
+    ``t`` summed over the panel's columns in order, one rounding for each
+    product and each sum — the kernels' order, so their MXU trips match
+    this bit for bit."""
     if sel.numel() == 0:
         return
     panel = torch.arange(bm * bk, device=x.device)
@@ -51,7 +70,10 @@ def mxu_trips(acc, sel, off, coff, L, cols_flat, vals_flat, x, *, bm: int,
         a = vals_flat[off[b, None] + k * bm * bk + panel].view(-1, bm, bk)
         bc = cols_flat[coff[b] + k].long()
         xp = x[bc[:, None] * bk + xrows]                     # (nb, bk, d)
-        acc[b] = acc[b] + torch.bmm(a, xp)
+        t = a[:, :, 0, None] * xp[:, None, 0]
+        for c in range(1, bk):
+            t = t + a[:, :, c, None] * xp[:, None, c]
+        acc[b] = acc[b] + t
 
 
 def spmm_bcsr_fused_plain(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
@@ -69,6 +91,12 @@ def spmm_bcsr_fused_plain(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
     mxu_trips(acc, ids[tag != 0], off, coff, L, cols_flat, vals_flat, x,
               bm=bm, bk=bk)
     return acc.reshape(-1, x.shape[1])
+
+
+def _check_rows(x, bk: int) -> None:
+    if bk < 1 or x.shape[0] % bk:
+        raise ValueError(f"x has {x.shape[0]} rows, not a multiple of "
+                         f"bk={bk}")
 
 
 def spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
@@ -92,9 +120,7 @@ def spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
     check_tables({"blk_tag": blk_tag, "blk_off": blk_off,
                   "blk_coff": blk_coff, "blk_L": blk_L}, cols_flat,
                  vals_flat, x, bm=bm, mw=mw)
-    if bk < 1 or x.shape[0] % bk:
-        raise ValueError(f"x has {x.shape[0]} rows, not a multiple of "
-                         f"bk={bk}")
+    _check_rows(x, bk)
     if x.device.type == "cpu":
         return spmm_bcsr_fused_plain(blk_tag, blk_off, blk_coff, blk_L,
                                      cols_flat, vals_flat, x, bm=bm, bk=bk,
@@ -120,3 +146,62 @@ def spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
 
 
 spmm_bcsr_fused.launches = 0
+
+
+def spmm_bcsr_fused_staged_plain(blk_tag, blk_off, blk_coff, blk_L,
+                                 cols_flat, vals_flat, x, *, span: int,
+                                 cspan: int, bm: int = 8, bk: int = 8,
+                                 mw: int = 1, cap=None) -> torch.Tensor:
+    """Plain PyTorch K4: (B*bm, d_pad) workspace rows, through the same
+    windows and chunks as the kernel (``spmm_ell_fused.staged_plain``)."""
+    tag, off, coff, L = _long(blk_tag, blk_off, blk_coff, blk_L)
+    return staged_plain(tag, off, coff, L, cols_flat, vals_flat, x, bm=bm,
+                        bk=bk, mw=mw, span=span, cspan=cspan, cap=cap,
+                        mxu_steps=mxu_trips)
+
+
+def spmm_bcsr_fused_staged(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                           vals_flat, x, *, span: int, cspan: int,
+                           bm: int = 8, bk: int = 8, mw: int = 1,
+                           cap=None) -> torch.Tensor:
+    """The staged mixed dispatch (DESIGN.md §7.7) — :func:`spmm_bcsr_fused`'s
+    contract and bit-identical output.  ``span``/``cspan`` are the
+    workspace's ``max_span``/``max_cspan`` (see
+    ``spmm_ell_fused.spmm_ell_fused_staged``); ``x`` has a multiple of
+    128 columns.
+
+    CPU tensors run :func:`spmm_bcsr_fused_staged_plain`; CUDA tensors
+    launch ``csrc/spmm_bcsr_fused_staged.cu`` once (counted in
+    ``spmm_bcsr_fused_staged.launches``).
+    """
+    check_tables({"blk_tag": blk_tag, "blk_off": blk_off,
+                  "blk_coff": blk_coff, "blk_L": blk_L}, cols_flat,
+                 vals_flat, x, bm=bm, mw=mw)
+    _check_rows(x, bk)
+    c, ch, kc = staging_geometry(span, cspan, bm=bm, bk=bk, cap=cap)
+    check_staged(x, cols_flat, vals_flat, c=c, bm=bm, bk=bk, x_staged=True)
+    if x.device.type == "cpu":
+        return spmm_bcsr_fused_staged_plain(
+            blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat, x,
+            span=span, cspan=cspan, bm=bm, bk=bk, mw=mw, cap=cap)
+    num_blocks = blk_tag.shape[0]
+    d_pad = x.shape[1]
+    y = torch.empty((num_blocks * bm, d_pad), dtype=torch.float32,
+                    device=x.device)
+    if num_blocks == 0:
+        return y
+    lib = _build.load("spmm_bcsr_fused_staged", _STAGED_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = lib.spmm_bcsr_fused_staged_launch(
+            blk_tag.data_ptr(), blk_off.data_ptr(), blk_coff.data_ptr(),
+            blk_L.data_ptr(), cols_flat.data_ptr(), vals_flat.data_ptr(),
+            x.data_ptr(), y.data_ptr(), num_blocks // mw, bm, bk, mw, d_pad,
+            c, ch, kc, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"spmm_bcsr_fused_staged launch failed with CUDA "
+                           f"error {err}")
+    spmm_bcsr_fused_staged.launches += 1
+    return y
+
+
+spmm_bcsr_fused_staged.launches = 0

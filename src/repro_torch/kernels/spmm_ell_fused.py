@@ -1,4 +1,5 @@
-"""K1: the fused multi-segment CCM SpMM — the whole plan in ONE launch.
+"""K1 and K3: the fused multi-segment CCM SpMM — the whole plan in ONE
+launch, resident (K1) or staged through shared memory (K3).
 
 Replaces the TPU kernel ``src/repro/kernels/spmm_ell_fused.py`` ::
 ``spmm_ell_fused`` (``_kernel``, resident staging) with the hand-written
@@ -19,6 +20,22 @@ writes each output row once (the note in the ``.cu`` file has more).
 same descriptor stream in the same per-row order, vectorised over the
 descriptors, rows and columns of each trip step.  The wrapper runs it
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
+
+K3, :func:`spmm_ell_fused_staged`, replaces the TPU kernel
+``spmm_ell_fused_staged`` (``_staged_kernel``, ``staging="dma"``) with
+``csrc/spmm_ell_fused_staged.cu``: persistent CTAs walk merged trips, and
+each trip's slot and column window reaches the compute through a
+two-slot shared-memory ring filled by bulk asynchronous copies, the
+next window in flight while the current one computes.  It is bound by
+the same bytes as K1; the ring takes the window reads off the critical
+path and issues them as a few large copies instead of ``bm`` scattered
+loads per step.  A window larger than the ring's slot (a hub row) is
+walked in chunks that keep every row's order of summation, so K3 is
+bit-identical to K1.  :func:`staging_geometry` and :func:`staged_walk`
+hold the window arithmetic both staged kernels share, and
+:func:`spmm_ell_fused_staged_plain` runs it on the CPU: it copies the
+same aligned windows and chunks into buffers whose unfilled entries are
+NaN (values) or out of range (columns), so a window error shows there.
 """
 from __future__ import annotations
 
@@ -29,6 +46,8 @@ import torch
 from . import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_STAGED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p])
 
 SUPPORTED_BM = (1, 2, 4, 8, 16)
 
@@ -142,3 +161,275 @@ def spmm_ell_fused(blk_off, blk_L, cols_flat, vals_flat, x, *,
 
 
 spmm_ell_fused.launches = 0
+
+
+# -- K3: the staged kernel, and the window arithmetic K3/K4 share ----------
+
+# default slot capacity of the staging ring, in stream entries per slot
+# and stream: a trip whose window is larger is walked in chunks
+STAGE_CAP = 1024
+# shared memory one CTA may use on an H100
+MAX_SHARED_BYTES = 232448
+COL_TILE = 128          # output columns per CTA (csrc/spmm_trips.cuh)
+X_STAGES = 4            # K4's X ring buffers (csrc/spmm_staged.cuh)
+_INT_FILL = torch.iinfo(torch.int32).max    # an unfilled column entry
+
+
+def staging_geometry(span: int, cspan: int, *, bm: int, bk: int = 1,
+                     cap=None):
+    """The ring a staged launch allocates, as ``(C, CH, KC)``.
+
+    ``C`` is the slot capacity in entries: the workspace's window
+    (``max(span, cspan)``), capped at ``cap`` (default
+    :data:`STAGE_CAP`), at least one MXU step and 8 entries per row,
+    rounded up to whole 16-byte copy units.  A slot holds ``C + 4``
+    entries, room for a window copied from its 16-byte-aligned start.
+    A trip whose own window exceeds ``C`` is walked member by member, in
+    chunks: ``CH`` slots per row for a VPU descriptor (each row's
+    segment copied to its own ``CH + 4``-entry row of the slot) or
+    ``KC`` block steps for an MXU descriptor."""
+    if span <= 0 or cspan <= 0:
+        raise ValueError(f"the staged kernels need the workspace's "
+                         f"windows, got span={span}, cspan={cspan}")
+    limit = STAGE_CAP if cap is None else int(cap)
+    c = max(min(max(int(span), int(cspan)), limit), 8 * bm, bm * bk)
+    c = -(-c // 4) * 4
+    return c, ((c + 4) // bm - 4) // 4 * 4, c // (bm * bk)
+
+
+def ring_bytes(c: int, *, bm: int, bk: int, x_staged: bool) -> int:
+    """Dynamic shared memory of one staged CTA: two mbarriers, two slots
+    of ``c + 4`` entries for each of the value and column streams, and
+    for K4 :data:`X_STAGES` X buffers of ``max(bm, bk)`` rows by one
+    column tile (``csrc/spmm_staged.cuh`` computes the same)."""
+    x_ring = X_STAGES * max(bm, bk) * COL_TILE * 4 if x_staged else 0
+    return 16 + 2 * 2 * (c + 4) * 4 + x_ring
+
+
+def aligned(src: int, length: int):
+    """The 16-byte-aligned span ``[a0, a1)`` a copy of stream entries
+    ``[src, src + length)`` reads (empty when ``length`` is 0)."""
+    if length <= 0:
+        return src, src
+    return src // 4 * 4, -(-(src + length) // 4) * 4
+
+
+def copy_window(stream: torch.Tensor, src: int, length: int, slot: int,
+                fill) -> torch.Tensor:
+    """What a staged kernel finds in a ``slot``-entry buffer after
+    copying stream entries ``[src, src + length)`` from the aligned-down
+    start: the aligned span, then ``fill`` where nothing was copied.
+    Entry ``src + i`` lands at ``src % 4 + i``."""
+    a0, a1 = aligned(src, length)
+    if a1 > stream.shape[0] or a1 - a0 > slot:
+        raise IndexError(f"window [{a0}, {a1}) does not fit: stream of "
+                         f"{stream.shape[0]} entries, slot of {slot}")
+    buf = torch.full((slot,), fill, dtype=stream.dtype, device=stream.device)
+    buf[:a1 - a0] = stream[a0:a1]
+    return buf
+
+
+def member_extents(tag, L, *, bm: int, bk: int):
+    """Per-descriptor window sizes: ``bm*L`` slots and column entries
+    for a VPU descriptor, ``L*bm*bk`` slots and ``L`` column entries for
+    an MXU one (the planner's ``blk_span``/``blk_cspan`` terms)."""
+    mxu = tag != 0
+    return (torch.where(mxu, L * bm * bk, bm * L),
+            torch.where(mxu, L, bm * L))
+
+
+def staged_walk(tag, off, coff, L, *, bm: int, bk: int, mw: int, c: int,
+                ch: int, kc: int):
+    """The staged kernels' order of work: one item per merged trip whose
+    window fits a slot, ``("trip", g, span, cspan)``, and for every
+    other trip one item per chunk of each member in turn, ``("vpu", b,
+    n0, n1)`` for steps ``[n0, n1)`` of a VPU descriptor and ``("mxu",
+    b, k0, k1)`` for an MXU one; a member with no trips has one empty
+    chunk.  Tables are int64 CPU tensors; the kernel computes the same
+    items on the device."""
+    span, cspan = member_extents(tag, L, bm=bm, bk=bk)
+    t_span = span.view(-1, mw).sum(1).tolist()
+    t_cspan = cspan.view(-1, mw).sum(1).tolist()
+    tags, Ls = tag.tolist(), L.tolist()
+    for g, (sp, cs) in enumerate(zip(t_span, t_cspan)):
+        if sp <= c and cs <= c:
+            yield ("trip", g, sp, cs)
+            continue
+        for b in range(g * mw, (g + 1) * mw):
+            step = kc if tags[b] else ch
+            kind = "mxu" if tags[b] else "vpu"
+            for s0 in range(0, max(Ls[b], 1), step):
+                yield (kind, b, s0, min(Ls[b], s0 + step))
+
+
+def staged_plain(tag, off, coff, L, cols_flat, vals_flat, x, *, bm: int,
+                 bk: int, mw: int, span: int, cspan: int, cap,
+                 mxu_steps=None) -> torch.Tensor:
+    """Plain PyTorch version of a staged kernel (K3 with ``tag`` all VPU
+    and ``coff == off``, K4 with ``mxu_steps``): (B*bm, d_pad) workspace
+    rows.  The trips that fit a slot run together, vectorised as in the
+    resident versions but reading their slots and columns from buffers
+    copied the way the kernel copies them; the chunked trips run chunk
+    by chunk, in :func:`staged_walk`'s order."""
+    c, ch, kc = staging_geometry(span, cspan, bm=bm, bk=bk, cap=cap)
+    slot = c + 4
+    dev = x.device
+    acc = torch.zeros((L.shape[0], bm, x.shape[1]), dtype=torch.float32,
+                      device=dev)
+    chunks = []
+    fit = []
+    for item in staged_walk(tag.cpu(), off.cpu(), coff.cpu(), L.cpu(),
+                            bm=bm, bk=bk, mw=mw, c=c, ch=ch, kc=kc):
+        (fit if item[0] == "trip" else chunks).append(item)
+    if fit:
+        _fitting_trips(acc, fit, tag, off, coff, L, cols_flat, vals_flat, x,
+                       bm=bm, bk=bk, mw=mw, slot=slot, mxu_steps=mxu_steps)
+    rr = torch.arange(bm, device=dev)
+    for kind, b, s0, s1 in chunks:
+        Lb, ob, cb = int(L[b]), int(off[b]), int(coff[b])
+        if s1 <= s0:
+            continue
+        if kind == "vpu":
+            # row r's segment [r*L + s0, r*L + s1) in its own slot row
+            vb = torch.cat([copy_window(vals_flat, ob + r * Lb + s0, s1 - s0,
+                                        ch + 4, float("nan"))
+                            for r in range(bm)])
+            cbuf = torch.cat([copy_window(cols_flat, cb + r * Lb + s0,
+                                          s1 - s0, ch + 4, _INT_FILL)
+                              for r in range(bm)])
+            vrow = rr * (ch + 4) + (ob + rr * Lb + s0) % 4
+            crow = rr * (ch + 4) + (cb + rr * Lb + s0) % 4
+            for nz in range(s1 - s0):
+                v = vb[vrow + nz]
+                k = cbuf[crow + nz].long()
+                acc[b] = acc[b] + v[:, None] * x[k]
+        else:
+            step = bm * bk
+            vb = copy_window(vals_flat, ob + s0 * step, (s1 - s0) * step,
+                             slot, float("nan"))
+            cbuf = copy_window(cols_flat, cb + s0, s1 - s0, slot, _INT_FILL)
+            # the chunk as one descriptor of s1 - s0 steps on its buffers
+            one = torch.zeros(1, dtype=torch.long, device=dev)
+            mxu_steps(acc[b:b + 1], one, one + (ob + s0 * step) % 4,
+                      one + (cb + s0) % 4, one + (s1 - s0), cbuf, vb, x,
+                      bm=bm, bk=bk)
+    return acc.reshape(-1, x.shape[1])
+
+
+def _fitting_trips(acc, items, tag, off, coff, L, cols_flat, vals_flat, x,
+                   *, bm, bk, mw, slot, mxu_steps):
+    """Every trip whose window fits a slot, at once: each trip's value
+    and column windows copied from their aligned-down starts into its
+    own ``slot``-entry buffer (NaN / out-of-range beyond what was
+    copied), then the resident trip loops run on those buffers with each
+    descriptor's offsets rebased into its trip's buffer."""
+    dev = x.device
+    g = torch.tensor([it[1] for it in items], device=dev)
+    t_span = torch.tensor([it[2] for it in items], device=dev)
+    t_cspan = torch.tensor([it[3] for it in items], device=dev)
+    first = g * mw
+    vbuf, va = _windows(vals_flat, off[first], t_span, slot, float("nan"))
+    cbuf, ca = _windows(cols_flat, coff[first], t_cspan, slot, _INT_FILL)
+    members = (first[:, None] + torch.arange(mw, device=dev)).reshape(-1)
+    base = torch.arange(len(items), device=dev).repeat_interleave(mw) * slot
+    soff = torch.zeros_like(off)
+    scoff = torch.zeros_like(coff)
+    soff[members] = base + off[members] - va.repeat_interleave(mw)
+    scoff[members] = base + coff[members] - ca.repeat_interleave(mw)
+    mxu = tag[members] != 0
+    vpu_trips(acc, members[~mxu], soff, scoff, L, cbuf, vbuf, x, bm=bm)
+    if mxu_steps is not None:
+        mxu_steps(acc, members[mxu], soff, scoff, L, cbuf, vbuf, x, bm=bm,
+                  bk=bk)
+
+
+def _windows(stream, src, length, slot: int, fill):
+    """Batched :func:`copy_window`: one ``slot``-entry row per window,
+    flattened, and each window's aligned start."""
+    a0 = src // 4 * 4
+    a1 = torch.where(length > 0, (src + length + 3) // 4 * 4, a0)
+    if bool((a1 > stream.shape[0]).any()) or bool((a1 - a0 > slot).any()):
+        raise IndexError("a staged window runs past its stream or slot")
+    pos = a0[:, None] + torch.arange(slot, device=stream.device)
+    copied = pos < a1[:, None]
+    buf = stream[pos.clamp(max=max(stream.shape[0] - 1, 0))]
+    buf = torch.where(copied, buf, torch.full_like(buf, fill))
+    return buf.reshape(-1), a0
+
+
+def check_staged(x, cols_flat, vals_flat, *, c: int, bm: int, bk: int,
+                 x_staged: bool) -> None:
+    """What a staged launch needs beyond :func:`check_tables`: whole
+    column tiles, a ring that fits a CTA, and (on the card) column and
+    value streams on 16-byte boundaries for the bulk copies."""
+    if x.shape[1] % COL_TILE:
+        raise ValueError(f"the staged kernels take x with a multiple of "
+                         f"{COL_TILE} columns, got {x.shape[1]}")
+    nbytes = ring_bytes(c, bm=bm, bk=bk, x_staged=x_staged)
+    if nbytes > MAX_SHARED_BYTES:
+        raise ValueError(f"a staging ring of {nbytes} bytes exceeds the "
+                         f"{MAX_SHARED_BYTES} bytes a CTA may use")
+    if x.device.type == "cuda":
+        for name, t in (("cols_flat", cols_flat), ("vals_flat", vals_flat)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary "
+                                 f"for the staged kernels' copies")
+
+
+def spmm_ell_fused_staged_plain(blk_off, blk_L, cols_flat, vals_flat, x, *,
+                                span: int, cspan: int, bm: int = 8,
+                                mw: int = 1, cap=None) -> torch.Tensor:
+    """Plain PyTorch K3: (B*bm, d_pad) workspace rows, through the same
+    windows and chunks as the kernel (:func:`staged_plain`)."""
+    off, L = _long(blk_off, blk_L)
+    return staged_plain(torch.zeros_like(L), off, off, L, cols_flat,
+                        vals_flat, x, bm=bm, bk=1, mw=mw, span=span,
+                        cspan=cspan, cap=cap)
+
+
+def spmm_ell_fused_staged(blk_off, blk_L, cols_flat, vals_flat, x, *,
+                          span: int, cspan: int, bm: int = 8, mw: int = 1,
+                          cap=None) -> torch.Tensor:
+    """The staged fused dispatch (DESIGN.md §7.7) — :func:`spmm_ell_fused`'s
+    contract and bit-identical output.
+
+    ``span``/``cspan`` are the workspace's ``max_span``/``max_cspan``:
+    they size the ring's slots (capped at ``cap``, default
+    :data:`STAGE_CAP` entries), and the streams' tail padding of
+    ``max_span`` entries keeps every aligned window copy in bounds.
+    ``x`` has a multiple of 128 columns.
+
+    CPU tensors run :func:`spmm_ell_fused_staged_plain`; CUDA tensors
+    launch ``csrc/spmm_ell_fused_staged.cu`` once (counted in
+    ``spmm_ell_fused_staged.launches``).
+    """
+    check_tables({"blk_off": blk_off, "blk_L": blk_L}, cols_flat, vals_flat,
+                 x, bm=bm, mw=mw)
+    c, ch, _ = staging_geometry(span, cspan, bm=bm, cap=cap)
+    check_staged(x, cols_flat, vals_flat, c=c, bm=bm, bk=1, x_staged=False)
+    if x.device.type == "cpu":
+        return spmm_ell_fused_staged_plain(blk_off, blk_L, cols_flat,
+                                           vals_flat, x, span=span,
+                                           cspan=cspan, bm=bm, mw=mw,
+                                           cap=cap)
+    num_blocks = blk_off.shape[0]
+    d_pad = x.shape[1]
+    y = torch.empty((num_blocks * bm, d_pad), dtype=torch.float32,
+                    device=x.device)
+    if num_blocks == 0:
+        return y
+    lib = _build.load("spmm_ell_fused_staged", _STAGED_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = lib.spmm_ell_fused_staged_launch(
+            blk_off.data_ptr(), blk_L.data_ptr(), cols_flat.data_ptr(),
+            vals_flat.data_ptr(), x.data_ptr(), y.data_ptr(),
+            num_blocks // mw, bm, mw, d_pad, c, ch,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"spmm_ell_fused_staged launch failed with CUDA "
+                           f"error {err}")
+    spmm_ell_fused_staged.launches += 1
+    return y
+
+
+spmm_ell_fused_staged.launches = 0

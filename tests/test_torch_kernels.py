@@ -1,4 +1,4 @@
-"""K1/K2: the port's kernels against the reference's Pallas kernels.
+"""K1-K4: the port's kernels against the reference's Pallas kernels.
 
 On the CPU the port's wrappers run the plain PyTorch versions; these
 are held to the reference's ``spmm_ell_fused`` / ``spmm_bcsr_fused`` in
@@ -7,7 +7,10 @@ pad blocks) at rtol = atol = 1e-5: the same products summed in the same
 per-row order, but the MXU step's dot product may sum in another order.
 
 The CUDA kernels themselves are held to the plain versions by the
-``cuda``-marked test, which runs only on a Hopper card.  A CUDA machine
+``cuda``-marked test, which runs only on a Hopper card; there the staged
+kernels K3/K4 must also equal K1/K2 bit for bit.  The staged kernels'
+plain versions are held to the reference on the CPU in
+``tests/test_torch_staging.py``.  A CUDA machine
 need not have JAX, so this module imports the reference only inside the
 tests that compare with it:
 
@@ -196,22 +199,33 @@ def test_cuda_kernels_match_plain():
     if not (torch.cuda.is_available()
             and torch.cuda.get_device_capability() == (9, 0)):
         pytest.skip("needs a Hopper (sm_90) CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False   # full-fp32 plain bmm
-    for fixture, merge_threshold, d in itertools.product(
-            sorted(FIXTURES), (0, 16), (16, 100, 640)):
+    from repro_torch.kernels import (spmm_bcsr_fused_staged,
+                                     spmm_bcsr_fused_staged_plain,
+                                     spmm_ell_fused_staged,
+                                     spmm_ell_fused_staged_plain)
+    for fixture, merge_threshold, d, cap in itertools.product(
+            sorted(FIXTURES), (0, 16), (16, 100, 640), (None, 64)):
         a = FIXTURES[fixture]()
-        for backend, fn, plain, names in (
-                ("pallas_ell", spmm_ell_fused, spmm_ell_fused_plain, ELL),
+        for backend, fn, plain, staged, staged_plain, names in (
+                ("pallas_ell", spmm_ell_fused, spmm_ell_fused_plain,
+                 spmm_ell_fused_staged, spmm_ell_fused_staged_plain, ELL),
                 ("pallas_bcsr", spmm_bcsr_fused, spmm_bcsr_fused_plain,
+                 spmm_bcsr_fused_staged, spmm_bcsr_fused_staged_plain,
                  BCSR)):
             ws, args = workspace(a, backend, merge_threshold, d)
             t = torch_args(args, "cuda")
             kw = dict(bm=8, mw=ws.merge_width)
             if backend == "pallas_bcsr":
                 kw["bk"] = 8
-            launches = fn.launches
+            win = dict(span=ws.max_span, cspan=ws.max_cspan, cap=cap)
+            launches = (fn.launches, staged.launches)
             got = call(fn, t, names, **kw)
             want = call(plain, t, names, **kw)
+            got_staged = call(staged, t, names, **kw, **win)
+            want_staged = call(staged_plain, t, names, **kw, **win)
             torch.cuda.synchronize()
-            assert fn.launches == launches + 1
+            assert (fn.launches, staged.launches) == (launches[0] + 1,
+                                                      launches[1] + 1)
             torch.testing.assert_close(got, want, **TOL)
+            torch.testing.assert_close(got_staged, want_staged, **TOL)
+            assert torch.equal(got_staged, got)
