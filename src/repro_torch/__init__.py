@@ -8,9 +8,12 @@ nothing of ``repro``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``; on the CPU the kernels run their plain
 PyTorch versions.
 """
-from . import analysis, convert, core, gnn, kernels
-from .core import (CompiledSpmm, CSRMatrix, compile_spmm, random_csr,
-                   spmm)
+from . import analysis, configs, convert, core, gnn, kernels, models
+from .core import (CompiledSparseAttention, CompiledSpmm, CSRMatrix,
+                   compile_sparse_attention, compile_spmm, random_csr,
+                   sparse_attention, spmm)
 
-__all__ = ["analysis", "convert", "core", "gnn", "kernels", "CompiledSpmm",
-           "CSRMatrix", "compile_spmm", "random_csr", "spmm"]
+__all__ = ["analysis", "configs", "convert", "core", "gnn", "kernels",
+           "models", "CompiledSparseAttention", "CompiledSpmm", "CSRMatrix",
+           "compile_sparse_attention", "compile_spmm", "random_csr",
+           "sparse_attention", "spmm"]

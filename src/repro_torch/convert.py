@@ -2,7 +2,8 @@
 
 The reference's state is the SpMM instance — a ``CSRMatrix`` whose
 structure is host numpy and whose values are a JAX array — the dense
-operand, and the GCN's parameter pytree (``examples/gnn_graphconv.py``).
+operand, and the parameter pytrees of the GCN
+(``examples/gnn_graphconv.py``) and of the ``sattn`` layer.
 These take those as numpy arrays (what ``np.asarray`` gives for either
 package) and build the port's objects, so one seeded instance or model
 can feed both packages.
@@ -34,9 +35,14 @@ def dense_from_numpy(x, *, device=None) -> torch.Tensor:
 
 
 def params_from_numpy(params, *, device=None, requires_grad: bool = True):
-    """The reference GCN's parameter pytree (a dict of arrays, e.g.
-    ``{"w1": (D_IN, D_H), "w2": (D_H, CLASSES)}``) as a dict of float32
-    leaf tensors on ``device``, ready for ``torch.autograd``."""
-    return {name: dense_from_numpy(np.asarray(value), device=device)
-            .requires_grad_(requires_grad)
+    """A reference parameter pytree — a dict of arrays such as the GCN's
+    ``{"w1": (D_IN, D_H), "w2": (D_H, CLASSES)}`` or the ``sattn`` slot's
+    ``{"ln", "wq", "wk", "wv", "wo"}``, nested dicts allowed — as the
+    same dict of float32 leaf tensors on ``device``, ready for
+    ``torch.autograd``."""
+    return {name: (params_from_numpy(value, device=device,
+                                     requires_grad=requires_grad)
+                   if isinstance(value, dict) else
+                   dense_from_numpy(np.asarray(value), device=device)
+                   .requires_grad_(requires_grad))
             for name, value in params.items()}

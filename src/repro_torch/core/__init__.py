@@ -1,5 +1,6 @@
-# The paper's primary contribution, JIT-specialized SpMM, ported to
-# PyTorch + CUDA (the reference is src/repro/core/).
+# The paper's primary contribution, JIT-specialized SpMM, and the fused
+# sparse-attention sandwich on the same plan, ported to PyTorch + CUDA
+# (the reference is src/repro/core/).
 from .csr import CSRMatrix, from_coo, random_csr
 from .ccm import ccm_register_decomposition, plan_d_tiles, DTiling
 from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
@@ -17,8 +18,9 @@ from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
                    PLAN_STAGES, MAX_MERGE_WIDTH, MXU_TAG, VPU_TAG)
 from .jit_cache import (GLOBAL_CACHE, JitCache, clear_global_cache,
                         mesh_fingerprint)
-from .spmm import (CompiledSpmm, compile_spmm, spmm, BACKENDS,
-                   FUSED_BACKENDS)
+from .spmm import (CompiledSparseAttention, CompiledSpmm,
+                   compile_sparse_attention, compile_spmm, sparse_attention,
+                   spmm, BACKENDS, FUSED_BACKENDS)
 
 __all__ = [
     "CSRMatrix", "from_coo", "random_csr",
@@ -37,4 +39,6 @@ __all__ = [
     "PLAN_STAGES", "MAX_MERGE_WIDTH", "MXU_TAG", "VPU_TAG",
     "GLOBAL_CACHE", "JitCache", "clear_global_cache", "mesh_fingerprint",
     "CompiledSpmm", "compile_spmm", "spmm", "BACKENDS", "FUSED_BACKENDS",
+    "CompiledSparseAttention", "compile_sparse_attention",
+    "sparse_attention",
 ]

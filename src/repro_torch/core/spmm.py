@@ -31,9 +31,19 @@ Gradients: calling an artifact is a ``torch.autograd.Function`` (the
 reference's ``custom_vjp``).  dX = Aᵀ·dY runs through a transposed
 artifact cached beside the forward one, on the same fused kernel and
 staging mode; dvals is the SDDMM ``sum(dY[rows] * X[cols], -1)`` in
-plain torch, as the reference computes it outside any kernel.  Still to
-come in later slices, and absent from the signature until then: the
-sharded path (``mesh``/``n_chips``/``x_sharding``) and autotuning.
+plain torch, as the reference computes it outside any kernel.
+
+``compile_sparse_attention`` / ``sparse_attention`` run the fused
+sparse-attention sandwich ``softmax(mask ⊙ Q·Kᵀ)·V`` through the same
+plan, in ONE launch of K5 (``kernels/csrc/attn_fused.cu``) or, staged,
+K6 (``attn_fused_staged.cu``, the card's default).  Its backward
+differentiates the plain-torch reference formulation, recomputed in
+chunks of whole query rows, as the reference's ``jax.vjp`` of its jnp
+oracle does.
+
+Still to come in later slices: the sharded path
+(``mesh``/``n_chips``/``x_sharding``, which the attention entry points
+accept only to raise) and autotuning.
 """
 from __future__ import annotations
 
@@ -46,20 +56,24 @@ import torch
 
 from . import ccm
 from .csr import CSRMatrix
-from .jit_cache import GLOBAL_CACHE, JitCache
-from .plan import (MixedPlan, SpmmPlan, build_fused_workspace,
-                   build_mixed_plan, build_plan, choose_merge_width)
+from .jit_cache import GLOBAL_CACHE, JitCache, mesh_fingerprint
+from .plan import (SPARSE_ATTN_EINSUM, SPARSE_ATTN_MIXED_EINSUM, MixedPlan,
+                   SpmmPlan, build_einsum_workspace, build_fused_workspace,
+                   build_mixed_plan, build_plan, choose_merge_width,
+                   workspace_row_map)
 from ..analysis.verify import PlanVerificationError, check_workspace
-from ..kernels.ops import (record_build_seconds, resolve_device,
-                           resolve_staging, resolve_validate,
+from ..kernels.ops import (attn_fused_op, record_build_seconds,
+                           resolve_device, resolve_staging, resolve_validate,
                            spmm_bcsr_fused_op, spmm_ell_fused_op)
 from ..kernels.ref import spmm_coo_ref, spmm_dense_ref
 
-__all__ = ["BACKENDS", "FUSED_BACKENDS", "CompiledSpmm",
-           "PlanVerificationError", "compile_spmm", "spmm"]
+__all__ = ["BACKENDS", "FUSED_BACKENDS", "CompiledSparseAttention",
+           "CompiledSpmm", "PlanVerificationError", "compile_sparse_attention",
+           "compile_spmm", "sparse_attention", "spmm"]
 
 # bound on the (nonzeros x d) products one SDDMM chunk holds at a time:
-# 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]
+# 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]; the
+# attention backward's chunks of whole query rows keep to it as well
 SDDMM_CHUNK = 1 << 25
 
 BACKENDS = ("pallas_ell", "pallas_bcsr", "ref", "dense", "auto")
@@ -391,3 +405,325 @@ def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",
                             merge_threshold=merge_threshold,
                             validate=validate, cache=cache)
     return compiled(a.vals, x)
+
+
+# -- the fused sparse-attention sandwich (DESIGN.md §13) ---------------------
+
+class _Attend(torch.autograd.Function):
+    """The attention artifact's forward with the reference's custom VJP:
+    the gradients of the plain-torch formulation, recomputed; a gradient
+    nobody asked for is not computed."""
+
+    @staticmethod
+    def forward(ctx, c: "CompiledSparseAttention", vals, q, k, v):
+        ctx.c = c
+        ctx.save_for_backward(vals, q, k, v)
+        return c._forward(vals, q, k, v)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (None, *ctx.c._ref_vjp(*ctx.saved_tensors, dy,
+                                      ctx.needs_input_grad[1:]))
+
+
+class CompiledSparseAttention:
+    """Structure-specialized sparse attention on one device: out =
+    softmax(mask ⊙ (Q·Kᵀ)) · V, lowered as ONE fused launch through the
+    same descriptor stream as SpMM (port of the reference's class of the
+    same name, DESIGN.md §13).
+
+    ``a`` is the (m queries × n keys) mask pattern; its values are the
+    mask weights ``w`` (1.0 for a plain binary mask), giving ``p ∝ w ·
+    exp(z)`` — softmax over the present entries.  Weights must be
+    non-negative: ``w <= 0`` entries count as absent.  The plan is the
+    sparse-einsum composition (``build_einsum_workspace``); Q reaches the
+    kernel in workspace order through ``workspace_row_map``, and the
+    score matrix never reaches device memory.
+
+    Gradients: the backward differentiates :meth:`_ref_forward`, the
+    plain-torch formulation, recomputed in chunks of whole query rows of
+    at most ``SDDMM_CHUNK`` gathered entries per operand (the reference
+    takes ``jax.vjp`` of its jnp oracle).  It calls no kernel.
+    """
+
+    def __init__(self, a: CSRMatrix, dh: int, dv: Optional[int] = None, *,
+                 strategy: str = "nnz_split", backend: str = "auto",
+                 device: Optional[str] = None, bm: int = 8, bk: int = 8,
+                 mxu_gain: float = 4.0, staging: Optional[str] = None,
+                 merge_threshold: int = 0, sm_scale: Optional[float] = None,
+                 validate: Optional[str] = None):
+        self.device = resolve_device(device)
+        self.backend = _resolve_backend(backend, self.device)
+        if self.backend == "dense":
+            raise ValueError("sparse attention has no dense backend — use "
+                             "ref as the oracle")
+        self.strategy = strategy
+        self.bm = bm
+        self.bk = bk
+        self.mxu_gain = mxu_gain
+        self.merge_threshold = int(merge_threshold)
+        self.validate = resolve_validate(validate, self.device)
+        self.staging = _resolve_staging_for(self.backend, staging,
+                                            self.device)
+        self.dh = int(dh)
+        self.dv = int(dh) if dv is None else int(dv)
+        self.sm_scale = (float(dh) ** -0.5 if sm_scale is None
+                         else float(sm_scale))
+        self.shape = a.shape
+        self._row_ptr = a.row_ptr
+        self._col_indices = a.col_indices
+        self._fingerprint = a.fingerprint
+        # the value width tiles the kernel's columns; the head width is
+        # only padded (scores reduce over it whole)
+        self.d_tiling = ccm.plan_d_tiles(self.dv, rows_in_flight=bm)
+        self._dh_pad = ccm.plan_d_tiles(self.dh).d_pad
+        # both trip kinds read K/V rows by (bk,) panels on the MXU side
+        self._kv_rows_pad = -(-a.shape[1] // bk) * bk
+        self._rows: Optional[torch.Tensor] = None
+        self._cols: Optional[torch.Tensor] = None
+
+        self._fused: Optional[_FusedConsts] = None
+        self._row_map: Optional[torch.Tensor] = None   # ws slot -> Q row
+        if self.backend in FUSED_BACKENDS:
+            spec = (SPARSE_ATTN_MIXED_EINSUM if self.backend == "pallas_bcsr"
+                    else SPARSE_ATTN_EINSUM)
+            ws = build_einsum_workspace(
+                spec, a.row_ptr, a.col_indices, a.shape, self.dv,
+                strategy=strategy, row_block=bm, bk=bk, mxu_gain=mxu_gain,
+                merge_threshold=self.merge_threshold,
+                fingerprint=a.fingerprint)
+            self.workspace = ws
+            # verify the SAME forward map the Q gather ships
+            row_map = workspace_row_map(ws.inv_perm, ws.ws_rows)
+            if self.validate != "off":
+                _verify_workspace_timed(
+                    ws, level=self.validate, n_cols=a.shape[1], spec=spec,
+                    vals=a.vals.detach().cpu().numpy(), row_map=row_map,
+                    context=f"compile_sparse_attention[{self.backend}]")
+
+            def dev(arr: np.ndarray, dtype=torch.int32) -> torch.Tensor:
+                return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                    device=self.device, dtype=dtype)
+
+            self._fused = _FusedConsts(
+                blk_tag=dev(ws.blk_tag), blk_off=dev(ws.blk_off),
+                blk_coff=dev(ws.blk_coff), blk_L=dev(ws.blk_L),
+                cols_flat=dev(ws.cols_flat),
+                gather_flat=dev(ws.gather_flat, torch.int64),
+                inv_perm=dev(ws.inv_perm, torch.int64),
+                num_blocks=ws.num_blocks, merge_width=ws.merge_width,
+                max_span=ws.max_span, max_cspan=ws.max_cspan)
+            self._row_map = dev(row_map, torch.int64)
+            record_build_seconds("pack", ws.pack_seconds)
+        elif self.backend != "ref":
+            raise ValueError(self.backend)
+
+    def _expanded(self):
+        """(nnz,) int64 query row and key column of every nonzero on the
+        device, for the reference formulation (built on first use)."""
+        if self._rows is None:
+            self._rows = torch.from_numpy(np.repeat(
+                np.arange(self.shape[0]), np.diff(self._row_ptr))).to(
+                    self.device)
+            self._cols = torch.from_numpy(
+                self._col_indices.astype(np.int64)).to(self.device)
+        return self._rows, self._cols
+
+    def row_chunks(self):
+        """``[(r0, r1), ...]``: the query rows in consecutive runs of at
+        most ``SDDMM_CHUNK // max(dh, dv)`` nonzeros (a longer row is a
+        run of its own), so each run's gathered Q/K/V rows stay within
+        ``SDDMM_CHUNK`` entries per operand."""
+        limit = max(1, SDDMM_CHUNK // max(self.dh, self.dv, 1))
+        rp, m = self._row_ptr, self.shape[0]
+        chunks, r0 = [], 0
+        while r0 < m:
+            r1 = int(np.searchsorted(rp, rp[r0] + limit, side="right")) - 1
+            r1 = min(max(r1, r0 + 1), m)
+            chunks.append((r0, r1))
+            r0 = r1
+        return chunks
+
+    def _ref_rows(self, vals, q, k, v, r0: int, r1: int) -> torch.Tensor:
+        """The reference formulation for query rows ``[r0, r1)``:
+        ``vals`` are those rows' nonzeros and ``q`` those rows.  The same
+        ``p ∝ w · exp(z)`` semantics in segment ops, with the NaN-free
+        clamp — ``w > 0`` entries never clamp (the row max dominates),
+        ``w == 0`` ones are killed before they can overflow — and empty
+        rows give 0."""
+        rows, cols = self._expanded()
+        p0, p1 = int(self._row_ptr[r0]), int(self._row_ptr[r1])
+        rows, cols = rows[p0:p1] - r0, cols[p0:p1]
+        mc = r1 - r0
+        w = vals.float()
+        z = (q.float()[rows] * k.float()[cols]).sum(-1) * self.sm_scale
+        zm = torch.where(w > 0, z, torch.full_like(z, -1e30))
+        zmax = torch.full((mc,), float("-inf"), device=z.device)
+        zmax = zmax.scatter_reduce(0, rows, zm, "amax")
+        zmax = torch.where(torch.isfinite(zmax), zmax, torch.zeros_like(zmax))
+        p = w * torch.exp(torch.minimum(z - zmax[rows], torch.zeros_like(z)))
+        denom = torch.zeros(mc, device=z.device).index_add(0, rows, p)
+        out = torch.zeros((mc, self.dv), device=z.device).index_add(
+            0, rows, p[:, None] * v.float()[cols])
+        return out / torch.where(denom > 0, denom,
+                                 torch.ones_like(denom))[:, None]
+
+    def _ref_forward(self, vals, q, k, v) -> torch.Tensor:
+        """The plain-torch oracle (the ``ref`` backend's forward), one
+        chunk of query rows at a time."""
+        out = torch.empty((self.shape[0], self.dv), dtype=torch.float32,
+                          device=q.device)
+        for r0, r1 in self.row_chunks():
+            p0, p1 = self._row_ptr[r0], self._row_ptr[r1]
+            out[r0:r1] = self._ref_rows(vals[p0:p1], q[r0:r1], k, v, r0, r1)
+        return out
+
+    def _ref_vjp(self, vals, q, k, v, dy, needs):
+        """The gradients of :meth:`_ref_forward` for the inputs ``needs``
+        marks (vals, q, k, v), chunk by chunk of query rows: each chunk's
+        rows are recomputed under autograd and differentiated against
+        its rows of ``dy``; K and V gradients add up across chunks."""
+        if not any(needs):
+            return None, None, None, None
+        inputs = [t.detach() for t in (vals, q, k, v)]
+        kl = inputs[2].requires_grad_(needs[2])
+        vl = inputs[3].requires_grad_(needs[3])
+        grads = [torch.zeros_like(t, dtype=torch.float32) if need else None
+                 for t, need in zip(inputs, needs)]
+        for r0, r1 in self.row_chunks():
+            p0, p1 = int(self._row_ptr[r0]), int(self._row_ptr[r1])
+            if p1 == p0:
+                continue    # empty rows: output 0 whatever the inputs
+            with torch.enable_grad():
+                vc = inputs[0][p0:p1].detach().requires_grad_(needs[0])
+                qc = inputs[1][r0:r1].detach().requires_grad_(needs[1])
+                out = self._ref_rows(vc, qc, kl, vl, r0, r1)
+                wrt = [t for t, need in zip((vc, qc, kl, vl), needs) if need]
+                got = iter(torch.autograd.grad(out, wrt, dy[r0:r1]))
+            for i, span in enumerate(((p0, p1), (r0, r1), None, None)):
+                if not needs[i]:
+                    continue
+                g = next(got)
+                if span is None:
+                    grads[i] += g
+                else:
+                    grads[i][span[0]:span[1]] = g
+        return tuple(None if g is None else g.to(t.dtype)
+                     for g, t in zip(grads, (vals, q, k, v)))
+
+    def _check_operands(self, vals, q, k, v) -> None:
+        m, n = self.shape
+        for name, t, shape in (("vals", vals, (self._row_ptr[-1],)),
+                               ("q", q, (m, self.dh)), ("k", k, (n, self.dh)),
+                               ("v", v, (n, self.dv))):
+            if tuple(t.shape) != tuple(int(s) for s in shape):
+                raise ValueError(f"{name} must be {tuple(shape)}, got "
+                                 f"{tuple(t.shape)}")
+            if torch.device(self.device) != t.device:
+                raise ValueError(f"{name} is on {t.device}, but this "
+                                 f"artifact was compiled for {self.device}")
+
+    # -- forward -----------------------------------------------------------
+    def fused_operands(self, vals, q, k, v):
+        """The fused kernel's arguments for one forward (positional, in
+        the kernel's order) and its static knobs: the descriptor tables,
+        the gathered mask weights, Q scaled, padded and gathered into
+        workspace order, and K/V padded to the lane tile and to whole
+        block-columns of rows."""
+        fw = self._fused
+        vals_ext = torch.cat([vals.float(),
+                              vals.new_zeros(1, dtype=torch.float32)])
+        q_pad = ccm.pad_cols(q.float() * self.sm_scale, self._dh_pad)
+        q_ext = torch.cat([q_pad, q_pad.new_zeros((1, self._dh_pad))])
+        k_pad = ccm.pad_cols(k.float(), self._dh_pad)
+        v_pad = ccm.pad_cols(v.float(), self.d_tiling.d_pad)
+        grow = self._kv_rows_pad - k_pad.shape[0]
+        if grow > 0:
+            k_pad = torch.nn.functional.pad(k_pad, (0, 0, 0, grow))
+            v_pad = torch.nn.functional.pad(v_pad, (0, 0, 0, grow))
+        return ((fw.blk_tag, fw.blk_off, fw.blk_coff, fw.blk_L, fw.cols_flat,
+                 vals_ext[fw.gather_flat], q_ext[self._row_map],
+                 k_pad.contiguous(), v_pad.contiguous()),
+                dict(bm=self.bm, bk=self.bk, mw=fw.merge_width))
+
+    def _forward(self, vals, q, k, v) -> torch.Tensor:
+        self._check_operands(vals, q, k, v)
+        if self.backend == "ref":
+            return self._ref_forward(vals, q, k, v)
+        fw = self._fused
+        if fw.num_blocks == 0:
+            return torch.zeros((self.shape[0], self.dv), dtype=torch.float32,
+                               device=q.device)
+        operands, knobs = self.fused_operands(vals, q, k, v)
+        y_ws = attn_fused_op(*operands, **knobs, staging=self.staging,
+                             span=fw.max_span, cspan=fw.max_cspan)
+        return y_ws[fw.inv_perm, :self.dv]
+
+    def __call__(self, vals, q, k, v) -> torch.Tensor:
+        return _Attend.apply(self, vals, q, k, v)
+
+
+def _single_device(mesh, n_chips) -> None:
+    if mesh is not None or n_chips is not None:
+        raise NotImplementedError(
+            "mesh/n_chips: the sharded sparse-attention path (K8, "
+            "attn_fused_sharded) belongs to the port's sharded slice")
+
+
+def compile_sparse_attention(a: CSRMatrix, dh: int, dv: Optional[int] = None,
+                             *, strategy: str = "nnz_split",
+                             backend: str = "auto",
+                             device: Optional[str] = None, bm: int = 8,
+                             bk: int = 8, mxu_gain: float = 4.0,
+                             staging: Optional[str] = None,
+                             merge_threshold: int = 0,
+                             sm_scale: Optional[float] = None,
+                             validate: Optional[str] = None, mesh=None,
+                             n_chips: Optional[int] = None,
+                             cache: JitCache = GLOBAL_CACHE
+                             ) -> CompiledSparseAttention:
+    """Build (or fetch) the structure-specialized sparse-attention
+    artifact, keyed like ``compile_spmm`` under the ``"attn"`` family:
+    the mask fingerprint, both widths (head and value), the softmax
+    scale and every resolved knob, ``device`` in the place of the
+    reference's ``interpret``.  ``staging`` resolves to ``"dma"`` (K6)
+    on the card and ``"resident"`` on the CPU; ``"resident"`` runs K5.
+    ``mesh``/``n_chips`` raise ``NotImplementedError``: the sharded path
+    is a later slice."""
+    _single_device(mesh, n_chips)
+    device = resolve_device(device)
+    backend = _resolve_backend(backend, device)
+    staging = _resolve_staging_for(backend, staging, device)
+    merge_threshold = int(merge_threshold)
+    dv = int(dh) if dv is None else int(dv)
+    sm_scale = float(dh) ** -0.5 if sm_scale is None else float(sm_scale)
+    validate = resolve_validate(validate, device)
+    # the mesh slot is None (single device) until the sharded slice
+    key = ("attn", a.fingerprint, int(dh), dv, strategy, backend, bm, bk,
+           mxu_gain, device, staging, merge_threshold, sm_scale, validate,
+           mesh_fingerprint(mesh))
+    return cache.get_or_build(
+        key, lambda: CompiledSparseAttention(
+            a, dh, dv, strategy=strategy, backend=backend, device=device,
+            bm=bm, bk=bk, mxu_gain=mxu_gain, staging=staging,
+            merge_threshold=merge_threshold, sm_scale=sm_scale,
+            validate=validate))
+
+
+def sparse_attention(a: CSRMatrix, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, *, strategy: str = "nnz_split",
+                     backend: str = "auto", device: Optional[str] = None,
+                     bm: int = 8, bk: int = 8, mxu_gain: float = 4.0,
+                     staging: Optional[str] = None, merge_threshold: int = 0,
+                     sm_scale: Optional[float] = None,
+                     validate: Optional[str] = None, mesh=None,
+                     n_chips: Optional[int] = None,
+                     cache: JitCache = GLOBAL_CACHE) -> torch.Tensor:
+    """One-shot convenience: softmax(mask ⊙ (Q·Kᵀ)) · V specialized to
+    the mask's structure and the runtime head/value widths."""
+    compiled = compile_sparse_attention(
+        a, q.shape[1], v.shape[1], strategy=strategy, backend=backend,
+        device=device, bm=bm, bk=bk, mxu_gain=mxu_gain, staging=staging,
+        merge_threshold=merge_threshold, sm_scale=sm_scale,
+        validate=validate, mesh=mesh, n_chips=n_chips, cache=cache)
+    return compiled(a.vals, q, k, v)

@@ -21,6 +21,7 @@ import collections
 
 import torch
 
+from .attn_fused import attn_fused, attn_fused_staged
 from .spmm_bcsr_fused import spmm_bcsr_fused, spmm_bcsr_fused_staged
 from .spmm_ell_fused import spmm_ell_fused, spmm_ell_fused_staged
 
@@ -31,8 +32,9 @@ DISPATCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 # increment — the reference's keys, one for one, so the accounting
 # tests and tools/lint_invariants.py read both packages alike (the
 # linter parses this literal and checks every increment site in src/
-# against it).  Keys for paths this slice does not port yet (staged,
-# sharded, attention, sddmm) are incremented only by the reference.
+# against it).  Keys for paths the port does not have yet (sharded,
+# sddmm, the segment/pre-fusion micro-oracles) are incremented only by
+# the reference.
 DISPATCH_KEYS = frozenset({
     # per-launch invariant keys (one per plan, n_chips when sharded)
     "ell_segment", "ell_fused", "bcsr", "bcsr_fused", "attn_fused",
@@ -64,10 +66,11 @@ def reset_dispatch_counts() -> None:
 
 
 # fused-dispatch operand staging modes (DESIGN.md §7.7):
-#   resident  K1/K2 read the slot streams and X straight from device
-#             memory — the CPU default and the bit-identity oracle
-#   dma       K3/K4 stage each merged trip's slot and column window in a
-#             double-buffered shared-memory ring (and, in K4, X too) —
+#   resident  K1/K2/K5 read the slot streams and X (Q/K/V) straight
+#             from device memory — the CPU default and the bit-identity
+#             oracle
+#   dma       K3/K4/K6 stage each merged trip's slot and column window in
+#             a double-buffered shared-memory ring (and, in K4, X too) —
 #             the card's default, as "dma" is the TPU's
 STAGING_MODES = ("resident", "dma")
 
@@ -186,3 +189,22 @@ def spmm_bcsr_fused_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
     return spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                            vals_flat, x, bm=bm, bk=bk, mw=mw)
 
+
+def attn_fused_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat,
+                  q_ws, k, v, *, bm: int = 8, bk: int = 8, mw: int = 1,
+                  staging=None, span: int = 0, cspan: int = 0):
+    """ONE dispatch for the whole sparse-attention sandwich (SDDMM →
+    masked softmax → S·V, DESIGN.md §13); staged launches also count
+    under ``attn_fused_dma``, CGCM-merged ones under
+    ``attn_fused_merged`` — the SpMM wrappers' accounting."""
+    staging = _resolve_op_staging(staging, str(v.device), span, cspan)
+    DISPATCH_COUNTS["attn_fused"] += 1
+    if mw > 1:
+        DISPATCH_COUNTS["attn_fused_merged"] += 1
+    if staging == "dma":
+        DISPATCH_COUNTS["attn_fused_dma"] += 1
+        return attn_fused_staged(blk_tag, blk_off, blk_coff, blk_L,
+                                 cols_flat, vals_flat, q_ws, k, v, span=span,
+                                 cspan=cspan, bm=bm, bk=bk, mw=mw)
+    return attn_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                      vals_flat, q_ws, k, v, bm=bm, bk=bk, mw=mw)

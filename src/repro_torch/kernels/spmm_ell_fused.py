@@ -318,12 +318,27 @@ def staged_plain(tag, off, coff, L, cols_flat, vals_flat, x, *, bm: int,
 
 def _fitting_trips(acc, items, tag, off, coff, L, cols_flat, vals_flat, x,
                    *, bm, bk, mw, slot, mxu_steps):
-    """Every trip whose window fits a slot, at once: each trip's value
-    and column windows copied from their aligned-down starts into its
-    own ``slot``-entry buffer (NaN / out-of-range beyond what was
-    copied), then the resident trip loops run on those buffers with each
-    descriptor's offsets rebased into its trip's buffer."""
-    dev = x.device
+    """Every trip whose window fits a slot, at once: the resident trip
+    loops run on :func:`fitting_buffers`."""
+    members, soff, scoff, cbuf, vbuf = fitting_buffers(
+        items, off, coff, cols_flat, vals_flat, mw=mw, slot=slot)
+    mxu = tag[members] != 0
+    vpu_trips(acc, members[~mxu], soff, scoff, L, cbuf, vbuf, x, bm=bm)
+    if mxu_steps is not None:
+        mxu_steps(acc, members[mxu], soff, scoff, L, cbuf, vbuf, x, bm=bm,
+                  bk=bk)
+
+
+def fitting_buffers(items, off, coff, cols_flat, vals_flat, *, mw: int,
+                    slot: int):
+    """The buffers of the trips ``items`` (``("trip", g, span, cspan)``)
+    whose windows fit a slot: each trip's value and column windows
+    copied from their aligned-down starts into its own ``slot``-entry
+    row (NaN / out-of-range beyond what was copied).  Returns the member
+    descriptors, every descriptor's offsets rebased into its trip's
+    buffer (``soff``, ``scoff``; 0 for the others), and the two
+    flattened buffers."""
+    dev = vals_flat.device
     g = torch.tensor([it[1] for it in items], device=dev)
     t_span = torch.tensor([it[2] for it in items], device=dev)
     t_cspan = torch.tensor([it[3] for it in items], device=dev)
@@ -336,11 +351,7 @@ def _fitting_trips(acc, items, tag, off, coff, L, cols_flat, vals_flat, x,
     scoff = torch.zeros_like(coff)
     soff[members] = base + off[members] - va.repeat_interleave(mw)
     scoff[members] = base + coff[members] - ca.repeat_interleave(mw)
-    mxu = tag[members] != 0
-    vpu_trips(acc, members[~mxu], soff, scoff, L, cbuf, vbuf, x, bm=bm)
-    if mxu_steps is not None:
-        mxu_steps(acc, members[mxu], soff, scoff, L, cbuf, vbuf, x, bm=bm,
-                  bk=bk)
+    return members, soff, scoff, cbuf, vbuf
 
 
 def _windows(stream, src, length, slot: int, fill):

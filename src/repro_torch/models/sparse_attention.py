@@ -1,0 +1,101 @@
+"""Sparse-attention ("sattn") transformer slot: the fused sandwich as a
+model layer (port of ``src/repro/models/sparse_attention.py``).
+
+The mask is longformer-style — a causal sliding window plus a set of
+global key columns every later query can see — built once per sequence
+length as a :class:`~repro_torch.core.CSRMatrix` and compiled into the
+fused SDDMM → online softmax → S·V artifact
+(:func:`~repro_torch.core.compile_sparse_attention`).  The (batch, head)
+instances all share one structure, so they share one artifact; each is
+one fused launch, with the score matrix never in device memory.  The
+layer loops over (batch, head) as the reference does.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import layers
+
+
+def sparse_attention_mask(seq_len: int, window: int, num_global: int = 0, *,
+                          device=None):
+    """Causal sliding-window + global-column mask as a CSRMatrix with
+    unit weights on ``device`` (the card unless ``"cpu"``).
+
+    Row i (query) sees key j iff ``j <= i`` and (``i - j < window`` or
+    ``j < num_global``): the columns ``[0, min(lo, g))`` then
+    ``[lo, i]`` with ``lo = max(0, i - window + 1)``.  The diagonal is
+    always present (window >= 1), so no row is empty.
+    """
+    from ..core import CSRMatrix
+    from ..kernels.ops import resolve_device
+    assert window >= 1, window
+    S = int(seq_len)
+    g = min(int(num_global), S)
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1)
+    n_glob = np.minimum(lo, g)
+    lengths = n_glob + (i - lo + 1)
+    row_ptr = np.zeros(S + 1, np.int64)
+    np.cumsum(lengths, out=row_ptr[1:])
+    # entry e of row i: e < n_glob[i] is global column e, the rest run
+    # from lo[i]
+    e = np.arange(row_ptr[-1], dtype=np.int64) - np.repeat(row_ptr[:-1],
+                                                           lengths)
+    glob = np.repeat(n_glob, lengths)
+    cols = np.where(e < glob, e, np.repeat(lo, lengths) + e - glob)
+    vals = torch.ones(int(row_ptr[-1]), dtype=torch.float32,
+                      device=resolve_device(device))
+    return CSRMatrix((S, S), row_ptr, cols.astype(np.int32), vals)
+
+
+@functools.lru_cache(maxsize=64)
+def _mask_and_artifact(seq_len: int, head_dim: int, window: int,
+                       num_global: int, backend: str, device: str):
+    from ..core import compile_sparse_attention
+    a = sparse_attention_mask(seq_len, window, num_global, device=device)
+    art = compile_sparse_attention(a, head_dim, head_dim, backend=backend,
+                                   device=device)
+    return a, art
+
+
+def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
+                                num_kv_heads, window, num_global=0,
+                                rope_theta=1e4, qk_norm=False,
+                                norm_eps=1e-5, backend="auto",
+                                device: Optional[str] = None):
+    """Pre-norm sparse self-attention block: x + sattn(norm(x)).
+
+    ``p`` holds ``ln`` (D,), ``wq`` (D, H, hd), ``wk``/``wv``
+    (D, KV, hd) and ``wo`` (H, hd, D); ``x`` is (B, S, D) and
+    ``positions`` (B, S).  The attend step runs the fused artifact per
+    (batch, head) with GQA head sharing (kv head = h // (H // KV)).
+    ``device`` is resolved as for every entry point (the card unless
+    ``"cpu"``) and joins the artifact's cache key.
+    """
+    from ..kernels.ops import resolve_device
+    device = resolve_device(device)
+    B, S, _ = x.shape
+    h = layers.rms_norm(x, p["ln"], norm_eps)
+    q, k, v = layers.attn_project_qkv(p, h, num_heads, num_kv_heads,
+                                      head_dim, qk_norm=qk_norm,
+                                      norm_eps=norm_eps)
+    q = layers.apply_rope(q, positions, rope_theta)
+    k = layers.apply_rope(k, positions, rope_theta)
+    a, art = _mask_and_artifact(S, head_dim, int(window), int(num_global),
+                                backend, device)
+    G = num_heads // num_kv_heads
+    outs = []
+    for b in range(B):
+        per_head = [art(a.vals, q[b, :, hh, :].float(),
+                        k[b, :, hh // G, :].float(),
+                        v[b, :, hh // G, :].float())
+                    for hh in range(num_heads)]
+        outs.append(torch.stack(per_head, dim=1))          # (S, H, hd)
+    out = torch.stack(outs, dim=0).to(x.dtype)             # (B, S, H, hd)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return x + out

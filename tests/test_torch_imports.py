@@ -44,6 +44,21 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert out.stdout.strip() == "[]"
 
 
+def test_every_slice_module_is_covered():
+    # the scans above walk the package; these are the modules each
+    # slice added, so a package layout change cannot drop them silently
+    modules = set(port_modules())
+    for name in ("repro_torch.core.spmm", "repro_torch.kernels.attn_fused",
+                 "repro_torch.kernels.spmm_ell_fused", "repro_torch.gnn",
+                 "repro_torch.configs.base",
+                 "repro_torch.configs.longformer_1_4b",
+                 "repro_torch.models.layers",
+                 "repro_torch.models.sparse_attention"):
+        assert name in modules, name
+    for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu"):
+        assert (PORT / "kernels" / "csrc" / src).is_file(), src
+
+
 def test_port_sources_import_no_jax_or_reference():
     for py in sorted(PORT.rglob("*.py")):
         bad = imported_roots(py) & set(FORBIDDEN)

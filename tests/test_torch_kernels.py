@@ -8,7 +8,9 @@ per-row order, but the MXU step's dot product may sum in another order.
 
 The CUDA kernels themselves are held to the plain versions by the
 ``cuda``-marked test, which runs only on a Hopper card; there the staged
-kernels K3/K4 must also equal K1/K2 bit for bit.  The staged kernels'
+kernels K3/K4 must also equal K1/K2 bit for bit, and the attention
+kernels K5/K6 (``tests/test_torch_attn.py`` holds their plain versions
+to the reference) their plain versions at 1e-5, K6 equal to K5.  The staged kernels'
 plain versions are held to the reference on the CPU in
 ``tests/test_torch_staging.py``.  A CUDA machine
 need not have JAX, so this module imports the reference only inside the
@@ -229,3 +231,37 @@ def test_cuda_kernels_match_plain():
             torch.testing.assert_close(got, want, **TOL)
             torch.testing.assert_close(got_staged, want_staged, **TOL)
             assert torch.equal(got_staged, got)
+    # K5/K6 on weighted masks: K6 equals K5 bit for bit, both match the
+    # plain versions to rounding (the score sums run in another order)
+    from repro_torch.core import CSRMatrix, JitCache, compile_sparse_attention
+    from repro_torch.kernels import (attn_fused, attn_fused_plain,
+                                     attn_fused_staged,
+                                     attn_fused_staged_plain)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for fixture, backend, merge_threshold, cap, bm in itertools.product(
+            sorted(FIXTURES), ("pallas_ell", "pallas_bcsr"), (0, 16),
+            (None, 16), (8, 2)):
+        s = FIXTURES[fixture]()
+        w = np.random.default_rng(1).uniform(0.2, 2.0, s.nnz)
+        a = CSRMatrix(s.shape, s.row_ptr, s.col_indices,
+                      torch.tensor(w, dtype=torch.float32, device="cuda"))
+        c = compile_sparse_attention(a, 24, 40, backend=backend, bm=bm,
+                                     merge_threshold=merge_threshold,
+                                     staging="resident", cache=JitCache())
+        q = torch.randn(a.m, 24, device="cuda", generator=gen) * 4
+        k = torch.randn(a.n, 24, device="cuda", generator=gen)
+        v = torch.randn(a.n, 40, device="cuda", generator=gen)
+        operands, kw = c.fused_operands(a.vals, q, k, v)
+        win = dict(span=c.workspace.max_span, cspan=c.workspace.max_cspan,
+                   cap=cap)
+        launches = (attn_fused.launches, attn_fused_staged.launches)
+        got = attn_fused(*operands, **kw)
+        got_staged = attn_fused_staged(*operands, **kw, **win)
+        want = attn_fused_plain(*operands, **kw)
+        want_staged = attn_fused_staged_plain(*operands, **kw, **win)
+        torch.cuda.synchronize()
+        assert (attn_fused.launches, attn_fused_staged.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        torch.testing.assert_close(got, want, **TOL)
+        torch.testing.assert_close(got_staged, want_staged, **TOL)
+        assert torch.equal(got_staged, got)
