@@ -8,12 +8,14 @@ result line):
 
 1. device  — a Hopper card (capability 9.0); its name and power limit
              as ``nvidia-smi`` reports them.
-2. build   — compile the six CUDA kernels (K1 ``spmm_ell_fused``, K2
+2. build   — compile the nine CUDA kernels (K1 ``spmm_ell_fused``, K2
              ``spmm_bcsr_fused``, K3 ``spmm_ell_fused_staged``, K4
              ``spmm_bcsr_fused_staged``, K5 ``attn_fused``, K6
-             ``attn_fused_staged``) from ``src/repro_torch/kernels/csrc``
+             ``attn_fused_staged``, K7 ``sddmm``, K9 ``spmm_ell_segment``,
+             K10 ``spmm_bcsr``) from ``src/repro_torch/kernels/csrc``
              into ``build/``, one ``nvcc`` per source, in parallel, and
-             print ptxas's registers and spills for every bm instance.
+             print ptxas's registers and spills for every template
+             instance (bm; K7 has one).
 3. kernels — each kernel against its plain PyTorch version on the card
              (rtol = atol = 1e-5), and each staged kernel against its
              resident twin (``torch.equal``: K3 = K1, K4 = K2): every
@@ -42,13 +44,31 @@ result line):
              (rtol = atol = 1e-4); the step time is printed.
 6. grad    — dvals and dX of ``(A·X * G).sum()`` on the uniform graph
              through the default artifact, held to ``ref`` at 1e-4.
-7. attention kernels — K5 and K6 against their plain versions on the
+7. oracles — K7, K9 and K10 against their plain versions on small
+             fixtures (rtol = atol = 1e-5): K7 through ``sddmm_csr`` at
+             T {8, 128} x d {16, 100, 128, 640} with empty rows, ragged
+             pair counts and an empty matrix, and called directly at
+             unplanned widths; K9 on every segment of each strategy's
+             plan at bm {1, 2, 4, 8}; K10 on ``BCSRMatrix`` at bm = bk
+             = 8, padded to the global kmax.  Then at size, counted
+             (each count zeroed just before, read just after, no plain
+             version run): K7 through ``sddmm_csr`` on the uniform graph
+             at d = 128, held to the grad phase's dvals and to ``ref``
+             at 1e-4; K9 over every segment of the uniform graph's
+             ``nnz_split`` plan, scattered back and held to K1's forward;
+             K10 on the banded stencil at its global kmax, held to K2's
+             forward (each at 1e-4, and bit equality reported).  Each
+             kernel against its plain version at size (1e-5), and timed
+             beside its bounds, its fused or chunked counterpart and the
+             library call (``torch.sparse.sampled_addmm`` for K7,
+             ``torch.sparse.mm`` for K9/K10).
+8. attention kernels — K5 and K6 against their plain versions on the
              card (rtol = atol = 1e-5) and K6 against K5 (``torch.equal``)
              on the reference's weighted powerlaw mask, its multi-trip
              fixture (q x 12), its empty-rows fixture and a fixture whose
              windows exceed the staging slot, each backend x
              merge_threshold {0, 16} x bm {1, 2, 4, 8, 16}.
-8. attention — ``compile_sparse_attention`` on the longformer-1.4b mask
+9. attention — ``compile_sparse_attention`` on the longformer-1.4b mask
              (S = 32768, window 512, 64 global columns, 18.7 M nonzeros),
              one head, dh = dv = 128: ``pallas_bcsr`` and ``pallas_ell``
              with the default staging (``dma``: K6) and ``resident``
@@ -57,14 +77,14 @@ result line):
              the resident one bit for bit; kernel, forward, plain version
              and ``scaled_dot_product_attention`` with the dense boolean
              mask (the library yardstick) timed beside the bounds.
-9. sattn   — the longformer-1.4b ``sattn`` layer at full width (d_model
+10. sattn  — the longformer-1.4b ``sattn`` layer at full width (d_model
              2048, 16 heads over 16 KV heads, head_dim 128, S = 4096,
              batch 1, float32, random weights from a seed): 16 K6 launches
              a forward; output and weight gradients held to the
              ``backend="ref"`` layer at 1e-4; forward and forward +
              backward timed; the backward's peak memory printed, and no
              kernel's plain version run on the way.
-10. report — the launch counts, one JSON line of per-kernel numbers, and
+11. report — the launch counts, one JSON line of per-kernel numbers, and
              the final ``{"ok": true, ...}`` line.
 
 It writes nothing into the repo but the kernel build under ``build/``.
@@ -113,9 +133,19 @@ KERNELS = {
     "attn_fused_staged": dict(
         source="src/repro_torch/kernels/csrc/attn_fused_staged.cu",
         replaces="src/repro/kernels/attn_fused.py:158"),
+    "sddmm": dict(
+        source="src/repro_torch/kernels/csrc/sddmm.cu",
+        replaces="src/repro/kernels/sddmm.py:23"),
+    "spmm_ell_segment": dict(
+        source="src/repro_torch/kernels/csrc/spmm_ell_segment.cu",
+        replaces="src/repro/kernels/spmm_csr.py:49"),
+    "spmm_bcsr": dict(
+        source="src/repro_torch/kernels/csrc/spmm_bcsr.cu",
+        replaces="src/repro/kernels/spmm_bcsr.py:31"),
 }
 SPMM_KERNELS = tuple(KERNELS)[:4]
-ATTN_KERNELS = tuple(KERNELS)[4:]
+ATTN_KERNELS = tuple(KERNELS)[4:6]
+ORACLE_KERNELS = tuple(KERNELS)[6:]
 
 # the longformer-1.4b mask and sattn layer (src/repro_torch/configs/
 # longformer_1_4b.py): sequence of the attention op phase, and the
@@ -184,16 +214,18 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per kernel "
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for name, text in _build.BUILD_LOG.items():
-        # ptxas -v: per template instance (bm), registers and spills
-        report, bm = [], "?"
+        # ptxas -v: per template instance (bm; K7 has one), registers
+        # and spills
+        report, inst = [], "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                bm = re.search(r"ILi(\d+)E", line).group(1)
+                bm = re.search(r"ILi(\d+)E", line)
+                inst = f"bm={bm.group(1)}" if bm else "one instance"
             elif "spill stores" in line:
                 spill = line.split(",")[1].strip()
             elif "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                report.append(f"bm={bm}: {regs} registers, {spill}")
+                report.append(f"{inst}: {regs} registers, {spill}")
         log(f"ptxas {name}: " + "; ".join(report))
 
 
@@ -331,16 +363,26 @@ def phase_kernels() -> None:
 
 
 def bound(operands, out_elems: int, vpu_slots: int, mxu_macs_per_col: int,
-          d_pad: int):
+          d_pad: int, gathered: int = 0):
     """The least time the card could take for the launch: each input
     byte read once and the output written once over the HBM rate, or the
-    fp32 operations these inputs need over the fp32 rate — the larger."""
-    nbytes = sum(t.numel() * t.element_size() for t in operands)
+    fp32 operations these inputs need over the fp32 rate — the larger.
+    ``gathered`` adds the bytes of the rows read from an operand that is
+    not listed, where the launch touches only some of them."""
+    nbytes = sum(t.numel() * t.element_size() for t in operands) + gathered
     nbytes += out_elems * 4
     flops = 2.0 * (vpu_slots + mxu_macs_per_col) * d_pad
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sparse_csr(a):
+    """``a`` as a torch CSR tensor on the card (the library yardsticks)."""
+    crow = torch.from_numpy(a.row_ptr).cuda()
+    col = torch.from_numpy(a.col_indices.astype(np.int64)).cuda()
+    return torch.sparse_csr_tensor(crow, col, a.vals, size=a.shape,
+                                   check_invariants=False)
 
 
 def measure(c, a, x, label: str) -> dict:
@@ -375,10 +417,7 @@ def measure(c, a, x, label: str) -> dict:
     # workspace bound above also pays for ELL and block padding
     nnz_ms = (a.nnz * 8 + (a.n + a.m) * x.shape[1] * 4) \
         / HBM_BYTES_PER_S * 1e3
-    crow = torch.from_numpy(a.row_ptr).cuda()
-    col = torch.from_numpy(a.col_indices.astype(np.int64)).cuda()
-    a_sparse = torch.sparse_csr_tensor(crow, col, a.vals, size=a.shape,
-                                       check_invariants=False)
+    a_sparse = _sparse_csr(a)
     fwd_ms = time_ms(lambda: c(a.vals, x))
     ms = time_ms(lambda: kernel(*operands, **knobs))
     plain_ms = time_ms(lambda: plain(*operands, **knobs), reps=5)
@@ -586,8 +625,9 @@ def phase_train(a, cache) -> dict:
                 step_ms=statistics.median(step_ms[1:]))
 
 
-def phase_grad(c, a, x, cache) -> None:
-    """dvals and dX through the default artifact at size, held to ref."""
+def phase_grad(c, a, x, cache) -> tuple:
+    """dvals and dX through the default artifact at size, held to ref;
+    returns G (the output gradient) and both dvals."""
     from repro_torch.core import compile_spmm
     gen = torch.Generator(device="cuda").manual_seed(4)
     g = torch.randn(a.m, D_MAIN, device="cuda", generator=gen)
@@ -604,6 +644,327 @@ def phase_grad(c, a, x, cache) -> None:
         f"{(dv - dv_ref).abs().max().item():.3g}, dX max |diff| "
         f"{(dx - dx_ref).abs().max().item():.3g} vs ref "
         f"(rtol = atol = 1e-4)")
+    return g, dv, dv_ref
+
+
+# -- the SDDMM and the micro-oracles: K7, K9, K10 ----------------------------
+
+def _kernel_module(name: str):
+    """The module ``repro_torch.kernels.<name>`` (the package exports
+    some kernels' functions under their modules' names)."""
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def phase_oracle_fixtures() -> None:
+    """K7, K9 and K10 against their plain versions on small fixtures."""
+    from repro_torch.core import BCSRMatrix, CSRMatrix, random_csr
+    from repro_torch.core.plan import STRATEGIES, build_plan
+    from repro_torch.kernels import (sddmm, sddmm_csr, sddmm_plain, spmm_bcsr,
+                                     spmm_bcsr_plain, spmm_ell_segment,
+                                     spmm_ell_segment_plain)
+    k7, k10 = _kernel_module("sddmm"), _kernel_module("spmm_bcsr")
+    fixtures = {
+        "mixed": CSRMatrix.from_dense(mixed_dense(0)),
+        "empty_rows": random_csr(300, 256, density=0.03, family="powerlaw",
+                                 seed=1),
+        "empty_matrix": CSRMatrix.from_dense(np.zeros((64, 96), np.float32)),
+        "banded": random_csr(64, 64, density=0.1, family="banded", seed=2),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = dict.fromkeys(ORACLE_KERNELS, 0.0)
+    configs = dict.fromkeys(ORACLE_KERNELS, 0)
+    seen = dict(ragged_pairs=False, no_pairs=False, two_tiles=False,
+                unplanned_width=False, empty_segment=False,
+                padded_block_rows=False)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if got.numel():
+            worst[name] = max(worst[name], (got - want).abs().max().item())
+        configs[name] += 1
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    sparse = ("mixed", "empty_rows", "empty_matrix")
+    for fname, T, d in itertools.product(sparse, (8, 128), (16, 100, 128,
+                                                            640)):
+        a = fixtures[fname]
+        dy, x = rand(a.m, d), rand(a.n, d)
+        before = sddmm.launches
+        got = sddmm_csr(a, dy, x, T=T)
+        operands = k7._csr_pairs(a, dy, x, T=T, device=str(x.device))
+        assert sddmm.launches == before + (a.nnz > 0), (fname, T, d)
+        check("sddmm", got, sddmm_plain(*operands, T=T)[:a.nnz])
+        seen["ragged_pairs"] |= a.nnz % T != 0
+        seen["no_pairs"] |= a.nnz == 0
+        seen["two_tiles"] |= operands[3].shape[1] == 1024
+    # direct calls at unplanned widths, d_pad = 45 (not a multiple of 4)
+    # and 100
+    a = fixtures["mixed"]
+    for d in (45, 100):
+        dy, x = rand(a.m, d), rand(a.n, d)
+        rows, cols, _, _ = k7._csr_pairs(a, dy, x, T=8, device=str(x.device))
+        check("sddmm", sddmm(rows, cols, dy, x, T=8),
+              sddmm_plain(rows, cols, dy, x, T=8))
+        seen["unplanned_width"] |= d % 4 != 0
+    for fname, strategy, bm in itertools.product(sparse, STRATEGIES,
+                                                 (1, 2, 4, 8)):
+        a = fixtures[fname]
+        plan = build_plan(a.row_ptr, a.col_indices, a.shape, 20,
+                          strategy=strategy)
+        x = rand(a.n, plan.d_tiling.d_pad)
+        vals_ext = torch.cat([a.vals.float(), a.vals.new_zeros(1)])
+        for seg in plan.segments:
+            cols = torch.from_numpy(seg.cols_pad.reshape(-1)).cuda()
+            vals = vals_ext[torch.from_numpy(seg.gather_idx).cuda()]
+            check("spmm_ell_segment", spmm_ell_segment(cols, vals, x, bm=bm),
+                  spmm_ell_segment_plain(cols, vals, x, bm=bm))
+            seen["empty_segment"] |= seg.L == 0
+    for fname, d in itertools.product(("mixed", "banded"), (16, 128, 200)):
+        b = BCSRMatrix.from_csr(fixtures[fname], 8, 8)
+        cols, vals, kmax = k10._pad_to_kmax(b)
+        x = rand(b.shape[1], d)
+        check("spmm_bcsr", spmm_bcsr(cols, vals, x, kmax=kmax),
+              spmm_bcsr_plain(cols, vals, x, kmax=kmax))
+        seen["padded_block_rows"] |= bool(
+            np.any(np.diff(b.block_row_ptr) < kmax))
+    log("oracle kernels vs plain (rtol = atol = 1e-5): " + "; ".join(
+        f"{name}: {configs[name]} configurations, max |kernel - plain| "
+        f"{worst[name]:.3g}" for name in ORACLE_KERNELS))
+    missing = [k for k, v in seen.items() if not v]
+    if missing:
+        raise SystemExit(f"chip_smoke: oracle fixtures never reached "
+                         f"{missing}")
+
+
+def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
+    """K7, K9 and K10 at size: the counted run, the checks against the
+    fused kernels and the backward, and the timings."""
+    from repro_torch import kernels
+    from repro_torch.core import BCSRMatrix
+    from repro_torch.kernels import ops
+    k7, k10 = _kernel_module("sddmm"), _kernel_module("spmm_bcsr")
+    phase_oracle_fixtures()
+
+    a, x = instances["uniform"]
+    g, dv, dv_ref = grad
+    c_ell = compiled[("uniform", "pallas_ell", "resident")]
+    assert c_ell.plan.strategy == "nnz_split"
+    vals_ext = torch.cat([a.vals.float(), a.vals.new_zeros(1)])
+    segs = [(torch.from_numpy(s.cols_pad.reshape(-1)).cuda(),
+             vals_ext[torch.from_numpy(s.gather_idx).cuda()], s)
+            for s in c_ell.plan.segments]
+    del vals_ext
+    a_b, x_b = instances["banded"]
+    t0 = time.perf_counter()
+    blocks = BCSRMatrix.from_csr(a_b, 8, 8)
+    bcols, bvals, kmax = k10._pad_to_kmax(blocks)
+    x_bp = torch.nn.functional.pad(x_b, (0, 0, 0,
+                                         blocks.shape[1] - x_b.shape[0]))
+    log(f"oracles: BCSRMatrix.from_csr on the banded stencil "
+        f"{time.perf_counter() - t0:.2f} s: {blocks.nblocks} blocks of "
+        f"8 x 8, kmax {kmax}, {bcols.shape[0] - blocks.nblocks} padding "
+        f"blocks; nnz_split plan of the uniform graph: {len(segs)} "
+        f"segments, L = {[s.L for _, _, s in segs]}")
+
+    # the path, counted: zeroed just before, read just after
+    for name in ORACLE_KERNELS:
+        getattr(kernels, name).launches = 0
+    ops.reset_dispatch_counts()
+    with _PlainCalls(("repro_torch.kernels.sddmm", "sddmm_plain"),
+                     ("repro_torch.kernels.spmm_csr",
+                      "spmm_ell_segment_plain"),
+                     ("repro_torch.kernels.spmm_bcsr",
+                      "spmm_bcsr_plain")) as plain:
+        dvals = kernels.sddmm_csr(a, g, x)
+        seg_out = [ops.spmm_ell_segment_op(cols, vals, x, bm=c_ell.bm)
+                   for cols, vals, _ in segs]
+        y10 = ops.spmm_bcsr_op(bcols, bvals, x_bp, kmax=kmax)
+        torch.cuda.synchronize()
+    launches = {name: getattr(kernels, name).launches
+                for name in ORACLE_KERNELS}
+    log(f"oracles path launches: {launches}; dispatches "
+        f"{dict(ops.DISPATCH_COUNTS)}; plain versions run: {plain.calls}")
+    assert plain.calls == 0, plain.calls
+    assert launches == {"sddmm": 1, "spmm_ell_segment": len(segs),
+                        "spmm_bcsr": 1}, launches
+    assert dict(ops.DISPATCH_COUNTS) == {
+        "sddmm": 1, "ell_segment": len(segs), "bcsr": 1}
+
+    # K7: the backward's dvals (chunked torch SDDMM) and ref's
+    assert dvals.shape == (a.nnz,) and bool(torch.isfinite(dvals).all())
+    torch.testing.assert_close(dvals, dv, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dvals, dv_ref, rtol=1e-4, atol=1e-4)
+    log(f"oracles: sddmm_csr on the uniform graph, d = {D_MAIN}: max "
+        f"|diff| {(dvals - dv).abs().max().item():.3g} vs the backward's "
+        f"dvals, {(dvals - dv_ref).abs().max().item():.3g} vs ref (rtol = "
+        f"atol = 1e-4)")
+    del dvals
+    # K9: the segments scattered back to their rows against K1's forward
+    y9 = torch.zeros((a.m, x.shape[1]), device="cuda")
+    for out, (_, _, s) in zip(seg_out, segs):
+        y9[torch.from_numpy(s.row_ids).cuda()] = out[:s.R]
+    del seg_out
+    y1 = c_ell(a.vals, x)
+    torch.testing.assert_close(y9, y1, rtol=1e-4, atol=1e-4)
+    log(f"oracles: spmm_ell_segment over {len(segs)} segments vs the K1 "
+        f"forward: max |diff| {(y9 - y1).abs().max().item():.3g} (rtol = "
+        f"atol = 1e-4), bit-identical: {torch.equal(y9, y1)}")
+    del y9, y1
+    # K10: the banded stencil against K2's forward
+    c_b = compiled[("banded", "auto", "resident")]
+    y2 = c_b(a_b.vals, x_b)
+    y10 = y10[:a_b.m, :D_MAIN]
+    torch.testing.assert_close(y10, y2, rtol=1e-4, atol=1e-4)
+    log(f"oracles: spmm_bcsr vs the K2 forward: max |diff| "
+        f"{(y10 - y2).abs().max().item():.3g} (rtol = atol = 1e-4), "
+        f"bit-identical: {torch.equal(y10, y2)}")
+    del y10, y2
+    torch.cuda.empty_cache()
+
+    rows = {}
+    # K7 alone, end to end, the backward's chunked SDDMM, the library
+    ops7 = k7._csr_pairs(a, g, x, device=str(x.device))
+    got = kernels.sddmm(*ops7)
+    want = kernels.sddmm_plain(*ops7)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err7 = (got - want).abs().max().item()
+    del got, want
+    c_default = compiled[("uniform", "auto", None)]
+    ms7 = time_ms(lambda: kernels.sddmm(*ops7))
+    e2e_ms = time_ms(lambda: kernels.sddmm_csr(a, g, x))
+    chunked_ms = time_ms(lambda: c_default._sddmm(g, x))
+    plain7 = time_ms(lambda: kernels.sddmm_plain(*ops7), reps=5)
+    a_sp = _sparse_csr(a)
+    xt = x.t()
+
+    def sampled():
+        return torch.sparse.sampled_addmm(a_sp, g, xt, beta=0.0)
+
+    lib_diff = (sampled().values() - dv).abs().max().item()
+    lib7 = time_ms(sampled)
+    nnz_pad, d_pad = ops7[0].shape[0], ops7[3].shape[1]
+    nbytes = 12 * nnz_pad + 4 * (a.m + a.n) * d_pad
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * nnz_pad * d_pad / FP32_FLOPS_PER_S * 1e3
+    bound7, by7 = max((t_bytes, "bytes"), (t_ops, "operations"))
+    gather7 = (a.nnz * (4 * d_pad + 12) + 4 * a.m * d_pad) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"oracles/uniform: sddmm kernel {ms7:.4f} ms, sddmm_csr end to end "
+        f"{e2e_ms:.4f} ms, the backward's chunked torch SDDMM "
+        f"{chunked_ms:.4f} ms, plain {plain7:.4f} ms, "
+        f"torch.sparse.sampled_addmm {lib7:.4f} ms (max |diff| "
+        f"{lib_diff:.3g} vs the backward's dvals), bound {bound7:.4f} ms "
+        f"({by7}; operations {t_ops:.4f}), gather model {gather7:.4f} ms, "
+        f"max |kernel - plain| {err7:.3g}; nnz_pad = {nnz_pad}, d_pad = "
+        f"{d_pad}")
+    rows["sddmm"] = dict(ms=ms7, plain_ms=plain7, bound_ms=bound7,
+                         bound_by=by7, library_ms=lib7, max_abs_err=err7)
+    del ops7, a_sp
+
+    # K9 per segment, beside K1 on the whole plan and the library
+    seg_ms, seg_plain, seg_bound, seg_rows, err9 = [], [], [], [], 0.0
+    for cols, vals, s in segs:
+        got = kernels.spmm_ell_segment(cols, vals, x, bm=c_ell.bm)
+        want = kernels.spmm_ell_segment_plain(cols, vals, x, bm=c_ell.bm)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err9 = max(err9, (got - want).abs().max().item())
+        del got, want
+        seg_ms.append(time_ms(
+            lambda: kernels.spmm_ell_segment(cols, vals, x, bm=c_ell.bm)))
+        seg_plain.append(time_ms(
+            lambda: kernels.spmm_ell_segment_plain(cols, vals, x,
+                                                   bm=c_ell.bm), reps=5))
+        # X counted by the distinct rows the segment reads, once each
+        touched = torch.unique(cols).numel()
+        seg_rows.append((vals.shape[0], touched))
+        seg_bound.append(bound([cols, vals], vals.shape[0] * x.shape[1],
+                               vals.numel(), 0, x.shape[1],
+                               gathered=touched * x.shape[1] * 4))
+    operands1, knobs1 = c_ell.fused_operands(a.vals, x)
+    k1_ms = time_ms(lambda: kernels.spmm_ell_fused(*operands1, **knobs1))
+    del operands1
+    a_sp = _sparse_csr(a)
+    lib9 = time_ms(lambda: torch.sparse.mm(a_sp, x))
+    del a_sp
+    bound9 = sum(t for t, _ in seg_bound)
+    by9 = "bytes" if all(k == "bytes" for _, k in seg_bound) \
+        else "operations"
+    log(f"oracles/uniform: spmm_ell_segment over {len(segs)} segments "
+        f"{sum(seg_ms):.4f} ms in all (largest {max(seg_ms):.4f} ms; "
+        f"{', '.join(f'{t:.4f}' for t in seg_ms)}), K1 spmm_ell_fused on "
+        f"the whole plan {k1_ms:.4f} ms, torch.sparse.mm {lib9:.4f} ms, "
+        f"plain {sum(seg_plain):.4f} ms, bound {bound9:.4f} ms ({by9}, "
+        f"the launches' bounds summed: "
+        f"{', '.join(f'{t:.4f}' for t, _ in seg_bound)}), max |kernel - "
+        f"plain| {err9:.3g}; (R_pad, distinct X rows read) per segment "
+        f"{seg_rows}")
+    rows["spmm_ell_segment"] = dict(ms=sum(seg_ms), plain_ms=sum(seg_plain),
+                                    bound_ms=bound9, bound_by=by9,
+                                    library_ms=lib9, max_abs_err=err9)
+    del segs
+
+    # K10 beside K2 and the library
+    got = kernels.spmm_bcsr(bcols, bvals, x_bp, kmax=kmax)
+    want = kernels.spmm_bcsr_plain(bcols, bvals, x_bp, kmax=kmax)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err10 = (got - want).abs().max().item()
+    del got, want
+    plain10 = time_ms(lambda: kernels.spmm_bcsr_plain(bcols, bvals, x_bp,
+                                                      kmax=kmax), reps=5)
+    operands2, knobs2 = c_b.fused_operands(a_b.vals, x_b)
+    # K10 and K2 in A B B A order
+    ms10 = time_ms(lambda: kernels.spmm_bcsr(bcols, bvals, x_bp, kmax=kmax))
+    k2_runs = [time_ms(lambda: kernels.spmm_bcsr_fused(*operands2, **knobs2))
+               for _ in range(2)]
+    ms10_b = time_ms(lambda: kernels.spmm_bcsr(bcols, bvals, x_bp,
+                                               kmax=kmax))
+    k2_ms = k2_runs[0]
+    # the same two kernels through torch.profiler: device time alone,
+    # without the launch path that CUDA events also see
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            kernels.spmm_bcsr(bcols, bvals, x_bp, kmax=kmax)
+            kernels.spmm_bcsr_fused(*operands2, **knobs2)
+        torch.cuda.synchronize()
+    traced = {tag: [e.device_time_total / e.count / 1e3
+                    for e in prof.key_averages() if f"{tag}_kernel<" in e.key]
+              for tag in ("spmm_bcsr", "spmm_bcsr_fused")}
+    del operands2
+    ws_b = c_b.workspace
+    tags_b = np.bincount(ws_b.blk_tag, minlength=2)
+    in_order = bool(np.all(np.diff(ws_b.blk_coff) >= 0))
+    a_sp = _sparse_csr(a_b)
+    lib10 = time_ms(lambda: torch.sparse.mm(a_sp, x_b))
+    del a_sp
+    bound10, by10 = bound([bcols, bvals, x_bp], blocks.shape[0] * D_MAIN, 0,
+                          bvals.numel(), D_MAIN)
+    log(f"oracles/banded: spmm_bcsr kernel {ms10:.4f} ms, K2 "
+        f"spmm_bcsr_fused {k2_ms:.4f} ms, torch.sparse.mm {lib10:.4f} ms, "
+        f"plain {plain10:.4f} ms, bound {bound10:.4f} ms ({by10}), max "
+        f"|kernel - plain| {err10:.3g}; {bcols.shape[0]} block steps")
+    log(f"oracles/banded: K10 {ms10:.4f} / {ms10_b:.4f} ms, K2 "
+        f"{k2_runs[0]:.4f} / {k2_runs[1]:.4f} ms (A B B A); grids: K10 "
+        f"{blocks.n_block_rows} x {-(-D_MAIN // 128)} CTAs walking {kmax} "
+        f"block steps each, K2 {ws_b.blk_tag.shape[0] // ws_b.merge_width}"
+        f" x {-(-D_MAIN // 128)} CTAs over {ws_b.blk_tag.shape[0]} "
+        f"descriptors (merge width {ws_b.merge_width}; {int(tags_b[0])} "
+        f"VPU, {int(tags_b[1])} MXU; block columns in K10's order: "
+        f"{in_order}); torch.profiler device ms per launch, mean of "
+        f"{REPS}: K10 {traced['spmm_bcsr']}, K2 {traced['spmm_bcsr_fused']}")
+    rows["spmm_bcsr"] = dict(ms=ms10, plain_ms=plain10, bound_ms=bound10,
+                             bound_by=by10, library_ms=lib10,
+                             max_abs_err=err10)
+    return {name: dict(name=name, route="cuda", **KERNELS[name],
+                       launches=launches[name], **rows[name])
+            for name in ORACLE_KERNELS}
 
 
 # -- the sparse-attention sandwich: K5 / K6 -----------------------------------
@@ -862,25 +1223,31 @@ def phase_attention() -> dict:
 
 
 class _PlainCalls:
-    """Counts the attention kernels' plain versions while it is active
-    (each builds one ``_Carry``): the card's path must run none."""
+    """Counts calls of the named module attributes while it is active —
+    plain versions, or the ``_Carry`` that each attention plain version
+    builds once: the card's path must run none."""
+
+    def __init__(self, *targets):
+        self.targets = targets        # (module, attribute) pairs
 
     def __enter__(self):
         import importlib
-        mod = importlib.import_module("repro_torch.kernels.attn_fused")
-        self.mod, self.orig, self.calls = mod, mod._Carry, 0
-        outer = self
+        self.calls, self.saved = 0, []
+        for module, attr in self.targets:
+            mod = importlib.import_module(module)
+            orig = getattr(mod, attr)
 
-        class Counted(self.orig):
-            def __init__(self, *args, **kw):
-                outer.calls += 1
-                super().__init__(*args, **kw)
+            def counted(*args, _orig=orig, **kw):
+                self.calls += 1
+                return _orig(*args, **kw)
 
-        mod._Carry = Counted
+            self.saved.append((mod, attr, orig))
+            setattr(mod, attr, counted)
         return self
 
     def __exit__(self, *exc):
-        self.mod._Carry = self.orig
+        for mod, attr, orig in self.saved:
+            setattr(mod, attr, orig)
         return False
 
 
@@ -931,7 +1298,7 @@ def phase_sattn() -> dict:
     for name in ATTN_KERNELS:
         getattr(kernels, name).launches = 0
     ops.reset_dispatch_counts()
-    with _PlainCalls() as plain:
+    with _PlainCalls(("repro_torch.kernels.attn_fused", "_Carry")) as plain:
         p, y = run("auto")
         torch.cuda.synchronize()
         forward = {n: getattr(kernels, n).launches for n in ATTN_KERNELS}
@@ -993,8 +1360,12 @@ def main() -> int:
     cache = JitCache()
     results, compiled = phase_main(instances, cache)
     train = phase_train(instances["uniform"][0], cache)
-    phase_grad(compiled[("uniform", "auto", None)], *instances["uniform"],
-               cache)
+    grad = phase_grad(compiled[("uniform", "auto", None)],
+                      *instances["uniform"], cache)
+    t_phase = time.perf_counter()
+    oracles = phase_oracles(instances, compiled, grad)
+    log(f"oracles: phase {time.perf_counter() - t_phase:.1f} s")
+    del grad
     # the artifacts and their cache reference each other: collect the
     # cycles so the SpMM phases' device tables are freed here
     del instances, compiled, cache
@@ -1010,6 +1381,7 @@ def main() -> int:
         row["launches"] += sattn["launches"] if name == "attn_fused_staged" \
             else 0
     results.update(attn)
+    results.update(oracles)
     log("kernels: " + ", ".join(f"{r['name']} launches={r['launches']}"
                                 for r in results.values())
         + f"; training: spmm_bcsr_fused_staged {train['launches']} launches "

@@ -1,7 +1,7 @@
 # The paper's primary contribution, JIT-specialized SpMM, and the fused
 # sparse-attention sandwich on the same plan, ported to PyTorch + CUDA
 # (the reference is src/repro/core/).
-from .csr import CSRMatrix, from_coo, random_csr
+from .csr import BCSRMatrix, CSRMatrix, from_coo, random_csr
 from .ccm import ccm_register_decomposition, plan_d_tiles, DTiling
 from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
                    ShardedFusedWorkspace, BatchedFusedWorkspace,
@@ -23,7 +23,7 @@ from .spmm import (CompiledSparseAttention, CompiledSpmm,
                    spmm, BACKENDS, FUSED_BACKENDS)
 
 __all__ = [
-    "CSRMatrix", "from_coo", "random_csr",
+    "BCSRMatrix", "CSRMatrix", "from_coo", "random_csr",
     "ccm_register_decomposition", "plan_d_tiles", "DTiling",
     "SpmmPlan", "MixedPlan", "MxuBlockRow", "FusedEllWorkspace",
     "ShardedFusedWorkspace", "BatchedFusedWorkspace",

@@ -6,8 +6,8 @@ happens on the *host* copy of the structure arrays (numpy) at dispatch
 time; values stay a torch tensor on the caller's device.  The structure
 arrays, the fingerprint and ``random_csr`` are byte-for-byte the
 reference's, so a seed gives the same instance in both packages and the
-port's cache keys hash the same bytes.  ``BCSRMatrix`` waits for a later
-slice.
+port's cache keys hash the same bytes.  ``BCSRMatrix`` is the
+pre-fusion block format the ``spmm_bcsr`` kernel reads.
 """
 from __future__ import annotations
 
@@ -158,6 +158,56 @@ class CSRMatrix:
 
 
 from_coo = CSRMatrix.from_coo
+
+
+@dataclasses.dataclass
+class BCSRMatrix:
+    """Block-CSR: (bm x bk) dense blocks — the MXU-native format.
+
+    ``block_row_ptr``/``block_cols`` index *blocks* (host numpy, as the
+    reference's); ``block_vals`` is (nblocks, bm, bk) float32 on the
+    device of the CSR values it was built from.
+    """
+
+    shape: Shape                  # logical (m, n), already padded to bm/bk
+    bm: int
+    bk: int
+    block_row_ptr: np.ndarray     # (m//bm + 1,) int64
+    block_cols: np.ndarray        # (nblocks,) int32   (block-column ids)
+    block_vals: torch.Tensor      # (nblocks, bm, bk)
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.shape[0] // self.bm
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.block_cols.shape[0])
+
+    @staticmethod
+    def from_csr(a: CSRMatrix, bm: int, bk: int) -> "BCSRMatrix":
+        """Blocks sorted by block-row, then block-column, each nonzero
+        scattered into its block on the host, as the reference does."""
+        m_pad = -(-a.m // bm) * bm
+        n_pad = -(-a.n // bk) * bk
+        rows = np.repeat(np.arange(a.m), a.row_lengths)
+        brow = rows // bm
+        bcol = a.col_indices // bk
+        keys = brow.astype(np.int64) * (n_pad // bk) + bcol
+        uniq = np.unique(keys)
+        block_vals = np.zeros((len(uniq), bm, bk), dtype=np.float32)
+        vals_host = a.vals.detach().float().cpu().numpy()
+        block_vals[np.searchsorted(uniq, keys), rows % bm,
+                   a.col_indices % bk] = vals_host
+        block_rows = (uniq // (n_pad // bk)).astype(np.int64)
+        block_row_ptr = np.zeros(m_pad // bm + 1, dtype=np.int64)
+        np.add.at(block_row_ptr[1:], block_rows, 1)
+        np.cumsum(block_row_ptr, out=block_row_ptr)
+        return BCSRMatrix(shape=(m_pad, n_pad), bm=bm, bk=bk,
+                          block_row_ptr=block_row_ptr,
+                          block_cols=(uniq % (n_pad // bk)).astype(np.int32),
+                          block_vals=torch.from_numpy(block_vals).to(
+                              a.vals.device))
 
 # ---------------------------------------------------------------------------
 # Synthetic matrix generators (benchmark/test substrate — the paper uses

@@ -24,21 +24,39 @@
 #                           staged through K3/K4's ring
 #                           (csrc/attn_fused_staged.cu; replaces
 #                           attn_fused.py::attn_fused_staged)
+#   sddmm                   K7 — the SDDMM dA.vals = <dY[row], X[col]>, one
+#                           warp per (row, col) pair (csrc/sddmm.cu;
+#                           replaces src/repro/kernels/sddmm.py::sddmm);
+#                           sddmm_csr is its entry point on a CSR structure
+#   spmm_ell_segment        K9 — one ELL segment, the per-segment
+#                           micro-oracle, on K1's trip
+#                           (csrc/spmm_ell_segment.cu; replaces
+#                           src/repro/kernels/spmm_csr.py::spmm_ell_segment)
+#   spmm_bcsr               K10 — the pre-fusion block-CSR micro-oracle at
+#                           a global kmax, on K2's block trip
+#                           (csrc/spmm_bcsr.cu; replaces
+#                           src/repro/kernels/spmm_bcsr.py::spmm_bcsr)
 # ops.py holds the device/staging/validate resolvers and the
 # DISPATCH_COUNTS host counter the Table IV invariant tests read; the
-# sharded and SDDMM kernels come in later slices.
+# sharded wrappers come in a later slice.
 from . import ops, ref
 from .attn_fused import (attn_fused, attn_fused_plain, attn_fused_staged,
                          attn_fused_staged_plain)
+from .sddmm import sddmm, sddmm_csr, sddmm_plain
+from .spmm_bcsr import spmm_bcsr, spmm_bcsr_plain
 from .spmm_bcsr_fused import (spmm_bcsr_fused, spmm_bcsr_fused_plain,
                               spmm_bcsr_fused_staged,
                               spmm_bcsr_fused_staged_plain)
 from .spmm_ell_fused import (spmm_ell_fused, spmm_ell_fused_plain,
                              spmm_ell_fused_staged,
                              spmm_ell_fused_staged_plain)
+from .spmm_csr import spmm_ell_segment, spmm_ell_segment_plain
 
 __all__ = ["attn_fused", "attn_fused_plain", "attn_fused_staged",
-           "attn_fused_staged_plain", "ops", "ref", "spmm_bcsr_fused", "spmm_bcsr_fused_plain",
-           "spmm_bcsr_fused_staged", "spmm_bcsr_fused_staged_plain",
-           "spmm_ell_fused", "spmm_ell_fused_plain",
-           "spmm_ell_fused_staged", "spmm_ell_fused_staged_plain"]
+           "attn_fused_staged_plain", "ops", "ref", "sddmm", "sddmm_csr",
+           "sddmm_plain", "spmm_bcsr", "spmm_bcsr_plain", "spmm_bcsr_fused",
+           "spmm_bcsr_fused_plain", "spmm_bcsr_fused_staged",
+           "spmm_bcsr_fused_staged_plain", "spmm_ell_fused",
+           "spmm_ell_fused_plain", "spmm_ell_fused_staged",
+           "spmm_ell_fused_staged_plain", "spmm_ell_segment",
+           "spmm_ell_segment_plain"]

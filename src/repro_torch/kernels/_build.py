@@ -23,7 +23,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("spmm_ell_fused", "spmm_bcsr_fused", "spmm_ell_fused_staged",
-           "spmm_bcsr_fused_staged", "attn_fused", "attn_fused_staged")
+           "spmm_bcsr_fused_staged", "attn_fused", "attn_fused_staged",
+           "sddmm", "spmm_ell_segment", "spmm_bcsr")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

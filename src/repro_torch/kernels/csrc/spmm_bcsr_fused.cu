@@ -25,31 +25,6 @@
 
 namespace {
 
-// MXU trip (tag 1).  Per step k: t = a(bm x bk) · xp(bk) for this
-// thread's column, then acc += t — the reference's acc + dot(a, xp).
-template <int BM>
-__device__ __forceinline__ void mxu_trips(
-        float (&acc)[BM], int off, int coff, int K, int bk,
-        const int* __restrict__ cols, const float* __restrict__ vals,
-        const float* __restrict__ x, int col, int d_pad) {
-    spmm::zero(acc);
-    for (int k = 0; k < K; ++k) {
-        const int bc = __ldg(cols + coff + k);
-        const float* a = vals + off + k * BM * bk;
-        const float* xp = x + static_cast<long long>(bc) * bk * d_pad + col;
-        float t[BM];
-        spmm::zero(t);
-        for (int c = 0; c < bk; ++c) {
-            const float xv = __ldg(xp + static_cast<long long>(c) * d_pad);
-#pragma unroll
-            for (int r = 0; r < BM; ++r)
-                t[r] = __fadd_rn(t[r], __fmul_rn(__ldg(a + r * bk + c), xv));
-        }
-#pragma unroll
-        for (int r = 0; r < BM; ++r) acc[r] = __fadd_rn(acc[r], t[r]);
-    }
-}
-
 template <int BM>
 __global__ void __launch_bounds__(spmm::kColTile)
 spmm_bcsr_fused_kernel(const int* __restrict__ blk_tag,
@@ -71,7 +46,8 @@ spmm_bcsr_fused_kernel(const int* __restrict__ blk_tag,
         if (__ldg(blk_tag + b) == 0)
             spmm::vpu_trips<BM>(acc, off, coff, L, cols, vals, x, col, d_pad);
         else
-            mxu_trips<BM>(acc, off, coff, L, bk, cols, vals, x, col, d_pad);
+            spmm::mxu_trips<BM>(acc, off, coff, L, bk, cols, vals, x, col,
+                                d_pad);
         spmm::store_rows<BM>(y, b, acc, col, d_pad);
     }
 }

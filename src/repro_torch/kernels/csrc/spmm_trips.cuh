@@ -1,5 +1,7 @@
-// Descriptor-trip device code shared by the fused SpMM kernels
-// (spmm_ell_fused.cu, spmm_bcsr_fused.cu).
+// Descriptor-trip device code shared by the resident SpMM kernels: the
+// fused ones (spmm_ell_fused.cu, spmm_bcsr_fused.cu) and the
+// single-segment and pre-fusion BCSR micro-oracles (spmm_ell_segment.cu,
+// spmm_bcsr.cu), which run one trip each.
 //
 // Layout: one CTA per (merged trip, 128-column tile); each thread owns
 // one output column of the tile and keeps one descriptor's bm row
@@ -43,6 +45,34 @@ __device__ __forceinline__ void vpu_trips(
             const float xv = __ldg(x + static_cast<long long>(k) * d_pad + col);
             acc[r] = __fadd_rn(acc[r], __fmul_rn(v, xv));
         }
+    }
+}
+
+// MXU trip (tag 1).  Per step k: t = a(bm x bk) · xp(bk) for this
+// thread's column, then acc += t — the reference's acc + dot(a, xp).
+// Step k's value panel is vals[off + k*bm*bk:], row-major (bm, bk); its
+// X panel is the bk rows of block-column cols[coff + k].  Each X value
+// is loaded once and reused for all BM rows from registers.
+template <int BM>
+__device__ __forceinline__ void mxu_trips(
+        float (&acc)[BM], int off, int coff, int K, int bk,
+        const int* __restrict__ cols, const float* __restrict__ vals,
+        const float* __restrict__ x, int col, int d_pad) {
+    zero(acc);
+    for (int k = 0; k < K; ++k) {
+        const int bc = __ldg(cols + coff + k);
+        const float* a = vals + off + k * BM * bk;
+        const float* xp = x + static_cast<long long>(bc) * bk * d_pad + col;
+        float t[BM];
+        zero(t);
+        for (int c = 0; c < bk; ++c) {
+            const float xv = __ldg(xp + static_cast<long long>(c) * d_pad);
+#pragma unroll
+            for (int r = 0; r < BM; ++r)
+                t[r] = __fadd_rn(t[r], __fmul_rn(__ldg(a + r * bk + c), xv));
+        }
+#pragma unroll
+        for (int r = 0; r < BM; ++r) acc[r] = __fadd_rn(acc[r], t[r]);
     }
 }
 

@@ -9,7 +9,7 @@ the CPU.  The resolved string joins every jit-cache key, exactly as
 ``interpret`` does in the reference.
 
 Every op wrapper records a dispatch in ``DISPATCH_COUNTS`` (a plain
-host counter, incremented once per fused launch issued from Python) so
+host counter, incremented once per kernel dispatch issued from Python) so
 the Table IV invariant — one dispatch per (matrix, d) instance — reads
 the same in both packages.  The kernels themselves keep their own
 launch counts (``spmm_ell_fused.launches``), which move only when a
@@ -22,7 +22,9 @@ import collections
 import torch
 
 from .attn_fused import attn_fused, attn_fused_staged
+from .spmm_bcsr import spmm_bcsr
 from .spmm_bcsr_fused import spmm_bcsr_fused, spmm_bcsr_fused_staged
+from .spmm_csr import spmm_ell_segment
 from .spmm_ell_fused import spmm_ell_fused, spmm_ell_fused_staged
 
 # name -> number of fused dispatches issued (host-side)
@@ -32,9 +34,8 @@ DISPATCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 # increment — the reference's keys, one for one, so the accounting
 # tests and tools/lint_invariants.py read both packages alike (the
 # linter parses this literal and checks every increment site in src/
-# against it).  Keys for paths the port does not have yet (sharded,
-# sddmm, the segment/pre-fusion micro-oracles) are incremented only by
-# the reference.
+# against it).  The sharded keys (``*_sharded``, ``*_xshard``) are
+# incremented only by the reference until the port has a sharded path.
 DISPATCH_KEYS = frozenset({
     # per-launch invariant keys (one per plan, n_chips when sharded)
     "ell_segment", "ell_fused", "bcsr", "bcsr_fused", "attn_fused",
@@ -149,6 +150,11 @@ def resolve_validate(validate=None, device: str = "cpu") -> str:
     return validate
 
 
+def spmm_ell_segment_op(cols_pad_flat, vals_pad, x, *, bm: int = 8):
+    DISPATCH_COUNTS["ell_segment"] += 1
+    return spmm_ell_segment(cols_pad_flat, vals_pad, x, bm=bm)
+
+
 def spmm_ell_fused_op(blk_off, blk_L, cols_flat, vals_flat, x, *,
                       bm: int = 8, mw: int = 1, staging=None,
                       span: int = 0, cspan: int = 0):
@@ -167,6 +173,11 @@ def spmm_ell_fused_op(blk_off, blk_L, cols_flat, vals_flat, x, *,
                                      mw=mw)
     return spmm_ell_fused(blk_off, blk_L, cols_flat, vals_flat, x,
                           bm=bm, mw=mw)
+
+
+def spmm_bcsr_op(block_cols_pad, block_vals_pad, x, *, kmax: int):
+    DISPATCH_COUNTS["bcsr"] += 1
+    return spmm_bcsr(block_cols_pad, block_vals_pad, x, kmax=kmax)
 
 
 def spmm_bcsr_fused_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat,

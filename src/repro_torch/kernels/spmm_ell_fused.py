@@ -57,7 +57,6 @@ def check_tables(tables, cols_flat, vals_flat, x, *, bm: int, mw: int):
     taken: one device, int32 1-D descriptor tables of one length, an
     int32 column stream, f32 slot values, a 2-D f32 X, all contiguous,
     and a descriptor count the merge width divides."""
-    dev = x.device
     for name, t in [*tables.items(), ("cols_flat", cols_flat)]:
         if t.dtype != torch.int32 or t.dim() != 1:
             raise ValueError(f"{name} must be a 1-D int32 tensor, got "
@@ -66,13 +65,8 @@ def check_tables(tables, cols_flat, vals_flat, x, *, bm: int, mw: int):
         raise ValueError("vals_flat must be a 1-D float32 tensor")
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError("x must be a 2-D float32 tensor")
-    operands = {**tables, "cols_flat": cols_flat, "vals_flat": vals_flat,
-                "x": x}
-    for name, t in operands.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_placement({**tables, "cols_flat": cols_flat,
+                     "vals_flat": vals_flat}, x)
     sizes = {t.shape[0] for t in tables.values()}
     if len(sizes) != 1:
         raise ValueError(f"descriptor tables differ in length: {sizes}")
@@ -81,9 +75,19 @@ def check_tables(tables, cols_flat, vals_flat, x, *, bm: int, mw: int):
     if mw < 1 or sizes.pop() % mw:
         raise ValueError(f"the merge width {mw} must divide the "
                          f"descriptor count")
-    if dev.type not in ("cpu", "cuda"):
+
+
+def check_placement(operands, x) -> None:
+    """Every operand in ``operands`` and ``x`` on x's device, the CPU or
+    a CUDA device, and contiguous — what a kernel's raw pointers need."""
+    for name, t in {**operands, "x": x}.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tensors must be on the CPU or a CUDA device, "
-                         f"got {dev}")
+                         f"got {x.device}")
 
 
 def vpu_trips(acc, sel, off, coff, L, cols_flat, vals_flat, x, *, bm: int):

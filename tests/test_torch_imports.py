@@ -53,9 +53,12 @@ def test_every_slice_module_is_covered():
                  "repro_torch.configs.base",
                  "repro_torch.configs.longformer_1_4b",
                  "repro_torch.models.layers",
-                 "repro_torch.models.sparse_attention"):
+                 "repro_torch.models.sparse_attention",
+                 "repro_torch.kernels.sddmm", "repro_torch.kernels.spmm_csr",
+                 "repro_torch.kernels.spmm_bcsr"):
         assert name in modules, name
-    for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu"):
+    for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
+                "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file(), src
 
 
