@@ -84,7 +84,31 @@ result line):
              ``backend="ref"`` layer at 1e-4; forward and forward +
              backward timed; the backward's peak memory printed, and no
              kernel's plain version run on the way.
-11. report — the launch counts, one JSON line of per-kernel numbers, and
+11. sharded — K8, the sharded path, on a mesh of 4 chips over the one
+             card (``ChipMesh(("cuda:0",) * 4)``), in two parts.  After
+             ``oracles``, while the SpMM artifacts live: the three sharded
+             wrappers against their plain versions (rtol = atol = 1e-5)
+             on small fixtures — C {1, 2, 3, 4} x X replicated / row-
+             sharded x resident / staged, the default and a 64-entry
+             slot, a hot shard (only its chip walks in chunks) and
+             matrices that leave chips empty — each one's workspaces,
+             gathered through ``inv_perm``, bit-identical to the
+             unsharded forward; then ``compile_spmm(a, 128, mesh=...)`` on
+             the uniform graph (defaults: ``pallas_bcsr``, ``dma``,
+             ``x_sharding`` ``"replicated"``, as on any mesh whose chips
+             share one device; and ``"rows"``, ``resident``,
+             ``pallas_ell``) and the banded stencil: 4 launches and the
+             reference's dispatch counts a forward, each output bit-
+             identical to the unsharded forward, dvals and dX of the
+             default and the rows artifact bit-identical to the grad
+             phase's, the wrappers timed with their
+             exchange, each chip's kernel, the forwards, the plain version
+             and ``torch.sparse.mm`` beside K8's bound and the peak
+             memory.  After ``attention``: ``compile_sparse_attention`` on
+             the longformer mask over the same mesh, 4 K6 launches, bit-
+             identical to the unsharded default forward, timed the same
+             way.
+12. report — the launch counts, one JSON line of per-kernel numbers, and
              the final ``{"ok": true, ...}`` line.
 
 It writes nothing into the repo but the kernel build under ``build/``.
@@ -142,10 +166,22 @@ KERNELS = {
     "spmm_bcsr": dict(
         source="src/repro_torch/kernels/csrc/spmm_bcsr.cu",
         replaces="src/repro/kernels/spmm_bcsr.py:31"),
+    # K8: one launch of K1-K6 per chip; no device code of its own
+    "spmm_ell_fused_sharded": dict(
+        source="src/repro_torch/kernels/spmm_ell_fused.py",
+        replaces="src/repro/kernels/spmm_ell_fused.py:308"),
+    "spmm_bcsr_fused_sharded": dict(
+        source="src/repro_torch/kernels/spmm_bcsr_fused.py",
+        replaces="src/repro/kernels/spmm_bcsr_fused.py:353"),
+    "attn_fused_sharded": dict(
+        source="src/repro_torch/kernels/attn_fused.py",
+        replaces="src/repro/kernels/attn_fused.py:382"),
 }
 SPMM_KERNELS = tuple(KERNELS)[:4]
 ATTN_KERNELS = tuple(KERNELS)[4:6]
-ORACLE_KERNELS = tuple(KERNELS)[6:]
+ORACLE_KERNELS = tuple(KERNELS)[6:9]
+SHARDED_KERNELS = tuple(KERNELS)[9:]
+SHARD_CHIPS = 4               # chips of the sharded phase's mesh, one card
 
 # the longformer-1.4b mask and sattn layer (src/repro_torch/configs/
 # longformer_1_4b.py): sequence of the attention op phase, and the
@@ -644,7 +680,7 @@ def phase_grad(c, a, x, cache) -> tuple:
         f"{(dv - dv_ref).abs().max().item():.3g}, dX max |diff| "
         f"{(dx - dx_ref).abs().max().item():.3g} vs ref "
         f"(rtol = atol = 1e-4)")
-    return g, dv, dv_ref
+    return g, dv, dv_ref, dx
 
 
 # -- the SDDMM and the micro-oracles: K7, K9, K10 ----------------------------
@@ -750,7 +786,7 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     phase_oracle_fixtures()
 
     a, x = instances["uniform"]
-    g, dv, dv_ref = grad
+    g, dv, dv_ref, _ = grad
     c_ell = compiled[("uniform", "pallas_ell", "resident")]
     assert c_ell.plan.strategy == "nnz_split"
     vals_ext = torch.cat([a.vals.float(), a.vals.new_zeros(1)])
@@ -967,6 +1003,447 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
             for name in ORACLE_KERNELS}
 
 
+# -- the sharded path: K8 on a mesh of chips over one card -------------------
+
+def shard_mesh(chips: int = SHARD_CHIPS):
+    from repro_torch.core import ChipMesh
+    return ChipMesh(("cuda:0",) * chips)
+
+
+def hot_shard_csr(m: int = 64, n: int = 512, hot_nnz: int = 400,
+                  seed: int = 0):
+    """tests/test_xshard.py's ``_hot_csr``: all the weight in one row, so
+    one chip's staged window dwarfs the others'."""
+    from repro_torch.core import CSRMatrix
+    rng = np.random.default_rng(seed)
+    lengths = [hot_nnz] + [1] * (m - 1)
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    cols = np.concatenate([np.sort(rng.choice(n, size=int(k), replace=False))
+                           for k in lengths]).astype(np.int32)
+    vals = rng.standard_normal(int(row_ptr[-1])).astype(np.float32)
+    return CSRMatrix((m, n), row_ptr, cols, torch.from_numpy(vals).cuda())
+
+
+def chip_walks(sw, bm: int, bk: int, cap) -> list:
+    """The kinds of staged-walk items each chip's launch takes."""
+    from repro_torch.kernels.spmm_ell_fused import staged_walk, staging_geometry
+    walks = []
+    for c in range(sw.n_chips):
+        geo = staging_geometry(int(sw.chip_span[c]), int(sw.chip_cspan[c]),
+                               bm=bm, bk=bk, cap=cap)
+        tables = [torch.from_numpy(t[c]).long() for t in
+                  (sw.blk_tag, sw.blk_off, sw.blk_coff, sw.blk_L)]
+        walks.append({it[0] for it in staged_walk(
+            *tables, bm=bm, bk=bk, mw=sw.merge_width, c=geo[0], ch=geo[1],
+            kc=geo[2])})
+    return walks
+
+
+def sharded_knobs(c, staging: str, cap=None) -> dict:
+    sw = c.sharded_workspace
+    kw = dict(staging=staging, cap=cap)
+    if staging == "dma":
+        kw.update(span=sw.chip_span, cspan=sw.chip_cspan)
+    return kw
+
+
+def phase_sharded_fixtures() -> None:
+    """The three sharded wrappers against their plain versions on small
+    fixtures (rtol = atol = 1e-5), and each one's workspaces, gathered
+    through the GLOBAL ``inv_perm``, against the unsharded kernel's
+    forward bit for bit: C in {1, 2, 3, 4}, both placements of X (SpMM),
+    both stagings, the default slot and a 64-entry one."""
+    from repro_torch import kernels
+    from repro_torch.core import (CSRMatrix, JitCache,
+                                  compile_sparse_attention, compile_spmm,
+                                  random_csr)
+    two_rows = np.array([[1.5, 0, -2.0, 0, 0.5], [0, 3.0, 0, 0, 0]],
+                        np.float32)
+    fixtures = {
+        "mixed": CSRMatrix.from_dense(mixed_dense(0)),
+        "empty_rows": random_csr(300, 256, density=0.03, family="powerlaw",
+                                 seed=1),
+        "two_rows": CSRMatrix.from_dense(two_rows),
+        "hot_shard": hot_shard_csr(),
+    }
+    seen = dict(empty_chip=False, pad_descriptors=False, rows=False,
+                hot_chip_alone_chunked=False)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = dict.fromkeys(SHARDED_KERNELS, 0.0)
+    configs = dict.fromkeys(SHARDED_KERNELS, 0)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst[name] = max(worst[name], (got - want).abs().max().item())
+        configs[name] += 1
+
+    for (fname, a), backend in itertools.product(fixtures.items(),
+                                                 ("pallas_ell",
+                                                  "pallas_bcsr")):
+        name = ("spmm_ell_fused_sharded" if backend == "pallas_ell"
+                else "spmm_bcsr_fused_sharded")
+        wrapper = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        x = torch.randn(a.n, D_MAIN, device="cuda", generator=gen)
+        y0 = compile_spmm(a, D_MAIN, backend=backend, staging="resident",
+                          cache=JitCache())(a.vals, x)
+        for chips, staging, x_sharding in itertools.product(
+                (1, 2, 3, 4), ("resident", "dma"), ("replicated", "rows")):
+            c = compile_spmm(a, D_MAIN, backend=backend, staging=staging,
+                             mesh=shard_mesh(chips), x_sharding=x_sharding,
+                             validate="full", cache=JitCache())
+            sw = c.sharded_workspace
+            seen["empty_chip"] |= bool(np.any(np.diff(sw.bounds) == 0))
+            seen["pad_descriptors"] |= bool(np.any(sw.blk_L == 0))
+            seen["rows"] |= sw.x_sharding == "rows"
+            operands, knobs = c.sharded_operands(a.vals, x)
+            outs = []
+            for cap in ((None, 64) if staging == "dma" else (None,)):
+                kw = dict(knobs, **sharded_knobs(c, staging, cap))
+                before = wrapper.launches
+                got = wrapper(*operands, **kw)
+                assert wrapper.launches == before + chips, (fname, chips)
+                check(name, got, plain(*operands, **kw))
+                outs.append(got)
+                if fname == "hot_shard" and staging == "dma" and chips > 1:
+                    chunked = [w != {"trip"} for w in
+                               chip_walks(sw, c.bm, c.bk, cap)]
+                    hot = int(np.argmax(sw.chip_span))
+                    seen["hot_chip_alone_chunked"] |= chunked == [
+                        i == hot for i in range(chips)]
+            assert all(torch.equal(o, outs[0]) for o in outs), (fname, chips)
+            y = c._sharded.gather_rows(outs[0], D_MAIN, c.device)
+            assert torch.equal(y, y0), (fname, backend, chips, staging,
+                                        x_sharding)
+
+    empty = CSRMatrix((4, 5), np.array([0, 2, 2, 3, 3]),
+                      np.array([0, 3, 1], np.int32),
+                      torch.ones(3, device="cuda"))
+    masks = {"weighted": (weighted_mask(48, 40, 0.15, 3), 12, 20, 1.0),
+             "multi_trip": (CSRMatrix.from_dense(multi_trip_dense()), 8, 8,
+                            12.0),
+             "empty_rows": (empty, 6, 6, 1.0)}
+    for (fname, (a, dh, dv, scale)), backend in itertools.product(
+            masks.items(), ("pallas_ell", "pallas_bcsr")):
+        q = torch.randn(a.m, dh, device="cuda", generator=gen) * scale
+        k = torch.randn(a.n, dh, device="cuda", generator=gen)
+        v = torch.randn(a.n, dv, device="cuda", generator=gen)
+        y0 = compile_sparse_attention(a, dh, dv, backend=backend,
+                                      staging="resident",
+                                      cache=JitCache())(a.vals, q, k, v)
+        for chips, staging in itertools.product((1, 2, 3, 4),
+                                                ("resident", "dma")):
+            c = compile_sparse_attention(a, dh, dv, backend=backend,
+                                         staging=staging,
+                                         mesh=shard_mesh(chips),
+                                         validate="full", cache=JitCache())
+            operands, knobs = c.sharded_operands(a.vals, q, k, v)
+            outs = []
+            for cap in ((None, 64) if staging == "dma" else (None,)):
+                kw = dict(knobs, **sharded_knobs(c, staging, cap))
+                before = kernels.attn_fused_sharded.launches
+                got = kernels.attn_fused_sharded(*operands, **kw)
+                assert kernels.attn_fused_sharded.launches == before + chips
+                check("attn_fused_sharded", got,
+                      kernels.attn_fused_sharded_plain(*operands, **kw))
+                outs.append(got)
+            assert all(torch.equal(o, outs[0]) for o in outs), (fname, chips)
+            y = c._sharded.gather_rows(outs[0], dv, c.device)
+            assert torch.equal(y, y0), (fname, backend, chips, staging)
+    log("sharded wrappers vs plain (rtol = atol = 1e-5), workspaces "
+        "gathered through inv_perm bit-identical to the unsharded forward: "
+        + "; ".join(f"{n}: {configs[n]} calls, max |kernel - plain| "
+                    f"{worst[n]:.3g}" for n in SHARDED_KERNELS))
+    missing = [k for k, v in seen.items() if not v]
+    if missing:
+        raise SystemExit(f"chip_smoke: sharded fixtures never reached "
+                         f"{missing}")
+
+
+def sharded_bound(c, operands, chip_x) -> tuple:
+    """K8's bound for one SpMM forward: each chip's bytes bound (its
+    tables, values and X operand read once, its workspace written once)
+    summed over the chips, plus the exchanged panels read and written
+    once, over the HBM rate."""
+    from repro_torch.core.plan import MXU_TAG
+    sw = c.sharded_workspace
+    bm, bk, d_pad = c.bm, c.bk, int(chip_x[0].shape[1])
+    per_chip = []
+    for chip in range(sw.n_chips):
+        mxu = sw.blk_tag[chip] == MXU_TAG
+        L = sw.blk_L[chip].astype(np.int64)
+        chip_ops = [t[chip] for t in operands[:-1]] + [chip_x[chip]]
+        per_chip.append(bound(chip_ops, sw.num_blocks * bm * d_pad,
+                              int(bm * L[~mxu].sum()),
+                              int(bm * bk * L[mxu].sum()), d_pad))
+    xbytes = 0
+    if sw.x_sharding == "rows":
+        # the touched panels: sorted unique, panel 0 always first
+        touched = sum(1 + int(np.count_nonzero(f)) for f in sw.x_fetch)
+        xbytes = touched * bk * d_pad * 4
+    total = sum(t for t, _ in per_chip) + 2 * xbytes / HBM_BYTES_PER_S * 1e3
+    kind = ("bytes" if all(k == "bytes" for _, k in per_chip)
+            else "operations")
+    return total, kind, [t for t, _ in per_chip], xbytes
+
+
+def measure_sharded(c, c0, a, x, label: str) -> dict:
+    """Hold a sharded SpMM wrapper to its plain version at size, time it
+    (and its exchange and each chip's kernel), the sharded and unsharded
+    forwards and torch.sparse.mm, with K8's bound and the peak memory
+    of each forward; return the wrapper's row of the JSON report."""
+    from repro_torch import kernels
+    from repro_torch.distributed import sharded_x
+    name = ("spmm_ell_fused_sharded" if c.backend == "pallas_ell"
+            else "spmm_bcsr_fused_sharded")
+    wrapper = getattr(kernels, name)
+    plain = getattr(kernels, name + "_plain")
+    kernel_name, kernel, _ = kernel_pair(c.backend, c.staging)
+    operands, knobs = c.sharded_operands(a.vals, x)
+    kw = dict(knobs, **sharded_knobs(c, c.staging))
+    got = wrapper(*operands, **kw)
+    want = plain(*operands, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = (got - want).abs().max().item()
+    del got, want
+    sw = c._sharded
+    mesh = sw.mesh
+
+    def exchange():
+        return sharded_x(operands[-1], mesh, sw.x_sharding, sw.x_send,
+                         sw.x_recv)
+
+    chip_x = exchange()
+    bound_ms, bound_by, chip_bounds, xbytes = sharded_bound(c, operands,
+                                                            chip_x)
+    per = dict(bm=c.bm, mw=sw.merge_width)
+    if c.backend == "pallas_bcsr":
+        per["bk"] = c.bk
+    chip_ms = []
+    for chip in range(mesh.size):
+        args = [t[chip] for t in operands[:-1]] + [chip_x[chip]]
+        win = (dict(span=sw.chip_span[chip], cspan=sw.chip_cspan[chip])
+               if c.staging == "dma" else {})
+        chip_ms.append(time_ms(lambda: kernel(*args, **per, **win)))
+    del chip_x
+    exchange_ms = time_ms(exchange) if sw.x_sharding == "rows" else 0.0
+    ms = time_ms(lambda: wrapper(*operands, **kw))
+    fwd_ms = time_ms(lambda: c(a.vals, x))
+    fwd0_ms = time_ms(lambda: c0(a.vals, x))
+    plain_ms = time_ms(lambda: plain(*operands, **kw), reps=3)
+    peaks = []
+    for art in (c, c0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        art(a.vals, x)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    a_sparse = _sparse_csr(a)
+    library_ms = time_ms(lambda: torch.sparse.mm(a_sparse, x))
+    del a_sparse
+    log(f"sharded/{label} ({c.backend}/{c.staging}/{sw.x_sharding}): {name} "
+        f"{ms:.4f} ms ({mesh.size} x {kernel_name}: "
+        f"{', '.join(f'{t:.4f}' for t in chip_ms)}, summed "
+        f"{sum(chip_ms):.4f} ms; exchange {exchange_ms:.4f} ms, "
+        f"{xbytes / 2 ** 20:.1f} MiB of touched panels); sharded forward "
+        f"{fwd_ms:.4f} ms against the unsharded forward {fwd0_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; torch.sparse.mm {library_ms:.4f} ms; "
+        f"K8 bound {bound_ms:.4f} ms ({bound_by}; chips "
+        f"{', '.join(f'{t:.4f}' for t in chip_bounds)} + exchange); peak "
+        f"memory over the resident inputs: sharded {peaks[0]:.3f} GiB, "
+        f"unsharded {peaks[1]:.3f} GiB; max |kernel - plain| {err:.3g}; "
+        f"B={sw.num_blocks} per chip, windows {list(sw.chip_span)}")
+    return dict(name=name, route="cuda", **KERNELS[name], max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_sharded(instances: dict, compiled: dict, grad: tuple,
+                  cache) -> dict:
+    """K8 at size: ``compile_spmm(a, 128, mesh=4 chips on cuda:0)`` on
+    the main path's two instances, each forward 4 launches and bit for
+    bit the unsharded forward; dX and dvals of the default artifact bit
+    for bit the grad phase's; the wrappers timed beside their bound."""
+    from repro_torch import kernels
+    from repro_torch.core import compile_spmm
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    phase_sharded_fixtures()
+    log(f"sharded: small fixtures {time.perf_counter() - t0:.1f} s")
+    mesh = shard_mesh()
+    # label -> (instance, backend, staging, x_sharding); None = default
+    runs = {"a": ("uniform", "auto", None, None),
+            "a/rows": ("uniform", "auto", None, "rows"),
+            "a/resident": ("uniform", "auto", "resident", None),
+            "a/pallas_ell": ("uniform", "pallas_ell", None, None),
+            "b": ("banded", "auto", None, None)}
+    sharded = {}
+    for label, (inst, backend, staging, x_sharding) in runs.items():
+        a, _ = instances[inst]
+        ops.reset_dispatch_counts()
+        t0 = time.perf_counter()
+        c = compile_spmm(a, D_MAIN, backend=backend, staging=staging,
+                         x_sharding=x_sharding, mesh=mesh, cache=cache)
+        log(f"sharded/{label}: compile_spmm {time.perf_counter() - t0:.2f} "
+            f"s (plan {ops.BUILD_SECONDS['plan']:.2f} s, pack "
+            f"{ops.BUILD_SECONDS['pack']:.2f} s): {c.backend}/{c.staging}/"
+            f"{c.x_sharding}, {c.n_chips} chips, rows per chip "
+            f"{np.diff(c.sharded_workspace.bounds).tolist()}")
+        assert c.staging == ("resident" if staging else "dma")
+        # the chips share the card's memory: auto keeps X replicated
+        assert c.x_sharding == (x_sharding or "replicated"), label
+        sharded[label] = c
+
+    # the path, counted: zeroed just before, read just after
+    for name in SPMM_KERNELS + SHARDED_KERNELS:
+        getattr(kernels, name).launches = 0
+    outputs = {}
+    for label, c in sharded.items():
+        a, x = instances[runs[label][0]]
+        key = "bcsr_fused" if c.backend == "pallas_bcsr" else "ell_fused"
+        name, kernel, _ = kernel_pair(c.backend, c.staging)
+        wrapper = getattr(kernels, f"spmm_{key}_sharded")
+        before = (kernel.launches, wrapper.launches)
+        ops.reset_dispatch_counts()
+        outputs[label] = c(a.vals, x)
+        want = {key: SHARD_CHIPS, key + "_sharded": 1}
+        if c.staging == "dma":
+            want[key + "_dma"] = SHARD_CHIPS
+        if c.x_sharding == "rows":
+            want[key + "_xshard"] = SHARD_CHIPS
+        if c.sharded_workspace.merge_width > 1:
+            want[key + "_merged"] = SHARD_CHIPS
+        assert dict(ops.DISPATCH_COUNTS) == want, (label,
+                                                   dict(ops.DISPATCH_COUNTS))
+        assert (kernel.launches - before[0], wrapper.launches - before[1]) \
+            == (SHARD_CHIPS, SHARD_CHIPS), (label, name)
+    torch.cuda.synchronize()
+    launches = {name: getattr(kernels, name).launches
+                for name in SPMM_KERNELS + SHARDED_KERNELS}
+    log(f"sharded path launches: {launches}")
+
+    for label, y in outputs.items():
+        a, x = instances[runs[label][0]]
+        assert y.shape == (a.m, D_MAIN) and bool(torch.isfinite(y).all())
+        # phase 4's artifact of the same backend and staging
+        y0 = compiled[runs[label][:3]](a.vals, x)
+        assert torch.equal(y, y0), label
+        log(f"sharded/{label}: forward over {SHARD_CHIPS} chips "
+            f"bit-identical to the unsharded {sharded[label].backend}/"
+            f"{sharded[label].staging} forward")
+        del y0
+    del outputs
+
+    # dvals and dX through the sharded default and rows artifacts on (a)
+    a, x = instances["uniform"]
+    g, dv0, _, dx0 = grad
+    for label in ("a", "a/rows"):
+        vals = a.vals.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        (sharded[label](vals, xx) * g).sum().backward()
+        assert torch.equal(vals.grad, dv0) and torch.equal(xx.grad, dx0)
+        t = sharded[label]._transpose
+        assert t.mesh == mesh and t.x_sharding == sharded[label].x_sharding
+        log(f"sharded/{label}: dvals and dX of (A·X * G).sum() "
+            f"bit-identical to the grad phase's (transposed artifact "
+            f"{t.backend}/{t.staging}/{t.x_sharding})")
+        del vals, xx
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for label in ("a", "a/pallas_ell", "a/rows", "a/resident", "b"):
+        a, x = instances[runs[label][0]]
+        row = measure_sharded(sharded[label], compiled[runs[label][:3]], a,
+                              x, label)
+        if label in ("a", "a/pallas_ell"):
+            rows[row["name"]] = row
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    return rows
+
+
+def phase_sharded_attention(a, q, k, v, y0, c0, library_ms: float) -> dict:
+    """K8 for attention at size: ``compile_sparse_attention`` on mask (c)
+    over 4 chips of the card, 4 K6 launches, bit for bit phase 9's
+    default forward."""
+    from repro_torch import kernels
+    from repro_torch.core import JitCache, compile_sparse_attention
+    from repro_torch.kernels import ops
+    mesh = shard_mesh()
+    t0 = time.perf_counter()
+    c = compile_sparse_attention(a, q.shape[1], v.shape[1], mesh=mesh,
+                                 cache=JitCache())
+    sw = c.sharded_workspace
+    log(f"sharded attention: compile_sparse_attention "
+        f"{time.perf_counter() - t0:.2f} s: {c.backend}/{c.staging}, "
+        f"{c.n_chips} chips, rows per chip {np.diff(sw.bounds).tolist()}, "
+        f"B={sw.num_blocks} per chip, windows {sw.chip_span.tolist()}")
+    assert c.backend == "pallas_bcsr" and c.staging == "dma"
+    k6, k8 = kernels.attn_fused_staged, kernels.attn_fused_sharded
+    k6.launches = k8.launches = 0
+    ops.reset_dispatch_counts()
+    y = c(a.vals, q, k, v)
+    torch.cuda.synchronize()
+    launches = k8.launches
+    want = {"attn_fused": SHARD_CHIPS, "attn_fused_sharded": 1,
+            "attn_fused_dma": SHARD_CHIPS}
+    if sw.merge_width > 1:
+        want["attn_fused_merged"] = SHARD_CHIPS
+    assert dict(ops.DISPATCH_COUNTS) == want, dict(ops.DISPATCH_COUNTS)
+    assert (k6.launches, k8.launches) == (SHARD_CHIPS, SHARD_CHIPS)
+    assert torch.equal(y, y0)
+    log(f"sharded attention: {SHARD_CHIPS} attn_fused_staged launches, "
+        f"output bit-identical to the unsharded default forward")
+    del y
+    operands, knobs = c.sharded_operands(a.vals, q, k, v)
+    kw = dict(knobs, **sharded_knobs(c, "dma"))
+    got = k8(*operands, **kw)
+    want_y = kernels.attn_fused_sharded_plain(*operands, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want_y, rtol=1e-5, atol=1e-5)
+    err = (got - want_y).abs().max().item()
+    del got, want_y
+    chip_ms, chip_bounds = [], []
+    dh, dv = q.shape[1], v.shape[1]
+    for chip in range(mesh.size):
+        args = [t[chip] for t in operands[:6]] + [operands[6][chip],
+                                                  operands[7], operands[8]]
+        chip_ms.append(time_ms(lambda: k6(
+            *args, bm=c.bm, bk=c.bk, mw=sw.merge_width,
+            span=sw.chip_span[chip], cspan=sw.chip_cspan[chip])))
+        rows_c = int(sw.bounds[chip + 1] - sw.bounds[chip])
+        nnz_c = int(sw.shard_plans[chip].nnz)
+        t_bytes = (4 * (rows_c * dh + a.n * dh + a.n * dv + rows_c * dv)
+                   + 8 * nnz_c) / HBM_BYTES_PER_S * 1e3
+        t_ops = nnz_c * (2 * dh + 2 * dv) / FP32_FLOPS_PER_S * 1e3
+        chip_bounds.append((max(t_bytes, t_ops),
+                            "bytes" if t_bytes >= t_ops else "operations"))
+    bound_ms = sum(t for t, _ in chip_bounds)
+    bound_by = ("operations" if all(k == "operations" for _, k in chip_bounds)
+                else "bytes")
+    ms = time_ms(lambda: k8(*operands, **kw))
+    fwd_ms = time_ms(lambda: c(a.vals, q, k, v))
+    fwd0_ms = time_ms(lambda: c0(a.vals, q, k, v))
+    plain_ms = time_ms(lambda: kernels.attn_fused_sharded_plain(*operands,
+                                                                **kw),
+                       reps=3)
+    log(f"sharded attention: attn_fused_sharded {ms:.4f} ms ({mesh.size} x "
+        f"attn_fused_staged: {', '.join(f'{t:.4f}' for t in chip_ms)}, "
+        f"summed {sum(chip_ms):.4f} ms); sharded forward {fwd_ms:.4f} ms "
+        f"against the unsharded forward {fwd0_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f} "
+        f"ms (phase 9); K8 bound {bound_ms:.4f} ms ({bound_by}; chips "
+        f"{', '.join(f'{t:.4f}' for t, _ in chip_bounds)}); max |kernel - "
+        f"plain| {err:.3g}")
+    return dict(name="attn_fused_sharded", route="cuda",
+                **KERNELS["attn_fused_sharded"], launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 # -- the sparse-attention sandwich: K5 / K6 -----------------------------------
 
 def weighted_mask(m: int, n: int, density: float, seed: int):
@@ -1092,8 +1569,11 @@ def attn_bound(a, dh: int, dv: int):
     return max(t_bytes, t_ops), kind, t_bytes, t_ops
 
 
-def phase_attention() -> dict:
-    """compile_sparse_attention on the longformer-1.4b mask, one head."""
+def phase_attention() -> tuple:
+    """compile_sparse_attention on the longformer-1.4b mask, one head;
+    returns the kernels' report rows and, for the sharded attention
+    check, the mask, Q, K, V, the default forward's output, its artifact
+    and the library time."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import JitCache, compile_sparse_attention
@@ -1182,6 +1662,7 @@ def phase_attention() -> dict:
         f"bytes {t_bytes:.4f}, operations {t_ops:.4f}; "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {FP32_FLOPS_PER_S / 1e12:.0f} "
         f"TFLOP/s fp32)")
+    y_default = outputs[("pallas_bcsr", "dma")]
     del dense_mask, outputs
     torch.cuda.empty_cache()
 
@@ -1219,7 +1700,9 @@ def phase_attention() -> dict:
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms,
                 launches=launches[name])
-    return {name: results[name] for name in ATTN_KERNELS}
+    return ({name: results[name] for name in ATTN_KERNELS},
+            (a, q, k, v, y_default, compiled[("pallas_bcsr", "dma")],
+             library_ms))
 
 
 class _PlainCalls:
@@ -1365,6 +1848,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     oracles = phase_oracles(instances, compiled, grad)
     log(f"oracles: phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    sharded = phase_sharded(instances, compiled, grad, cache)
+    log(f"sharded: SpMM part {time.perf_counter() - t_phase:.1f} s")
     del grad
     # the artifacts and their cache reference each other: collect the
     # cycles so the SpMM phases' device tables are freed here
@@ -1374,7 +1860,13 @@ def main() -> int:
     log(f"memory allocated after the SpMM phases: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     phase_attn_kernels()
-    attn = phase_attention()
+    attn, attn_case = phase_attention()
+    t_phase = time.perf_counter()
+    sharded["attn_fused_sharded"] = phase_sharded_attention(*attn_case)
+    del attn_case
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sharded: attention part {time.perf_counter() - t_phase:.1f} s")
     sattn = phase_sattn()
     # K5/K6 launches: the attention op path's plus the layer's forward
     for name, row in attn.items():
@@ -1382,6 +1874,7 @@ def main() -> int:
             else 0
     results.update(attn)
     results.update(oracles)
+    results.update(sharded)
     log("kernels: " + ", ".join(f"{r['name']} launches={r['launches']}"
                                 for r in results.values())
         + f"; training: spmm_bcsr_fused_staged {train['launches']} launches "

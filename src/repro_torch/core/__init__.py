@@ -1,6 +1,7 @@
 # The paper's primary contribution, JIT-specialized SpMM, and the fused
-# sparse-attention sandwich on the same plan, ported to PyTorch + CUDA
-# (the reference is src/repro/core/).
+# sparse-attention sandwich on the same plan, on one device or sharded
+# over a chip mesh, ported to PyTorch + CUDA (the reference is
+# src/repro/core/).
 from .csr import BCSRMatrix, CSRMatrix, from_coo, random_csr
 from .ccm import ccm_register_decomposition, plan_d_tiles, DTiling
 from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
@@ -18,9 +19,10 @@ from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
                    PLAN_STAGES, MAX_MERGE_WIDTH, MXU_TAG, VPU_TAG)
 from .jit_cache import (GLOBAL_CACHE, JitCache, clear_global_cache,
                         mesh_fingerprint)
-from .spmm import (CompiledSparseAttention, CompiledSpmm,
-                   compile_sparse_attention, compile_spmm, sparse_attention,
-                   spmm, BACKENDS, FUSED_BACKENDS)
+from .spmm import (ChipMesh, CompiledSparseAttention, CompiledSpmm,
+                   chip_mesh, compile_sparse_attention, compile_spmm,
+                   resolve_chip_mesh, sparse_attention, spmm, BACKENDS,
+                   FUSED_BACKENDS, X_SHARDING_MODES)
 
 __all__ = [
     "BCSRMatrix", "CSRMatrix", "from_coo", "random_csr",
@@ -39,6 +41,7 @@ __all__ = [
     "PLAN_STAGES", "MAX_MERGE_WIDTH", "MXU_TAG", "VPU_TAG",
     "GLOBAL_CACHE", "JitCache", "clear_global_cache", "mesh_fingerprint",
     "CompiledSpmm", "compile_spmm", "spmm", "BACKENDS", "FUSED_BACKENDS",
+    "X_SHARDING_MODES", "ChipMesh", "chip_mesh", "resolve_chip_mesh",
     "CompiledSparseAttention", "compile_sparse_attention",
     "sparse_attention",
 ]

@@ -48,13 +48,18 @@ Key = Tuple
 
 
 def mesh_fingerprint(mesh) -> Optional[Tuple]:
-    """Hashable cache-key component for an optional device mesh.
+    """Hashable cache-key component for an optional chip mesh.
 
-    The port is single-device until the sharded slice lands, so every
-    artifact is unsharded and this stays ``None`` — the same value the
-    reference keys its single-chip artifacts with.
+    A sharded artifact holds per-chip descriptor tables on concrete
+    devices, so the mesh (axis names and the devices in chip order,
+    which fix both the chip count and the placement) is part of the
+    specialization identity, as ``device`` is: an artifact built for one
+    mesh is never served to a caller on another.  ``None`` (unsharded)
+    stays ``None``, the key of every single-device artifact.
     """
-    return None
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names), tuple(str(d) for d in mesh.devices))
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
 """Public JIT-SpMM API: Y = A·X specialized to the runtime instance
-(port of ``src/repro/core/spmm.py``, single device).
+(port of ``src/repro/core/spmm.py``).
 
 ``compile_spmm`` is the paper's "JIT code generator": given the concrete
 structure of A and the runtime-known d, it plans on the host, checks the
@@ -41,9 +41,20 @@ differentiates the plain-torch reference formulation, recomputed in
 chunks of whole query rows, as the reference's ``jax.vjp`` of its jnp
 oracle does.
 
-Still to come in later slices: the sharded path
-(``mesh``/``n_chips``/``x_sharding``, which the attention entry points
-accept only to raise) and autotuning.
+Sharding (``mesh``/``n_chips``, fused backends only): the rows are
+partitioned over the chips of a ``ChipMesh`` (``build_sharded_workspace``)
+and each chip runs its range as ONE launch of the same kernels on its
+own device (K8, ``kernels/*_sharded``); the chips' workspaces are
+concatenated on the caller's device and one GLOBAL ``inv_perm`` gather
+restores row order.  ``x_sharding="rows"`` splits X into bk-row panels
+owned by the chips and runs the exact-panel exchange before the
+launches (``distributed/collectives.py``); ``"auto"`` resolves to
+``"rows"`` on a mesh that spans more than one device and
+``"replicated"`` where the chips share one (the CPU's chips, or one
+card's), where owning X panels saves no memory.  A mesh may repeat a device (``ChipMesh(("cuda:0",) * 4)``),
+and the sharded output equals the unsharded one bit for bit.  Sparse
+attention shards the same way with K/V replicated.  Autotuning is still
+to come.
 """
 from __future__ import annotations
 
@@ -58,18 +69,24 @@ from . import ccm
 from .csr import CSRMatrix
 from .jit_cache import GLOBAL_CACHE, JitCache, mesh_fingerprint
 from .plan import (SPARSE_ATTN_EINSUM, SPARSE_ATTN_MIXED_EINSUM, MixedPlan,
-                   SpmmPlan, build_einsum_workspace, build_fused_workspace,
-                   build_mixed_plan, build_plan, choose_merge_width,
-                   workspace_row_map)
+                   ShardedFusedWorkspace, SpmmPlan, build_einsum_workspace,
+                   build_fused_workspace, build_mixed_plan, build_plan,
+                   build_sharded_workspace, choose_merge_width,
+                   sharded_workspace_row_maps, workspace_row_map)
 from ..analysis.verify import PlanVerificationError, check_workspace
-from ..kernels.ops import (attn_fused_op, record_build_seconds,
-                           resolve_device, resolve_staging, resolve_validate,
-                           spmm_bcsr_fused_op, spmm_ell_fused_op)
+from ..distributed.sharding import (ChipMesh, chip_mesh, place_on_chips,
+                                    resolve_chip_mesh)
+from ..kernels.ops import (attn_fused_op, attn_fused_sharded_op,
+                           record_build_seconds, resolve_device,
+                           resolve_staging, resolve_validate,
+                           spmm_bcsr_fused_op, spmm_bcsr_fused_sharded_op,
+                           spmm_ell_fused_op, spmm_ell_fused_sharded_op)
 from ..kernels.ref import spmm_coo_ref, spmm_dense_ref
 
-__all__ = ["BACKENDS", "FUSED_BACKENDS", "CompiledSparseAttention",
-           "CompiledSpmm", "PlanVerificationError", "compile_sparse_attention",
-           "compile_spmm", "sparse_attention", "spmm"]
+__all__ = ["BACKENDS", "FUSED_BACKENDS", "X_SHARDING_MODES", "ChipMesh",
+           "CompiledSparseAttention", "CompiledSpmm", "PlanVerificationError",
+           "chip_mesh", "compile_sparse_attention", "compile_spmm",
+           "resolve_chip_mesh", "sparse_attention", "spmm"]
 
 # bound on the (nonzeros x d) products one SDDMM chunk holds at a time:
 # 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]; the
@@ -82,16 +99,78 @@ BACKENDS = ("pallas_ell", "pallas_bcsr", "ref", "dense", "auto")
 # therefore take the staging knob)
 FUSED_BACKENDS = ("pallas_ell", "pallas_bcsr")
 
+# X placement on the sharded fused path (DESIGN.md §7.8):
+#   replicated  every chip holds all of X
+#   rows        X rows are split into bk-row panels owned contiguously by
+#               the chips; each chip fetches exactly the panels its
+#               descriptor stream touches (the exact-panel exchange)
+X_SHARDING_MODES = ("replicated", "rows")
 
-def _resolve_backend(backend: str, device: str) -> str:
+
+def _resolve_x_sharding_for(backend: str, x_sharding, mesh) -> str:
+    """The effective X placement, resolved ONCE like staging:
+    ``None``/``"auto"`` picks ``"rows"`` on a mesh that spans more than
+    one device, where each chip then holds only the X panels it reads,
+    and ``"replicated"`` unsharded or where the chips share one device
+    (the CPU's chips, the reference's interpret mode; or one card's),
+    where rows would add the exchange and save no memory; the resolved string joins every cache key that
+    touches it, the transposed artifact's included.  ``"rows"`` without
+    a mesh, or anything but replicated on a non-fused backend, raises."""
+    if backend in FUSED_BACKENDS:
+        if x_sharding in (None, "auto"):
+            if mesh is not None and not mesh.single_device:
+                return "rows"
+            return "replicated"
+        if x_sharding not in X_SHARDING_MODES:
+            raise ValueError(
+                f"x_sharding must be 'auto' or one of {X_SHARDING_MODES}, "
+                f"got {x_sharding!r}")
+        if x_sharding == "rows" and mesh is None:
+            raise ValueError(
+                "x_sharding='rows' shards X over the chip mesh — pass mesh= "
+                "or n_chips= (unsharded dispatch has no chips to own X "
+                "panels)")
+        return x_sharding
+    if x_sharding not in (None, "auto", "replicated"):
+        raise ValueError(
+            f"x_sharding is a fused-dispatch knob "
+            f"({'/'.join(FUSED_BACKENDS)}); backend={backend!r} has no "
+            f"sharded lowering")
+    return "replicated"
+
+
+def _resolve_backend(backend: str, device: str, *,
+                     sharded: bool = False) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
                          f"got {backend!r}")
     if backend != "auto":
         return backend
-    # the mixed fused path on the card: MXU trips where block structure
-    # pays, VPU trips elsewhere; the plain oracle on the CPU
-    return "ref" if device == "cpu" else "pallas_bcsr"
+    if device != "cpu":
+        # the mixed fused path on the card: MXU trips where block
+        # structure pays, VPU trips elsewhere, sharded or not
+        return "pallas_bcsr"
+    # a sharding request must land on a fused backend on the CPU too
+    # (the reference's interpret-mode choice); else the plain oracle
+    return "pallas_ell" if sharded else "ref"
+
+
+def _resolve_mesh_for(backend: str, mesh, n_chips, device: str):
+    """The artifact's chip mesh (None = unsharded): ``n_chips`` alone
+    builds one on ``device``'s type; a mesh of another device type than
+    ``device``, or any mesh on a non-fused backend, raises."""
+    mesh = resolve_chip_mesh(mesh, n_chips, device)
+    if mesh is None:
+        return None
+    if mesh.device_type != torch.device(device).type:
+        raise ValueError(f"the mesh's chips are on {mesh.device_type}, the "
+                         f"artifact's device is {device}")
+    if backend not in FUSED_BACKENDS:
+        raise ValueError(
+            f"mesh/n_chips sharding is a fused-dispatch feature "
+            f"({'/'.join(FUSED_BACKENDS)}); backend={backend!r} is "
+            f"single-device")
+    return mesh
 
 
 def _resolve_staging_for(backend: str, staging, device: str) -> str:
@@ -141,6 +220,66 @@ class _FusedConsts:
     max_cspan: int = 0         # staged window over the column stream
 
 
+@dataclasses.dataclass
+class _ShardedConsts:
+    """Multi-chip fused constants: per-chip descriptor tables, each on its
+    chip's device, the GLOBAL inverse permutation into the flattened
+    (C * ws_rows) workspace on the caller's device, the per-chip staged
+    windows and, under ``x_sharding="rows"``, the exchange tables."""
+    blk_tag: tuple             # C x (B,) int32
+    blk_off: tuple             # C x (B,) int32
+    blk_coff: tuple            # C x (B,) int32
+    blk_L: tuple               # C x (B,) int32 (0 == pad descriptor)
+    cols_flat: tuple           # C x (Sc,) int32
+    gather_flat: tuple         # C x (S,) int64 -> GLOBAL concat(vals,[0])
+    inv_perm: torch.Tensor     # (m,) int64 into the flattened workspace
+    ws_rows: int               # per-chip workspace rows
+    num_blocks: int            # common per-chip block count B
+    mesh: ChipMesh
+    merge_width: int = 1
+    chip_span: tuple = ()      # per-chip staged slot windows
+    chip_cspan: tuple = ()     # per-chip staged column windows
+    x_sharding: str = "replicated"
+    x_panels: int = 0
+    x_own_panels: int = 0
+    x_send: Optional[tuple] = None   # C x (C, T2) own-local panel ids
+    x_recv: Optional[tuple] = None   # C x (T,) into the (C*T2,) buffer
+
+    @classmethod
+    def build(cls, sw: ShardedFusedWorkspace, mesh: ChipMesh, device: str):
+        def chips(arr, dtype=torch.int32):
+            return place_on_chips(torch.from_numpy(
+                np.ascontiguousarray(arr)).to(dtype), mesh)
+
+        rows = sw.x_sharding == "rows"
+        return cls(
+            blk_tag=chips(sw.blk_tag), blk_off=chips(sw.blk_off),
+            blk_coff=chips(sw.blk_coff), blk_L=chips(sw.blk_L),
+            cols_flat=chips(sw.cols_flat),
+            gather_flat=chips(sw.gather_flat, torch.int64),
+            inv_perm=torch.from_numpy(sw.inv_perm.astype(np.int64)).to(
+                device),
+            ws_rows=sw.ws_rows, num_blocks=sw.num_blocks, mesh=mesh,
+            merge_width=sw.merge_width,
+            chip_span=tuple(int(s) for s in sw.chip_span),
+            chip_cspan=tuple(int(s) for s in sw.chip_cspan),
+            x_sharding=sw.x_sharding, x_panels=sw.x_panels,
+            x_own_panels=sw.x_own_panels,
+            x_send=chips(sw.x_send, torch.int64) if rows else None,
+            x_recv=chips(sw.x_recv, torch.int64) if rows else None)
+
+    def chip_vals(self, vals_ext: torch.Tensor) -> tuple:
+        """Each chip's slot values, gathered on its own device."""
+        return tuple(vals_ext.to(dev)[g]
+                     for dev, g in zip(self.mesh.devices, self.gather_flat))
+
+    def gather_rows(self, y_ws: torch.Tensor, width: int, device: str):
+        """Output row order from the chips' (C, B*bm, d_pad) workspaces:
+        flattened on the caller's device, then the GLOBAL ``inv_perm``."""
+        y_flat = y_ws.to(device).reshape(-1, y_ws.shape[-1])
+        return y_flat[self.inv_perm, :width]
+
+
 class _Apply(torch.autograd.Function):
     """The artifact's forward with the reference's custom VJP: dvals by
     SDDMM, dX through the transposed artifact; a gradient nobody asked
@@ -165,21 +304,32 @@ class _Apply(torch.autograd.Function):
 
 
 class CompiledSpmm:
-    """The "jit-function": structure-specialized, value-generic SpMM on
-    one device, differentiable in ``vals`` and ``x``.  On the fused
-    backends the host workspace it was packed from stays readable as
-    ``workspace``."""
+    """The "jit-function": structure-specialized, value-generic SpMM,
+    differentiable in ``vals`` and ``x``, on one device or sharded over
+    a chip mesh.  On the fused backends the host workspace it was packed
+    from stays readable as ``workspace`` (``sharded_workspace`` when
+    sharded)."""
 
     def __init__(self, a: CSRMatrix, d: int, *, strategy: str,
                  backend: str, device: Optional[str] = None, bm: int = 8,
                  bk: int = 8, mxu_gain: float = 4.0,
                  staging: Optional[str] = None, merge_threshold: int = 0,
                  validate: Optional[str] = None,
+                 mesh: Optional[ChipMesh] = None,
+                 n_chips: Optional[int] = None,
+                 x_sharding: Optional[str] = None,
                  cache: JitCache = GLOBAL_CACHE):
         # resolved ONCE: the effective device is part of the compiled
         # artifact's identity (and of every jit-cache key touching it)
         self.device = resolve_device(device)
-        self.backend = _resolve_backend(backend, self.device)
+        self.backend = _resolve_backend(
+            backend, self.device,
+            sharded=mesh is not None or n_chips is not None)
+        self.mesh = _resolve_mesh_for(self.backend, mesh, n_chips,
+                                      self.device)
+        self.n_chips = None if self.mesh is None else self.mesh.size
+        self.x_sharding = _resolve_x_sharding_for(self.backend, x_sharding,
+                                                  self.mesh)
         self.strategy = strategy
         self.bm = bm
         self.bk = bk
@@ -210,7 +360,26 @@ class CompiledSpmm:
         self.plan: Optional[SpmmPlan] = None
         self.mixed_plan: Optional[MixedPlan] = None
         self._fused: Optional[_FusedConsts] = None
-        if self.backend == "pallas_bcsr":
+        self._sharded: Optional[_ShardedConsts] = None
+        if self.mesh is not None:
+            # the sharded workspace re-plans every chip's rows itself;
+            # only the d tiling is needed at this level
+            self.d_tiling = ccm.plan_d_tiles(d, rows_in_flight=bm)
+            sw = build_sharded_workspace(
+                a.row_ptr, a.col_indices, a.shape, d, n_chips=self.n_chips,
+                strategy=strategy, row_block=bm, fingerprint=a.fingerprint,
+                backend=self.backend, bk=bk, mxu_gain=mxu_gain,
+                x_sharding=self.x_sharding,
+                merge_threshold=self.merge_threshold)
+            _verify_workspace_timed(
+                sw, level=self.validate, n_cols=a.shape[1],
+                context=f"compile_spmm[{self.backend}/sharded]")
+            self.sharded_workspace = sw
+            self._sharded = _ShardedConsts.build(sw, self.mesh, self.device)
+            record_build_seconds(
+                "plan", sum(p.plan_seconds for p in sw.shard_plans))
+            record_build_seconds("pack", sw.pack_seconds)
+        elif self.backend == "pallas_bcsr":
             self.mixed_plan = build_mixed_plan(
                 a.row_ptr, a.col_indices, a.shape, d, strategy=strategy,
                 row_block=bm, bk=bk, mxu_gain=mxu_gain,
@@ -222,7 +391,7 @@ class CompiledSpmm:
                 row_block=bm, fingerprint=a.fingerprint)
             self.d_tiling = self.plan.d_tiling
 
-        if self.backend in FUSED_BACKENDS:
+        if self.backend in FUSED_BACKENDS and self.mesh is None:
             # merge stage: the CGCM width is a plan-time decision from
             # the instance's row lengths (DESIGN.md §7.9); 1 = no merge
             mw = choose_merge_width(a.row_ptr, row_block=bm,
@@ -243,7 +412,7 @@ class CompiledSpmm:
                 max_span=ws.max_span, max_cspan=ws.max_cspan)
             record_build_seconds("plan", plan.plan_seconds)
             record_build_seconds("pack", ws.pack_seconds)
-        else:
+        elif self.backend not in FUSED_BACKENDS:
             # the row expansion is pure structure — precompute it so the
             # serving path never repeats the host-side np.repeat
             self._expanded()
@@ -282,6 +451,18 @@ class CompiledSpmm:
             return spmm_dense_ref(dense, x)
         if backend == "ref":
             return spmm_coo_ref(self._rows, self._cols, vals, x, m)
+        if self._sharded is not None:
+            sw = self._sharded
+            if sw.num_blocks == 0:
+                return torch.zeros((m, d), dtype=torch.float32,
+                                   device=x.device)
+            # one launch PER CHIP, each on its own descriptor shard
+            operands, knobs = self.sharded_operands(vals, x)
+            op = (spmm_ell_fused_sharded_op if backend == "pallas_ell"
+                  else spmm_bcsr_fused_sharded_op)
+            y_ws = op(*operands, **knobs, staging=self.staging,
+                      span=sw.chip_span, cspan=sw.chip_cspan)
+            return sw.gather_rows(y_ws, d, self.device)
         fw = self._fused
         if fw.num_blocks == 0:
             return torch.zeros((m, d), dtype=torch.float32, device=x.device)
@@ -293,6 +474,16 @@ class CompiledSpmm:
         # single inverse-permutation gather restores row order
         return y_ws[fw.inv_perm, :d]
 
+    def _padded_x(self, x: torch.Tensor) -> torch.Tensor:
+        """X padded to the lane tile and, on ``pallas_bcsr``, to whole
+        block-columns of rows."""
+        x_pad = ccm.pad_cols(x.float(), self.d_tiling.d_pad)
+        if self.backend == "pallas_bcsr" and x_pad.shape[0] < \
+                self._x_rows_pad:
+            x_pad = torch.nn.functional.pad(
+                x_pad, (0, 0, 0, self._x_rows_pad - x_pad.shape[0]))
+        return x_pad.contiguous()
+
     def fused_operands(self, vals: torch.Tensor, x: torch.Tensor):
         """The fused kernel's arguments for one forward: the descriptor
         tables, the gathered slot values and the padded X (positional,
@@ -302,17 +493,52 @@ class CompiledSpmm:
         vals_ext = torch.cat([vals.float(),
                               vals.new_zeros(1, dtype=torch.float32)])
         vals_flat = vals_ext[fw.gather_flat]
-        x_pad = ccm.pad_cols(x.float(), self.d_tiling.d_pad)
+        x_pad = self._padded_x(x)
         if self.backend == "pallas_ell":
-            return ((fw.blk_off, fw.blk_L, fw.cols_flat, vals_flat,
-                     x_pad.contiguous()),
+            return ((fw.blk_off, fw.blk_L, fw.cols_flat, vals_flat, x_pad),
                     dict(bm=self.bm, mw=fw.merge_width))
-        if x_pad.shape[0] < self._x_rows_pad:
-            x_pad = torch.nn.functional.pad(
-                x_pad, (0, 0, 0, self._x_rows_pad - x_pad.shape[0]))
         return ((fw.blk_tag, fw.blk_off, fw.blk_coff, fw.blk_L,
-                 fw.cols_flat, vals_flat, x_pad.contiguous()),
+                 fw.cols_flat, vals_flat, x_pad),
                 dict(bm=self.bm, bk=self.bk, mw=fw.merge_width))
+
+    def sharded_operands(self, vals: torch.Tensor, x: torch.Tensor):
+        """The sharded wrapper's arguments for one forward (the per-chip
+        tables, each chip's gathered slot values, and X — replicated, or
+        as the stacked owned-panel strips under ``"rows"``) and its
+        knobs: the mesh, the widths and the exchange tables."""
+        sw = self._sharded
+        vals_ext = torch.cat([vals.float(),
+                              vals.new_zeros(1, dtype=torch.float32)])
+        x_pad = self._padded_x(x)
+        xarg = (self._x_row_strips(x_pad) if sw.x_sharding == "rows"
+                else x_pad)
+        knobs = dict(mesh=sw.mesh, bm=self.bm, mw=sw.merge_width,
+                     x_sharding=sw.x_sharding, x_send=sw.x_send,
+                     x_recv=sw.x_recv)
+        vals_flat = sw.chip_vals(vals_ext)
+        if self.backend == "pallas_ell":
+            return (sw.blk_off, sw.blk_L, sw.cols_flat, vals_flat,
+                    xarg), knobs
+        return ((sw.blk_tag, sw.blk_off, sw.blk_coff, sw.blk_L,
+                 sw.cols_flat, vals_flat, xarg), dict(knobs, bk=self.bk))
+
+    def _x_row_strips(self, x_pad: torch.Tensor) -> torch.Tensor:
+        """The dense operand as the (C, P, bk, d_pad) owned-panel strips
+        the row-sharded dispatch takes: rows padded to whole bk-row
+        panels, panels padded to a rectangular strip per chip; chip c's
+        strip then goes to its device (``place_on_chips``)."""
+        sw = self._sharded
+        n_rows = sw.x_panels * self.bk
+        if x_pad.shape[0] < n_rows:
+            x_pad = torch.nn.functional.pad(
+                x_pad, (0, 0, 0, n_rows - x_pad.shape[0]))
+        strips = x_pad.reshape(sw.x_panels, self.bk, x_pad.shape[1])
+        total = sw.mesh.size * sw.x_own_panels
+        if sw.x_panels < total:
+            strips = torch.nn.functional.pad(
+                strips, (0, 0, 0, 0, 0, total - sw.x_panels))
+        return strips.reshape(sw.mesh.size, sw.x_own_panels, self.bk,
+                              x_pad.shape[1])
 
     # -- gradients ----------------------------------------------------------
     def _sddmm(self, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -340,15 +566,17 @@ class CompiledSpmm:
             t_struct, order = a.transpose_structure()
             key = ("spmmT", self._fingerprint, self.d, self.strategy,
                    self.backend, self.bm, self.bk, self.mxu_gain,
-                   self.device, self.staging, self.merge_threshold,
-                   self.validate)
+                   self.device, self.staging, self.x_sharding,
+                   self.merge_threshold, self.validate,
+                   mesh_fingerprint(self.mesh))
             self._transpose = self.cache.get_or_build(
                 key, lambda: CompiledSpmm(
                     t_struct, self.d, strategy=self.strategy,
                     backend=self.backend, device=self.device, bm=self.bm,
                     bk=self.bk, mxu_gain=self.mxu_gain, staging=self.staging,
                     merge_threshold=self.merge_threshold,
-                    validate=self.validate, cache=self.cache))
+                    validate=self.validate, mesh=self.mesh,
+                    x_sharding=self.x_sharding, cache=self.cache))
             self._t_order = torch.from_numpy(order).to(self.device)
         return self._transpose._forward(vals[self._t_order], dy)
 
@@ -361,6 +589,9 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
                  bm: int = 8, bk: int = 8, mxu_gain: float = 4.0,
                  staging: Optional[str] = None, merge_threshold: int = 0,
                  validate: Optional[str] = None,
+                 mesh: Optional[ChipMesh] = None,
+                 n_chips: Optional[int] = None,
+                 x_sharding: Optional[str] = None,
                  cache: JitCache = GLOBAL_CACHE) -> CompiledSpmm:
     """Build (or fetch) the structure-specialized SpMM artifact.
 
@@ -377,33 +608,52 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
     one CTA; the output is identical either way.  ``validate`` runs the
     static plan verifier (DESIGN.md §15): ``"off"`` / ``"cheap"`` /
     ``"full"``, with ``"auto"``/``None`` resolving to ``"full"`` on the
-    CPU and ``"off"`` on the card."""
+    CPU and ``"off"`` on the card.
+
+    ``mesh`` (a ``ChipMesh``) / ``n_chips`` (fused backends only) shard
+    the plan's rows over the chips: each runs its range as one launch on
+    its own device, and the output equals the unsharded one bit for
+    bit.  ``n_chips`` alone takes the first ``n_chips`` cards (or CPU
+    chips with ``device="cpu"``); a mesh may repeat a device.
+    ``x_sharding`` places X: ``"replicated"`` on every chip, or
+    ``"rows"``, owned by the chips in bk-row panels and fetched by the
+    exact-panel exchange; ``"auto"``/``None`` is ``"rows"`` on a mesh
+    that spans more than one device, else ``"replicated"``.  The resolved
+    mesh and ``x_sharding`` join the cache key."""
     device = resolve_device(device)
-    backend = _resolve_backend(backend, device)
+    backend = _resolve_backend(
+        backend, device, sharded=mesh is not None or n_chips is not None)
     staging = _resolve_staging_for(backend, staging, device)
+    mesh = _resolve_mesh_for(backend, mesh, n_chips, device)
+    x_sharding = _resolve_x_sharding_for(backend, x_sharding, mesh)
     merge_threshold = int(merge_threshold)
     validate = resolve_validate(validate, device)
     key = ("spmm", a.fingerprint, d, strategy, backend, bm, bk, mxu_gain,
-           device, staging, merge_threshold, validate)
+           device, staging, x_sharding, merge_threshold, validate,
+           mesh_fingerprint(mesh))
     return cache.get_or_build(
         key, lambda: CompiledSpmm(a, d, strategy=strategy, backend=backend,
                                   device=device, bm=bm, bk=bk,
                                   mxu_gain=mxu_gain, staging=staging,
                                   merge_threshold=merge_threshold,
-                                  validate=validate, cache=cache))
+                                  validate=validate, mesh=mesh,
+                                  x_sharding=x_sharding, cache=cache))
 
 
 def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",
          backend: str = "auto", device: Optional[str] = None, bm: int = 8,
          bk: int = 8, mxu_gain: float = 4.0, staging: Optional[str] = None,
          merge_threshold: int = 0, validate: Optional[str] = None,
+         mesh: Optional[ChipMesh] = None, n_chips: Optional[int] = None,
+         x_sharding: Optional[str] = None,
          cache: JitCache = GLOBAL_CACHE) -> torch.Tensor:
     """Y = A·X, specialized to A's structure and x's column count."""
     compiled = compile_spmm(a, x.shape[1], strategy=strategy,
                             backend=backend, device=device, bm=bm, bk=bk,
                             mxu_gain=mxu_gain, staging=staging,
                             merge_threshold=merge_threshold,
-                            validate=validate, cache=cache)
+                            validate=validate, mesh=mesh, n_chips=n_chips,
+                            x_sharding=x_sharding, cache=cache)
     return compiled(a.vals, x)
 
 
@@ -427,10 +677,10 @@ class _Attend(torch.autograd.Function):
 
 
 class CompiledSparseAttention:
-    """Structure-specialized sparse attention on one device: out =
-    softmax(mask ⊙ (Q·Kᵀ)) · V, lowered as ONE fused launch through the
-    same descriptor stream as SpMM (port of the reference's class of the
-    same name, DESIGN.md §13).
+    """Structure-specialized sparse attention: out = softmax(mask ⊙
+    (Q·Kᵀ)) · V, lowered as ONE fused launch (per chip, when sharded)
+    through the same descriptor stream as SpMM (port of the reference's
+    class of the same name, DESIGN.md §13).
 
     ``a`` is the (m queries × n keys) mask pattern; its values are the
     mask weights ``w`` (1.0 for a plain binary mask), giving ``p ∝ w ·
@@ -444,6 +694,11 @@ class CompiledSparseAttention:
     plain-torch formulation, recomputed in chunks of whole query rows of
     at most ``SDDMM_CHUNK`` gathered entries per operand (the reference
     takes ``jax.vjp`` of its jnp oracle).  It calls no kernel.
+
+    Sharded (``mesh``/``n_chips``), each chip runs its rows' descriptor
+    shard with Q in its own workspace order
+    (``sharded_workspace_row_maps``) and K/V replicated — attention rows
+    read arbitrary key columns, so X placement stays ``"replicated"``.
     """
 
     def __init__(self, a: CSRMatrix, dh: int, dv: Optional[int] = None, *,
@@ -451,12 +706,19 @@ class CompiledSparseAttention:
                  device: Optional[str] = None, bm: int = 8, bk: int = 8,
                  mxu_gain: float = 4.0, staging: Optional[str] = None,
                  merge_threshold: int = 0, sm_scale: Optional[float] = None,
-                 validate: Optional[str] = None):
+                 validate: Optional[str] = None,
+                 mesh: Optional[ChipMesh] = None,
+                 n_chips: Optional[int] = None):
         self.device = resolve_device(device)
-        self.backend = _resolve_backend(backend, self.device)
+        self.backend = _resolve_backend(
+            backend, self.device,
+            sharded=mesh is not None or n_chips is not None)
         if self.backend == "dense":
             raise ValueError("sparse attention has no dense backend — use "
                              "ref as the oracle")
+        self.mesh = _resolve_mesh_for(self.backend, mesh, n_chips,
+                                      self.device)
+        self.n_chips = None if self.mesh is None else self.mesh.size
         self.strategy = strategy
         self.bm = bm
         self.bk = bk
@@ -483,10 +745,32 @@ class CompiledSparseAttention:
         self._cols: Optional[torch.Tensor] = None
 
         self._fused: Optional[_FusedConsts] = None
-        self._row_map: Optional[torch.Tensor] = None   # ws slot -> Q row
-        if self.backend in FUSED_BACKENDS:
-            spec = (SPARSE_ATTN_MIXED_EINSUM if self.backend == "pallas_bcsr"
-                    else SPARSE_ATTN_EINSUM)
+        self._sharded: Optional[_ShardedConsts] = None
+        self._row_map = None     # ws slot -> Q row (per chip when sharded)
+        spec = (SPARSE_ATTN_MIXED_EINSUM if self.backend == "pallas_bcsr"
+                else SPARSE_ATTN_EINSUM)
+        if self.mesh is not None:
+            sw = build_sharded_workspace(
+                a.row_ptr, a.col_indices, a.shape, self.dv,
+                n_chips=self.n_chips, strategy=strategy, row_block=bm,
+                fingerprint=a.fingerprint, backend=self.backend, bk=bk,
+                mxu_gain=mxu_gain, x_sharding="replicated",
+                merge_threshold=self.merge_threshold)
+            self.sharded_workspace = sw
+            row_maps = sharded_workspace_row_maps(sw)
+            if self.validate != "off":
+                _verify_workspace_timed(
+                    sw, level=self.validate, n_cols=a.shape[1], spec=spec,
+                    vals=a.vals.detach().cpu().numpy(), row_map=row_maps,
+                    context=f"compile_sparse_attention[{self.backend}"
+                            f"/sharded]")
+            self._sharded = _ShardedConsts.build(sw, self.mesh, self.device)
+            self._row_map = place_on_chips(
+                torch.from_numpy(row_maps.astype(np.int64)), self.mesh)
+            record_build_seconds(
+                "plan", sum(p.plan_seconds for p in sw.shard_plans))
+            record_build_seconds("pack", sw.pack_seconds)
+        elif self.backend in FUSED_BACKENDS:
             ws = build_einsum_workspace(
                 spec, a.row_ptr, a.col_indices, a.shape, self.dv,
                 strategy=strategy, row_block=bm, bk=bk, mxu_gain=mxu_gain,
@@ -631,6 +915,29 @@ class CompiledSparseAttention:
         workspace order, and K/V padded to the lane tile and to whole
         block-columns of rows."""
         fw = self._fused
+        vals_ext, q_ext, k_pad, v_pad = self._staged(vals, q, k, v)
+        return ((fw.blk_tag, fw.blk_off, fw.blk_coff, fw.blk_L, fw.cols_flat,
+                 vals_ext[fw.gather_flat], q_ext[self._row_map], k_pad,
+                 v_pad), dict(bm=self.bm, bk=self.bk, mw=fw.merge_width))
+
+    def sharded_operands(self, vals, q, k, v):
+        """The sharded wrapper's arguments for one forward: the per-chip
+        tables, weights and workspace-ordered Q (each on its chip), K and
+        V padded (the wrapper replicates them), and its knobs."""
+        sw = self._sharded
+        vals_ext, q_ext, k_pad, v_pad = self._staged(vals, q, k, v)
+        q_ws = tuple(q_ext.to(dev)[rm]
+                     for dev, rm in zip(sw.mesh.devices, self._row_map))
+        return ((sw.blk_tag, sw.blk_off, sw.blk_coff, sw.blk_L, sw.cols_flat,
+                 sw.chip_vals(vals_ext), q_ws, k_pad, v_pad),
+                dict(mesh=sw.mesh, bm=self.bm, bk=self.bk,
+                     mw=sw.merge_width))
+
+    def _staged(self, vals, q, k, v):
+        """The dense operands as the kernels take them: the weights with
+        one zero slot appended, Q scaled and padded with one zero row
+        appended (the row maps' sentinel), K/V padded to the lane tile
+        and to whole block-columns of rows."""
         vals_ext = torch.cat([vals.float(),
                               vals.new_zeros(1, dtype=torch.float32)])
         q_pad = ccm.pad_cols(q.float() * self.sm_scale, self._dh_pad)
@@ -641,15 +948,23 @@ class CompiledSparseAttention:
         if grow > 0:
             k_pad = torch.nn.functional.pad(k_pad, (0, 0, 0, grow))
             v_pad = torch.nn.functional.pad(v_pad, (0, 0, 0, grow))
-        return ((fw.blk_tag, fw.blk_off, fw.blk_coff, fw.blk_L, fw.cols_flat,
-                 vals_ext[fw.gather_flat], q_ext[self._row_map],
-                 k_pad.contiguous(), v_pad.contiguous()),
-                dict(bm=self.bm, bk=self.bk, mw=fw.merge_width))
+        return vals_ext, q_ext, k_pad.contiguous(), v_pad.contiguous()
 
     def _forward(self, vals, q, k, v) -> torch.Tensor:
         self._check_operands(vals, q, k, v)
         if self.backend == "ref":
             return self._ref_forward(vals, q, k, v)
+        if self._sharded is not None:
+            sw = self._sharded
+            if sw.num_blocks == 0:
+                return torch.zeros((self.shape[0], self.dv),
+                                   dtype=torch.float32, device=q.device)
+            operands, knobs = self.sharded_operands(vals, q, k, v)
+            y_ws = attn_fused_sharded_op(*operands, **knobs,
+                                         staging=self.staging,
+                                         span=sw.chip_span,
+                                         cspan=sw.chip_cspan)
+            return sw.gather_rows(y_ws, self.dv, self.device)
         fw = self._fused
         if fw.num_blocks == 0:
             return torch.zeros((self.shape[0], self.dv), dtype=torch.float32,
@@ -663,13 +978,6 @@ class CompiledSparseAttention:
         return _Attend.apply(self, vals, q, k, v)
 
 
-def _single_device(mesh, n_chips) -> None:
-    if mesh is not None or n_chips is not None:
-        raise NotImplementedError(
-            "mesh/n_chips: the sharded sparse-attention path (K8, "
-            "attn_fused_sharded) belongs to the port's sharded slice")
-
-
 def compile_sparse_attention(a: CSRMatrix, dh: int, dv: Optional[int] = None,
                              *, strategy: str = "nnz_split",
                              backend: str = "auto",
@@ -678,7 +986,8 @@ def compile_sparse_attention(a: CSRMatrix, dh: int, dv: Optional[int] = None,
                              staging: Optional[str] = None,
                              merge_threshold: int = 0,
                              sm_scale: Optional[float] = None,
-                             validate: Optional[str] = None, mesh=None,
+                             validate: Optional[str] = None,
+                             mesh: Optional[ChipMesh] = None,
                              n_chips: Optional[int] = None,
                              cache: JitCache = GLOBAL_CACHE
                              ) -> CompiledSparseAttention:
@@ -688,17 +997,18 @@ def compile_sparse_attention(a: CSRMatrix, dh: int, dv: Optional[int] = None,
     scale and every resolved knob, ``device`` in the place of the
     reference's ``interpret``.  ``staging`` resolves to ``"dma"`` (K6)
     on the card and ``"resident"`` on the CPU; ``"resident"`` runs K5.
-    ``mesh``/``n_chips`` raise ``NotImplementedError``: the sharded path
-    is a later slice."""
-    _single_device(mesh, n_chips)
+    ``mesh``/``n_chips`` shard the mask's rows over a chip mesh, as for
+    ``compile_spmm`` (one K5/K6 launch per chip, K/V replicated); the
+    resolved mesh joins the key."""
     device = resolve_device(device)
-    backend = _resolve_backend(backend, device)
+    backend = _resolve_backend(
+        backend, device, sharded=mesh is not None or n_chips is not None)
     staging = _resolve_staging_for(backend, staging, device)
+    mesh = _resolve_mesh_for(backend, mesh, n_chips, device)
     merge_threshold = int(merge_threshold)
     dv = int(dh) if dv is None else int(dv)
     sm_scale = float(dh) ** -0.5 if sm_scale is None else float(sm_scale)
     validate = resolve_validate(validate, device)
-    # the mesh slot is None (single device) until the sharded slice
     key = ("attn", a.fingerprint, int(dh), dv, strategy, backend, bm, bk,
            mxu_gain, device, staging, merge_threshold, sm_scale, validate,
            mesh_fingerprint(mesh))
@@ -707,7 +1017,7 @@ def compile_sparse_attention(a: CSRMatrix, dh: int, dv: Optional[int] = None,
             a, dh, dv, strategy=strategy, backend=backend, device=device,
             bm=bm, bk=bk, mxu_gain=mxu_gain, staging=staging,
             merge_threshold=merge_threshold, sm_scale=sm_scale,
-            validate=validate))
+            validate=validate, mesh=mesh))
 
 
 def sparse_attention(a: CSRMatrix, q: torch.Tensor, k: torch.Tensor,
@@ -716,7 +1026,8 @@ def sparse_attention(a: CSRMatrix, q: torch.Tensor, k: torch.Tensor,
                      bm: int = 8, bk: int = 8, mxu_gain: float = 4.0,
                      staging: Optional[str] = None, merge_threshold: int = 0,
                      sm_scale: Optional[float] = None,
-                     validate: Optional[str] = None, mesh=None,
+                     validate: Optional[str] = None,
+                     mesh: Optional[ChipMesh] = None,
                      n_chips: Optional[int] = None,
                      cache: JitCache = GLOBAL_CACHE) -> torch.Tensor:
     """One-shot convenience: softmax(mask ⊙ (Q·Kᵀ)) · V specialized to

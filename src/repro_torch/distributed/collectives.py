@@ -1,0 +1,127 @@
+"""The exact-panel X exchange of the sharded fused path (port of
+``exact_panel_exchange`` and ``wire_bytes_ratio`` in
+``src/repro/distributed/collectives.py``).
+
+The reference runs the exchange once per chip inside ``shard_map``, as
+one ``all_to_all``.  The port is single-controller, so
+:func:`exact_panel_exchange` runs the all-to-all for every chip at once:
+chip ``dst`` receives, from each chip ``src`` in turn, the owned panels
+``send_tbl[src][dst]``, and keeps the received panels its fetch order
+names.  Everything it does is a copy (``index_select`` and ``.to``), so
+the compact X workspaces are the reference's bit for bit; on chips
+that share one device the all-to-all and the fetch compose into one
+gather.  :func:`sharded_x` gives each chip its X operand under either
+placement.  ``compressed_psum`` belongs with the optimizer's gradient compression
+and is not here.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .sharding import ChipMesh, place_on_chips
+
+
+def exact_panel_exchange(strips, send_tbl: Sequence[torch.Tensor],
+                         recv_sel: Sequence[torch.Tensor],
+                         mesh: ChipMesh) -> Tuple[torch.Tensor, ...]:
+    """Every chip's compact local X workspace (DESIGN.md §7.8).
+
+    strips   : per chip, its ``(P, bk, d)`` owned panel strip (a
+               sequence, or the stacked ``(C, P, bk, d)`` tensor); each
+               goes to its chip's device
+    send_tbl : per chip ``src``, a ``(C, T2)`` integer table of the
+               own-local panel ids it sends each chip
+    recv_sel : per chip, a ``(T,)`` integer table: the flat ``(C*T2,)``
+               receive-buffer index of each local panel, in the chip's
+               fetch order
+    returns  : per chip, ``(T*bk, d)`` rows on its device, laid out as
+               its remapped column stream addresses them
+
+    Chip ``dst``'s receive buffer is ``cat_src(strips[src][send_tbl[src]
+    [dst]])`` moved to ``dst``'s device — the reference's
+    ``all_to_all(split_axis=0, concat_axis=0)`` — and its workspace is
+    ``buffer[recv_sel[dst]]``.  When every chip lies on one device there
+    is no wire to cross, and the two steps compose into one gather from
+    the owners' strips (:func:`_exchange_one_gather`)."""
+    C = mesh.size
+    if not len(strips) == len(send_tbl) == len(recv_sel) == C:
+        raise ValueError(f"the exchange needs one strip, send table and "
+                         f"receive table per chip ({C})")
+    if mesh.single_device:
+        return _exchange_one_gather(strips, send_tbl, recv_sel,
+                                    mesh.devices[0])
+    return _exchange_all_to_all(place_on_chips(strips, mesh), send_tbl,
+                                recv_sel, mesh)
+
+
+def _exchange_all_to_all(strips, send_tbl, recv_sel,
+                         mesh: ChipMesh) -> Tuple[torch.Tensor, ...]:
+    """The exchange as the reference runs it: each chip's receive
+    buffer gathered from every source in turn, then its fetch order
+    picked from the buffer."""
+    out = []
+    for dst, dev in enumerate(mesh.devices):
+        recv = torch.cat([
+            strips[src].index_select(0, send_tbl[src][dst].long()).to(dev)
+            for src in range(mesh.size)])              # (C*T2, bk, d)
+        panels = recv.index_select(0, recv_sel[dst].long())  # (T, bk, d)
+        out.append(panels.reshape(-1, panels.shape[-1]))
+    return tuple(out)
+
+
+def _exchange_one_gather(strips, send_tbl, recv_sel,
+                         dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The exchange on chips that share ``dev``: receive-buffer index
+    ``r`` of chip ``dst`` is panel ``send_tbl[r // T2][dst][r % T2]`` of
+    source ``r // T2``'s strip, so every chip's workspace is one pick
+    from the owners' strips laid end to end, and all chips' picks are
+    one ``index_select``.  Each chip's workspace is a view into it."""
+    owned = (strips.to(dev).flatten(0, 1)              # a view, no copy
+             if isinstance(strips, torch.Tensor)
+             else torch.cat([s.to(dev) for s in strips]))
+    sizes = torch.tensor([s.shape[0] for s in strips], device=dev)
+    starts = torch.cumsum(sizes, 0) - sizes
+    send = torch.stack([t.to(dev) for t in send_tbl]).long()  # (C, C, T2)
+    T2 = send.shape[-1]
+    picks = []
+    for dst in range(send.shape[1]):
+        r = recv_sel[dst].to(dev).long()
+        src = torch.div(r, T2, rounding_mode="floor")
+        picks.append(starts[src] + send[src, dst, r % T2])
+    panels = owned.index_select(0, torch.cat(picks))    # (sum T, bk, d)
+    out = []
+    for p in panels.split([len(p) for p in picks]):
+        ws = p.reshape(-1, p.shape[-1])
+        if dev.type == "cuda" and ws.data_ptr() % 16:
+            ws = ws.clone()
+        out.append(ws)
+    return tuple(out)
+
+
+def sharded_x(x, mesh: ChipMesh, x_sharding: str, x_send, x_recv):
+    """Each chip's X operand: ``x`` itself on every chip's device when
+    replicated, or — under ``x_sharding="rows"`` — the chip's compact
+    workspace from the exact-panel exchange over the stacked ``(C, P,
+    bk, d_pad)`` owned strips ``x`` and the ``x_send``/``x_recv``
+    tables."""
+    if x_sharding == "replicated":
+        return tuple(x.to(dev) for dev in mesh.devices)
+    if x_sharding != "rows":
+        raise ValueError(f"x_sharding must be 'replicated' or 'rows', got "
+                         f"{x_sharding!r}")
+    if x_send is None or x_recv is None:
+        raise ValueError("x_sharding='rows' needs the x_send/x_recv tables")
+    return exact_panel_exchange(x, place_on_chips(x_send, mesh),
+                                place_on_chips(x_recv, mesh), mesh)
+
+
+def wire_bytes_ratio(shape: Tuple[int, ...]) -> float:
+    """f32 ring all-reduce payload vs int8 all-gather payload per
+    participant."""
+    n = float(np.prod(shape))
+    f32_ar = 2 * n * 4          # reduce-scatter + all-gather halves
+    int8_ag = n * 1 + 4
+    return f32_ar / int8_ag

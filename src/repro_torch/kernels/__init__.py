@@ -36,27 +36,40 @@
 #                           a global kmax, on K2's block trip
 #                           (csrc/spmm_bcsr.cu; replaces
 #                           src/repro/kernels/spmm_bcsr.py::spmm_bcsr)
+#   spmm_ell_fused_sharded  K8 — one K1/K3 (K2/K4, K5/K6) launch per chip of
+#   spmm_bcsr_fused_sharded a ChipMesh, after the exact-panel X exchange
+#   attn_fused_sharded      when X is row-sharded; no device code of its
+#                           own (replaces the three *_sharded wrappers of
+#                           src/repro/kernels/{spmm_ell_fused,
+#                           spmm_bcsr_fused,attn_fused}.py)
 # ops.py holds the device/staging/validate resolvers and the
-# DISPATCH_COUNTS host counter the Table IV invariant tests read; the
-# sharded wrappers come in a later slice.
+# DISPATCH_COUNTS host counter the Table IV invariant tests read.
 from . import ops, ref
-from .attn_fused import (attn_fused, attn_fused_plain, attn_fused_staged,
+from .attn_fused import (attn_fused, attn_fused_plain, attn_fused_sharded,
+                         attn_fused_sharded_plain, attn_fused_staged,
                          attn_fused_staged_plain)
 from .sddmm import sddmm, sddmm_csr, sddmm_plain
 from .spmm_bcsr import spmm_bcsr, spmm_bcsr_plain
 from .spmm_bcsr_fused import (spmm_bcsr_fused, spmm_bcsr_fused_plain,
+                              spmm_bcsr_fused_sharded,
+                              spmm_bcsr_fused_sharded_plain,
                               spmm_bcsr_fused_staged,
                               spmm_bcsr_fused_staged_plain)
 from .spmm_ell_fused import (spmm_ell_fused, spmm_ell_fused_plain,
+                             spmm_ell_fused_sharded,
+                             spmm_ell_fused_sharded_plain,
                              spmm_ell_fused_staged,
                              spmm_ell_fused_staged_plain)
 from .spmm_csr import spmm_ell_segment, spmm_ell_segment_plain
 
-__all__ = ["attn_fused", "attn_fused_plain", "attn_fused_staged",
+__all__ = ["attn_fused", "attn_fused_plain", "attn_fused_sharded",
+           "attn_fused_sharded_plain", "attn_fused_staged",
            "attn_fused_staged_plain", "ops", "ref", "sddmm", "sddmm_csr",
            "sddmm_plain", "spmm_bcsr", "spmm_bcsr_plain", "spmm_bcsr_fused",
-           "spmm_bcsr_fused_plain", "spmm_bcsr_fused_staged",
+           "spmm_bcsr_fused_plain", "spmm_bcsr_fused_sharded",
+           "spmm_bcsr_fused_sharded_plain", "spmm_bcsr_fused_staged",
            "spmm_bcsr_fused_staged_plain", "spmm_ell_fused",
-           "spmm_ell_fused_plain", "spmm_ell_fused_staged",
+           "spmm_ell_fused_plain", "spmm_ell_fused_sharded",
+           "spmm_ell_fused_sharded_plain", "spmm_ell_fused_staged",
            "spmm_ell_fused_staged_plain", "spmm_ell_segment",
            "spmm_ell_segment_plain"]

@@ -29,6 +29,10 @@ the staged one through the same windows and chunks as K6.  The wrappers
 run them for CPU tensors; for CUDA tensors they launch the kernel or
 raise.  Their score sums run in another order than the kernels' (a warp
 butterfly), so the two agree to rounding, not bit for bit.
+
+K8 for attention, :func:`attn_fused_sharded`, launches K5 or K6 once per
+chip of a ``ChipMesh`` with that chip's Q rows in workspace order and
+K/V replicated to its device (``distributed.run_on_chips``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..distributed import check_on_mesh, place_on_chips, run_on_chips
 from . import _build
 from .spmm_bcsr_fused import _check_rows
 from .spmm_ell_fused import (_INT_FILL, COL_TILE, MAX_SHARED_BYTES, _long,
@@ -370,3 +375,62 @@ def attn_fused_staged(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat,
 
 
 attn_fused_staged.launches = 0
+
+
+# -- K8: the sharded dispatch, one launch per chip ---------------------------
+
+def _attn_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat,
+                  q_ws, k, v, *, mesh, bm, bk, mw, staging, span, cspan, cap,
+                  plain: bool):
+    check_on_mesh(mesh, blk_tag=blk_tag, blk_off=blk_off, blk_coff=blk_coff,
+                  blk_L=blk_L, cols_flat=cols_flat, vals_flat=vals_flat,
+                  q_ws=q_ws, k=k, v=v)
+    if staging == "dma":
+        kernel = attn_fused_staged_plain if plain else attn_fused_staged
+    else:
+        kernel = attn_fused_plain if plain else attn_fused
+    # Q per chip in its workspace order; K and V replicated
+    per_chip = [(q, k.to(dev), v.to(dev)) for q, dev in
+                zip(place_on_chips(q_ws, mesh), mesh.devices)]
+    return run_on_chips(kernel, (blk_tag, blk_off, blk_coff, blk_L,
+                                 cols_flat, vals_flat), per_chip, mesh=mesh,
+                        staging=staging, span=span, cspan=cspan, cap=cap,
+                        knobs=dict(bm=bm, bk=bk, mw=mw),
+                        counter=None if plain else attn_fused_sharded)
+
+
+def attn_fused_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                       vals_flat, q_ws, k, v, *, mesh, bm: int = 8,
+                       bk: int = 8, mw: int = 1, staging: str = "resident",
+                       span=0, cspan=0, cap=None) -> torch.Tensor:
+    """K8 for attention: one K5 (``resident``) or K6 (``dma``) launch per
+    chip of ``mesh``, each on its chip's device.
+
+    The descriptor tables, weights and the workspace-ordered ``q_ws``
+    (C, B*bm, dh_pad) are per chip (stacked or sequences; each chip's Q
+    rows from its own ``workspace_row_map`` shard); K and V are
+    replicated to every chip's device — attention rows read arbitrary
+    key columns, so there is no row-sharded mode.  ``span``/``cspan``
+    are an int or one window per chip.  Returns (C, B*bm, dv_pad) in
+    chip order on the first chip's device; each chip's launch also
+    counts in ``attn_fused_sharded.launches``."""
+    return _attn_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                         vals_flat, q_ws, k, v, mesh=mesh, bm=bm, bk=bk,
+                         mw=mw, staging=staging, span=span, cspan=cspan,
+                         cap=cap, plain=False)
+
+
+attn_fused_sharded.launches = 0
+
+
+def attn_fused_sharded_plain(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                             vals_flat, q_ws, k, v, *, mesh, bm: int = 8,
+                             bk: int = 8, mw: int = 1,
+                             staging: str = "resident", span=0, cspan=0,
+                             cap=None) -> torch.Tensor:
+    """Plain PyTorch K8 for attention: the same chip loop through
+    :func:`attn_fused_plain` / :func:`attn_fused_staged_plain`."""
+    return _attn_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                         vals_flat, q_ws, k, v, mesh=mesh, bm=bm, bk=bk,
+                         mw=mw, staging=staging, span=span, cspan=cspan,
+                         cap=cap, plain=True)

@@ -21,11 +21,14 @@ import collections
 
 import torch
 
-from .attn_fused import attn_fused, attn_fused_staged
+from ..distributed import chip_windows
+from .attn_fused import attn_fused, attn_fused_sharded, attn_fused_staged
 from .spmm_bcsr import spmm_bcsr
-from .spmm_bcsr_fused import spmm_bcsr_fused, spmm_bcsr_fused_staged
+from .spmm_bcsr_fused import (spmm_bcsr_fused, spmm_bcsr_fused_sharded,
+                              spmm_bcsr_fused_staged)
 from .spmm_csr import spmm_ell_segment
-from .spmm_ell_fused import spmm_ell_fused, spmm_ell_fused_staged
+from .spmm_ell_fused import (spmm_ell_fused, spmm_ell_fused_sharded,
+                             spmm_ell_fused_staged)
 
 # name -> number of fused dispatches issued (host-side)
 DISPATCH_COUNTS: "collections.Counter[str]" = collections.Counter()
@@ -34,8 +37,8 @@ DISPATCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 # increment — the reference's keys, one for one, so the accounting
 # tests and tools/lint_invariants.py read both packages alike (the
 # linter parses this literal and checks every increment site in src/
-# against it).  The sharded keys (``*_sharded``, ``*_xshard``) are
-# incremented only by the reference until the port has a sharded path.
+# against it).  The sharded wrappers count ``mesh.size`` under the
+# per-launch keys and one call under ``*_sharded``, as the reference's do.
 DISPATCH_KEYS = frozenset({
     # per-launch invariant keys (one per plan, n_chips when sharded)
     "ell_segment", "ell_fused", "bcsr", "bcsr_fused", "attn_fused",
@@ -219,3 +222,87 @@ def attn_fused_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat,
                                  cspan=cspan, bm=bm, bk=bk, mw=mw)
     return attn_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                       vals_flat, q_ws, k, v, bm=bm, bk=bk, mw=mw)
+
+
+def _sharded_staging(staging, mesh, span, cspan):
+    """Per-chip windows and the staging of a sharded dispatch, resolved
+    on the SMALLEST chip window as in the reference: a chip without a
+    window routes ``auto`` to resident for every chip, and an explicit
+    ``"dma"`` then raises.  Resident calls zero the windows."""
+    span = chip_windows(span, mesh.size)
+    cspan = chip_windows(cspan, mesh.size)
+    staging = _resolve_op_staging(staging, str(mesh.devices[0]), min(span),
+                                  min(cspan))
+    if staging != "dma":
+        span = cspan = (0,) * mesh.size
+    return staging, span, cspan
+
+
+def spmm_ell_fused_sharded_op(blk_off, blk_L, cols_flat, vals_flat, x, *,
+                              mesh, bm: int = 8, mw: int = 1, staging=None,
+                              span=0, cspan=0, x_sharding: str = "replicated",
+                              x_send=None, x_recv=None):
+    """One fused dispatch per chip: ``mesh.size`` under ``ell_fused`` (the
+    per-forward invariant) plus one ``ell_fused_sharded`` call —
+    ``mesh.size`` under ``ell_fused_dma`` when staged, under
+    ``ell_fused_xshard`` when X is row-sharded, and under
+    ``ell_fused_merged`` when ``mw > 1``."""
+    staging, span, cspan = _sharded_staging(staging, mesh, span, cspan)
+    DISPATCH_COUNTS["ell_fused"] += mesh.size
+    DISPATCH_COUNTS["ell_fused_sharded"] += 1
+    if mw > 1:
+        DISPATCH_COUNTS["ell_fused_merged"] += mesh.size
+    if x_sharding == "rows":
+        DISPATCH_COUNTS["ell_fused_xshard"] += mesh.size
+    if staging == "dma":
+        DISPATCH_COUNTS["ell_fused_dma"] += mesh.size
+    return spmm_ell_fused_sharded(blk_off, blk_L, cols_flat, vals_flat, x,
+                                  mesh=mesh, bm=bm, mw=mw, staging=staging,
+                                  span=span, cspan=cspan,
+                                  x_sharding=x_sharding, x_send=x_send,
+                                  x_recv=x_recv)
+
+
+def spmm_bcsr_fused_sharded_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                               vals_flat, x, *, mesh, bm: int = 8,
+                               bk: int = 8, mw: int = 1, staging=None,
+                               span=0, cspan=0,
+                               x_sharding: str = "replicated", x_send=None,
+                               x_recv=None):
+    """One mixed fused dispatch per chip: ``mesh.size`` under
+    ``bcsr_fused`` plus one ``bcsr_fused_sharded`` call, with the ELL
+    twin's ``_dma``/``_xshard``/``_merged`` accounting."""
+    staging, span, cspan = _sharded_staging(staging, mesh, span, cspan)
+    DISPATCH_COUNTS["bcsr_fused"] += mesh.size
+    DISPATCH_COUNTS["bcsr_fused_sharded"] += 1
+    if mw > 1:
+        DISPATCH_COUNTS["bcsr_fused_merged"] += mesh.size
+    if x_sharding == "rows":
+        DISPATCH_COUNTS["bcsr_fused_xshard"] += mesh.size
+    if staging == "dma":
+        DISPATCH_COUNTS["bcsr_fused_dma"] += mesh.size
+    return spmm_bcsr_fused_sharded(blk_tag, blk_off, blk_coff, blk_L,
+                                   cols_flat, vals_flat, x, mesh=mesh, bm=bm,
+                                   bk=bk, mw=mw, staging=staging, span=span,
+                                   cspan=cspan, x_sharding=x_sharding,
+                                   x_send=x_send, x_recv=x_recv)
+
+
+def attn_fused_sharded_op(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                          vals_flat, q_ws, k, v, *, mesh, bm: int = 8,
+                          bk: int = 8, mw: int = 1, staging=None, span=0,
+                          cspan=0):
+    """One fused attention dispatch per chip: ``mesh.size`` under
+    ``attn_fused`` plus one ``attn_fused_sharded`` call, ``mesh.size``
+    under ``attn_fused_dma`` when staged — K/V are replicated, so there
+    is no ``_xshard`` variant."""
+    staging, span, cspan = _sharded_staging(staging, mesh, span, cspan)
+    DISPATCH_COUNTS["attn_fused"] += mesh.size
+    DISPATCH_COUNTS["attn_fused_sharded"] += 1
+    if mw > 1:
+        DISPATCH_COUNTS["attn_fused_merged"] += mesh.size
+    if staging == "dma":
+        DISPATCH_COUNTS["attn_fused_dma"] += mesh.size
+    return attn_fused_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                              vals_flat, q_ws, k, v, mesh=mesh, bm=bm, bk=bk,
+                              mw=mw, staging=staging, span=span, cspan=cspan)

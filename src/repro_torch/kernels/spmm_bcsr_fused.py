@@ -37,6 +37,11 @@ Bound by bytes like K2; the sums run in K2's order, so K4 is
 bit-identical to K2.
 :func:`spmm_bcsr_fused_staged_plain` walks the same windows and chunks
 on the CPU.
+
+K8 for this backend, :func:`spmm_bcsr_fused_sharded`, launches K2 or K4
+once per chip of a ``ChipMesh`` (``distributed.run_on_chips``); under
+``x_sharding="rows"`` each chip's X is its compact (T*bk, d_pad)
+workspace from the exact-panel exchange.
 """
 from __future__ import annotations
 
@@ -44,9 +49,10 @@ import ctypes
 
 import torch
 
+from ..distributed import check_on_mesh, run_on_chips, sharded_x
 from . import _build
-from .spmm_ell_fused import (_long, check_staged, check_tables,
-                             staged_plain, staging_geometry, vpu_trips)
+from .spmm_ell_fused import (_long, check_staged, check_tables, staged_plain,
+                             staging_geometry, vpu_trips)
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _STAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
@@ -205,3 +211,67 @@ def spmm_bcsr_fused_staged(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
 
 
 spmm_bcsr_fused_staged.launches = 0
+
+
+# -- K8: the sharded dispatch, one launch per chip ---------------------------
+
+def _bcsr_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat, x,
+                  *, mesh, bm, bk, mw, staging, span, cspan, x_sharding,
+                  x_send, x_recv, cap, plain: bool):
+    check_on_mesh(mesh, blk_tag=blk_tag, blk_off=blk_off, blk_coff=blk_coff,
+                  blk_L=blk_L, cols_flat=cols_flat, vals_flat=vals_flat, x=x,
+                  x_send=x_send, x_recv=x_recv)
+    if staging == "dma":
+        kernel = (spmm_bcsr_fused_staged_plain if plain
+                  else spmm_bcsr_fused_staged)
+    else:
+        kernel = spmm_bcsr_fused_plain if plain else spmm_bcsr_fused
+    xs = sharded_x(x, mesh, x_sharding, x_send, x_recv)
+    return run_on_chips(kernel, (blk_tag, blk_off, blk_coff, blk_L,
+                                 cols_flat, vals_flat),
+                        [(xc,) for xc in xs], mesh=mesh, staging=staging,
+                        span=span, cspan=cspan, cap=cap,
+                        knobs=dict(bm=bm, bk=bk, mw=mw),
+                        counter=None if plain else spmm_bcsr_fused_sharded)
+
+
+def spmm_bcsr_fused_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                            vals_flat, x, *, mesh, bm: int = 8, bk: int = 8,
+                            mw: int = 1, staging: str = "resident", span=0,
+                            cspan=0, x_sharding: str = "replicated",
+                            x_send=None, x_recv=None,
+                            cap=None) -> torch.Tensor:
+    """K8 for ``pallas_bcsr``: one K2 (``resident``) or K4 (``dma``)
+    launch per chip of ``mesh``, each on its chip's device — the
+    contract of ``spmm_ell_fused.spmm_ell_fused_sharded`` with the mixed
+    plan's (C, B) ``blk_tag``/``blk_coff`` tables.  ``x`` is the
+    replicated (n_pad, d_pad) operand or, under ``x_sharding="rows"``,
+    the stacked (C, P, bk, d_pad) owned strips, from which the exchange
+    builds each chip's compact (T*bk, d_pad) workspace.  Returns (C,
+    B*bm, d_pad) in chip order; each chip's launch also counts in
+    ``spmm_bcsr_fused_sharded.launches``."""
+    return _bcsr_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                         vals_flat, x, mesh=mesh, bm=bm, bk=bk, mw=mw,
+                         staging=staging, span=span, cspan=cspan,
+                         x_sharding=x_sharding, x_send=x_send, x_recv=x_recv,
+                         cap=cap, plain=False)
+
+
+spmm_bcsr_fused_sharded.launches = 0
+
+
+def spmm_bcsr_fused_sharded_plain(blk_tag, blk_off, blk_coff, blk_L,
+                                  cols_flat, vals_flat, x, *, mesh,
+                                  bm: int = 8, bk: int = 8, mw: int = 1,
+                                  staging: str = "resident", span=0, cspan=0,
+                                  x_sharding: str = "replicated",
+                                  x_send=None, x_recv=None,
+                                  cap=None) -> torch.Tensor:
+    """Plain PyTorch K8 for ``pallas_bcsr``: the same chip loop and
+    exchange through :func:`spmm_bcsr_fused_plain` /
+    :func:`spmm_bcsr_fused_staged_plain`."""
+    return _bcsr_sharded(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
+                         vals_flat, x, mesh=mesh, bm=bm, bk=bk, mw=mw,
+                         staging=staging, span=span, cspan=cspan,
+                         x_sharding=x_sharding, x_send=x_send, x_recv=x_recv,
+                         cap=cap, plain=True)

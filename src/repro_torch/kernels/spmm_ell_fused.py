@@ -36,6 +36,18 @@ hold the window arithmetic both staged kernels share, and
 :func:`spmm_ell_fused_staged_plain` runs it on the CPU: it copies the
 same aligned windows and chunks into buffers whose unfilled entries are
 NaN (values) or out of range (columns), so a window error shows there.
+
+K8 for this backend, :func:`spmm_ell_fused_sharded`, replaces the
+reference's ``spmm_ell_fused_sharded`` (``shard_map`` over a chip mesh,
+one ``pallas_call`` per chip, the exact-panel exchange first under
+``x_sharding="rows"``).  It has no device code of its own: the port is
+single-controller, so it loops over a ``ChipMesh`` and launches K1 or K3
+once per chip on that chip's device, each staged launch with its OWN
+chip's window (the reference's per-window ``lax.switch``).  The chip
+loop and the X placement the three sharded wrappers share are
+``distributed.run_on_chips`` and ``distributed.sharded_x``;
+:func:`spmm_ell_fused_sharded_plain` runs the same loop through the plain
+versions.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ import ctypes
 
 import torch
 
+from ..distributed import check_on_mesh, run_on_chips, sharded_x
 from . import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -448,3 +461,72 @@ def spmm_ell_fused_staged(blk_off, blk_L, cols_flat, vals_flat, x, *,
 
 
 spmm_ell_fused_staged.launches = 0
+
+
+# -- K8: the sharded dispatch, one launch per chip ---------------------------
+
+def _ell_sharded(blk_off, blk_L, cols_flat, vals_flat, x, *, mesh, bm, mw,
+                 staging, span, cspan, x_sharding, x_send, x_recv, cap,
+                 plain: bool):
+    check_on_mesh(mesh, blk_off=blk_off, blk_L=blk_L, cols_flat=cols_flat,
+                  vals_flat=vals_flat, x=x, x_send=x_send, x_recv=x_recv)
+    if staging == "dma":
+        kernel = (spmm_ell_fused_staged_plain if plain
+                  else spmm_ell_fused_staged)
+    else:
+        kernel = spmm_ell_fused_plain if plain else spmm_ell_fused
+    xs = sharded_x(x, mesh, x_sharding, x_send, x_recv)
+    return run_on_chips(kernel, (blk_off, blk_L, cols_flat, vals_flat),
+                        [(xc,) for xc in xs], mesh=mesh, staging=staging,
+                        span=span, cspan=cspan, cap=cap,
+                        knobs=dict(bm=bm, mw=mw),
+                        counter=None if plain else spmm_ell_fused_sharded)
+
+
+def spmm_ell_fused_sharded(blk_off, blk_L, cols_flat, vals_flat, x, *, mesh,
+                           bm: int = 8, mw: int = 1,
+                           staging: str = "resident", span=0, cspan=0,
+                           x_sharding: str = "replicated", x_send=None,
+                           x_recv=None, cap=None) -> torch.Tensor:
+    """K8 for ``pallas_ell``: one K1 (``resident``) or K3 (``dma``) launch
+    per chip of ``mesh`` (a ``ChipMesh``), each on its chip's device.
+
+    blk_off/blk_L : (C, B) int32 — per-chip descriptor tables
+    cols_flat     : (C, Sc) int32 — per-chip slot -> X row (rows of the
+                    chip's compact X workspace under ``"rows"``)
+    vals_flat     : (C, S) float32 — per-chip slot values
+    x             : (n, d_pad) float32 when replicated; the stacked
+                    (C, P, bk, d_pad) owned-panel strips under ``"rows"``
+    span/cspan    : the staged windows, an int or one per chip
+                    (``ShardedFusedWorkspace.chip_span``/``chip_cspan``)
+
+    Tables may be stacked tensors or sequences of per-chip tensors;
+    every operand must lie on the mesh's device type.  Under
+    ``x_sharding="rows"`` the exact-panel exchange runs first, over the
+    ``x_send`` (C, C, T2) and ``x_recv`` (C, T) tables.  Returns the
+    (C, B*bm, d_pad) workspace rows in chip order, on the first chip's
+    device; the caller flattens them and applies the sharded
+    workspace's GLOBAL ``inv_perm``.  Each chip's launch counts in its
+    kernel's ``launches`` and in ``spmm_ell_fused_sharded.launches``.
+    """
+    return _ell_sharded(blk_off, blk_L, cols_flat, vals_flat, x, mesh=mesh,
+                        bm=bm, mw=mw, staging=staging, span=span, cspan=cspan,
+                        x_sharding=x_sharding, x_send=x_send, x_recv=x_recv,
+                        cap=cap, plain=False)
+
+
+spmm_ell_fused_sharded.launches = 0
+
+
+def spmm_ell_fused_sharded_plain(blk_off, blk_L, cols_flat, vals_flat, x, *,
+                                 mesh, bm: int = 8, mw: int = 1,
+                                 staging: str = "resident", span=0, cspan=0,
+                                 x_sharding: str = "replicated", x_send=None,
+                                 x_recv=None, cap=None) -> torch.Tensor:
+    """Plain PyTorch K8 for ``pallas_ell``: the same chip loop and
+    exchange through :func:`spmm_ell_fused_plain` /
+    :func:`spmm_ell_fused_staged_plain`."""
+    return _ell_sharded(blk_off, blk_L, cols_flat, vals_flat, x, mesh=mesh,
+                        bm=bm, mw=mw, staging=staging, span=span, cspan=cspan,
+                        x_sharding=x_sharding, x_send=x_send, x_recv=x_recv,
+                        cap=cap, plain=True)

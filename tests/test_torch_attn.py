@@ -25,7 +25,8 @@ from repro.core.jit_cache import JitCache as RefJitCache
 from repro.kernels.attn_fused import attn_fused as ref_attn_fused
 from repro.kernels.attn_fused import attn_fused_staged as ref_attn_staged
 from repro_torch import convert
-from repro_torch.core import compile_sparse_attention, sparse_attention
+from repro_torch.core import (chip_mesh, compile_sparse_attention,
+                              sparse_attention)
 from repro_torch.core.jit_cache import JitCache
 from repro_torch.kernels import (attn_fused, attn_fused_plain,
                                  attn_fused_staged, attn_fused_staged_plain,
@@ -332,7 +333,7 @@ def test_one_dispatch_per_forward(backend, staging):
 
 @pytest.mark.parametrize("bad", ("dense", "mesh", "n_chips", "ref_dma"))
 def test_entry_points_refuse_what_they_do_not_run(bad):
-    _, pa, _, _, _ = instance("weighted")
+    _, pa, dh, dv, (q, k, v) = instance("weighted")
     kw = dict(device="cpu", cache=JitCache())
     if bad == "dense":
         with pytest.raises(ValueError):
@@ -342,8 +343,21 @@ def test_entry_points_refuse_what_they_do_not_run(bad):
             compile_sparse_attention(pa, 8, backend="ref", staging="dma",
                                      **kw)
     else:
-        with pytest.raises(NotImplementedError, match="sharded"):
-            compile_sparse_attention(pa, 8, **{bad: 2}, **kw)
+        # the single-device ref backend refuses a mesh; the fused ones
+        # run on a 2-chip CPU mesh, spelled either way, and equal the
+        # unsharded forward bit for bit
+        spelling = ({"mesh": chip_mesh(2, device="cpu")} if bad == "mesh"
+                    else {"n_chips": 2})
+        with pytest.raises(ValueError, match="single-device"):
+            compile_sparse_attention(pa, 8, backend="ref", **spelling, **kw)
+        for backend in FUSED:
+            want = sparse_attention(pa, t(q), t(k), t(v), backend=backend,
+                                    device="cpu", cache=JitCache())
+            c = compile_sparse_attention(pa, dh, dv, backend=backend,
+                                         device="cpu", cache=JitCache(),
+                                         **spelling)
+            assert c.n_chips == 2
+            assert torch.equal(c(pa.vals, t(q), t(k), t(v)), want), backend
 
 
 @pytest.mark.parametrize("bad", ("dtype", "bk", "width", "rows"))

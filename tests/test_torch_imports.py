@@ -55,7 +55,9 @@ def test_every_slice_module_is_covered():
                  "repro_torch.models.layers",
                  "repro_torch.models.sparse_attention",
                  "repro_torch.kernels.sddmm", "repro_torch.kernels.spmm_csr",
-                 "repro_torch.kernels.spmm_bcsr"):
+                 "repro_torch.kernels.spmm_bcsr", "repro_torch.distributed",
+                 "repro_torch.distributed.sharding",
+                 "repro_torch.distributed.collectives"):
         assert name in modules, name
     for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
                 "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu"):

@@ -246,14 +246,17 @@ def test_bcsr_rejects_malformed_operands(bad):
 
 
 def test_only_the_sharded_wrappers_are_left_to_port():
-    # K8, the sharded path, is the one kernel row the port lacks; the
-    # port's extra names are its plain versions
+    # nothing is left: every reference kernel export, the K8 sharded
+    # wrappers included, has its port counterpart, and the port's extra
+    # names are its plain versions
     reference = reference_module()
     missing = set(reference.__all__) - set(port_kernels.__all__)
-    assert missing == {"spmm_ell_fused_sharded", "spmm_bcsr_fused_sharded",
-                       "attn_fused_sharded"}
+    assert missing == set(), missing
     extra = set(port_kernels.__all__) - set(reference.__all__)
     assert all(name.endswith("_plain") for name in extra), extra
+    for name in ("spmm_ell_fused_sharded", "spmm_bcsr_fused_sharded",
+                 "attn_fused_sharded"):
+        assert name + "_plain" in port_kernels.__all__, name
 
 
 def _needs_hopper():

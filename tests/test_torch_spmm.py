@@ -179,6 +179,10 @@ def test_operands_on_another_device_are_refused():
 def test_knobs_of_later_slices_are_not_accepted():
     import inspect
     params = inspect.signature(spmm_mod.compile_spmm).parameters
-    for knob in ("mesh", "n_chips", "x_sharding", "autotune", "measure",
-                 "candidates", "top_k", "interpret"):
+    # autotuning is a later slice; the reference's interpret knob is the
+    # port's device
+    for knob in ("autotune", "measure", "candidates", "top_k", "interpret"):
         assert knob not in params, knob
+    # the sharded slice's knobs are in
+    for knob in ("mesh", "n_chips", "x_sharding"):
+        assert knob in params, knob
