@@ -15,7 +15,10 @@ result line):
              K10 ``spmm_bcsr``) from ``src/repro_torch/kernels/csrc``
              into ``build/``, one ``nvcc`` per source, in parallel, and
              print ptxas's registers and spills for every template
-             instance (bm; K7 has one).
+             instance (bm; K7 has one), each beside the CTAs per SM the
+             card reports for it (``<name>_ctas_per_sm``; the staged
+             SpMM kernels at the 1024-entry slot, the attention kernels
+             at dh = 128, bk = 8).
 3. kernels — each kernel against its plain PyTorch version on the card
              (rtol = atol = 1e-5), and each staged kernel against its
              resident twin (``torch.equal``: K3 = K1, K4 = K2): every
@@ -35,7 +38,13 @@ result line):
              the resident one (``torch.equal``); each forward must be
              exactly one fused dispatch and one kernel launch, and the
              kernels, their plain versions, the forward and
-             ``torch.sparse.mm`` are timed.
+             ``torch.sparse.mm`` are timed, each kernel beside its bytes
+             bound, its slot and nnz gather models (an X row per slot,
+             padding included, or per nonzero), the achieved TB/s on the
+             nnz model and its launch's CTAs per SM.  One
+             ``torch.profiler`` window over two default forwards on the
+             uniform graph prints device time by kernel and the device's
+             idle share (or says that it recorded no device time).
 5. train   — the 2-layer GCN of ``examples/gnn_graphconv.py`` at full
              width on the uniform graph plus self-loops (sym-normalised,
              ~17.8 M edges): 5 SGD steps with the default artifacts, 4
@@ -243,6 +252,24 @@ def phase_device() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def build_smem(name: str, bm: int) -> int:
+    """The dynamic shared memory at which the build phase asks the card
+    for ``name``'s CTAs per SM: the staged SpMM kernels' ring at the
+    default 1024-entry slot (bk = 8 for K4), the attention kernels' at
+    dh = 128 and bk = 8; the other kernels take none."""
+    from repro_torch.kernels.spmm_ell_fused import STAGE_CAP, ring_bytes
+    attn = _kernel_module("attn_fused")
+    if name == "spmm_ell_fused_staged":
+        return ring_bytes(STAGE_CAP, bm=bm, bk=1)
+    if name == "spmm_bcsr_fused_staged":
+        return ring_bytes(STAGE_CAP, bm=bm, bk=8)
+    if name == "attn_fused":
+        return attn.scratch_bytes(bm, 8, 128)
+    if name == "attn_fused_staged":
+        return attn.ring_bytes(STAGE_CAP, bm=bm, bk=8, dh_pad=128)
+    return 0
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -251,17 +278,22 @@ def phase_build() -> None:
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for name, text in _build.BUILD_LOG.items():
         # ptxas -v: per template instance (bm; K7 has one), registers
-        # and spills
-        report, inst = [], "?"
+        # and spills, and the CTAs per SM the card reports for it
+        report, inst, bm = [], "?", 8
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                bm = re.search(r"ILi(\d+)E", line)
-                inst = f"bm={bm.group(1)}" if bm else "one instance"
+                found = re.search(r"ILi(\d+)E", line)
+                bm = int(found.group(1)) if found else 8
+                inst = f"bm={bm}" if found else "one instance"
             elif "spill stores" in line:
                 spill = line.split(",")[1].strip()
             elif "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                report.append(f"{inst}: {regs} registers, {spill}")
+                smem = build_smem(name, bm)
+                ctas = _build.ctas_per_sm(name, bm, smem)
+                report.append(f"{inst}: {regs} registers, {spill}, "
+                              f"{ctas} CTAs/SM at {smem} B of dynamic "
+                              f"shared memory")
         log(f"ptxas {name}: " + "; ".join(report))
 
 
@@ -421,10 +453,53 @@ def _sparse_csr(a):
                                    check_invariants=False)
 
 
+def gather_models(ws, nnz: int, d_pad: int, bm: int, bk: int) -> dict:
+    """The two gather models of a workspace, in bytes: the slot model
+    charges every VPU slot, padding included, one X row from device
+    memory; the nnz model charges one X row per nonzero of a VPU row and
+    one bk-row X panel per MXU block step (padding slots point at one
+    shared column, whose row stays in cache).  Both add each slot's
+    value and column and the output once."""
+    from repro_torch.core.plan import MXU_TAG
+    mxu = ws.blk_tag == MXU_TAG
+    L = ws.blk_L.astype(np.int64)
+    vpu_slots = int(bm * L[~mxu].sum())
+    mxu_steps = int(L[mxu].sum())
+    row = 4 * d_pad
+    # the VPU descriptors' slots, and how many of them hold a nonzero
+    # (a padding slot gathers the sentinel value, index nnz)
+    lens = bm * L[~mxu]
+    starts = ws.blk_off.astype(np.int64)[~mxu]
+    first = np.repeat(starts - np.concatenate([[0], np.cumsum(lens)[:-1]]),
+                      lens)
+    slots = first + np.arange(vpu_slots, dtype=np.int64)
+    vpu_nnz = int(np.count_nonzero(ws.gather_flat[slots] != nnz))
+    out = ws.num_blocks * bm * d_pad * 4
+    common = vpu_slots * 8 + mxu_steps * (bm * bk * 4 + 4) + out
+    return dict(slot=vpu_slots * row + common,
+                nnz=vpu_nnz * row + mxu_steps * bk * row + common,
+                vpu_slots=vpu_slots, vpu_nnz=vpu_nnz, mxu_steps=mxu_steps)
+
+
+def launch_ctas(c, name: str) -> int:
+    """CTAs per SM the card fits for ``c``'s kernel launch (the staged
+    kernels' ring at this workspace's slot)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spmm_ell_fused import ring_bytes, staging_geometry
+    smem = 0
+    if c.staging == "dma":
+        ws = c.workspace
+        bk = c.bk if c.backend == "pallas_bcsr" else 1
+        cap = staging_geometry(ws.max_span, ws.max_cspan, bm=c.bm, bk=bk)[0]
+        smem = ring_bytes(cap, bm=c.bm, bk=bk)
+    return _build.ctas_per_sm(name, c.bm, smem)
+
+
 def measure(c, a, x, label: str) -> dict:
     """Hold the kernel to its plain version at size, time the forward,
     the kernel, the plain version and torch.sparse.mm, print them with
-    the bounds, and return the kernel's row of the JSON report."""
+    the bounds, the gather models and the achieved rate on the nnz
+    model, and return the kernel's row of the JSON report."""
     from repro_torch.core.plan import MXU_TAG
     name, kernel, plain = kernel_pair(c.backend, c.staging)
     operands, knobs = c.fused_operands(a.vals, x)
@@ -445,9 +520,11 @@ def measure(c, a, x, label: str) -> dict:
     out_elems = ws.num_blocks * bm * d_pad
     bound_ms, bound_by = bound(operands, out_elems, vpu_slots, mxu_macs,
                                d_pad)
-    # the gather model: every VPU slot reads its own X row from HBM
-    gather_ms = (vpu_slots * (8 + 4 * d_pad) + mxu_macs * 4
-                 + out_elems * 4) / HBM_BYTES_PER_S * 1e3
+    models = gather_models(ws, a.nnz, d_pad, bm, bk)
+    slot_ms = models["slot"] / HBM_BYTES_PER_S * 1e3
+    nnz_model_ms = models["nnz"] / HBM_BYTES_PER_S * 1e3
+    pad = (1 - models["vpu_nnz"] / models["vpu_slots"]
+           if models["vpu_slots"] else 0.0)
     # the structure's own floor, whatever the workspace: A's values and
     # columns (f32 + i32 per nonzero), X read once, Y written once; the
     # workspace bound above also pays for ELL and block padding
@@ -462,9 +539,14 @@ def measure(c, a, x, label: str) -> dict:
         f"forward {fwd_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.sparse.mm {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}), nnz bound {nnz_ms:.4f} ms, gather model "
-        f"{gather_ms:.4f} ms, max |kernel - plain| {err:.3g}; "
-        f"B={ws.num_blocks} mw={ws.merge_width} slots={vpu_slots} "
-        f"mxu_blocks={int(L[mxu].sum())} d_pad={d_pad} "
+        f"{slot_ms:.4f} ms (every slot), nnz gather model "
+        f"{nnz_model_ms:.4f} ms ({100 * pad:.1f} % of the VPU slots are "
+        f"padding), achieved {models['nnz'] / ms / 1e9:.4f} TB/s on the "
+        f"nnz model ({models['nnz'] / 1e9:.4f} GB) against "
+        f"{HBM_BYTES_PER_S / 1e12:.2f}; {launch_ctas(c, name)} CTAs/SM; "
+        f"max |kernel - plain| {err:.3g}; B={ws.num_blocks} "
+        f"mw={ws.merge_width} slots={vpu_slots} "
+        f"mxu_blocks={models['mxu_steps']} d_pad={d_pad} "
         f"max_span={ws.max_span}")
     return dict(name=name, route="cuda", **KERNELS[name], max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -568,7 +650,56 @@ def phase_main(instances: dict, cache) -> tuple:
         results[bcsr["name"]] = bcsr
     for name, row in results.items():
         row["launches"] = launches[name]
+    profile_forward(compiled[("uniform", "auto", None)],
+                    *instances["uniform"])
     return results, compiled
+
+
+def profile_forward(c, a, x, forwards: int = 2) -> None:
+    """One torch.profiler window over ``forwards`` default forwards on
+    the uniform graph: device time by kernel (``key_averages()``) and
+    the device's idle share of the window, the span from the first to
+    the last event the profiler recorded, host or device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    c(a.vals, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            c(a.vals, x)
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.time_range.end > e.time_range.start]
+    if not device:
+        log(f"profile: torch.profiler recorded no device time over "
+            f"{forwards} default forwards; the CUDA-event split above "
+            f"stands")
+        return
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
+    busy, reach = 0.0, start
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        lo = max(e.time_range.start, reach)
+        if e.time_range.end > lo:
+            busy += e.time_range.end - lo
+            reach = e.time_range.end
+    rows = []
+    for row in prof.key_averages():
+        t = getattr(row, "self_device_time_total", None)
+        if t is None:
+            t = getattr(row, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((t, row.count, row.key))
+    rows.sort(reverse=True)
+    log(f"profile: {forwards} default forwards on the uniform graph "
+        f"({c.backend}/{c.staging}): window {(end - start) / 1e3:.4f} ms, "
+        f"device busy {busy / 1e3:.4f} ms, idle share "
+        f"{100 * (1 - busy / (end - start)):.1f} %; device ms by kernel: "
+        + "; ".join(f"{key[:60]} x{count} {t / 1e3:.4f}"
+                    for t, count, key in rows[:8]))
 
 
 def gcn_graph(a):

@@ -9,9 +9,9 @@
 #                           (csrc/spmm_bcsr_fused.cu; replaces
 #                           src/repro/kernels/spmm_bcsr_fused.py::
 #                           spmm_bcsr_fused)
-#   spmm_ell_fused_staged   K3 — K1 with each trip's windows staged through
-#                           a double-buffered shared-memory ring
-#                           (csrc/spmm_ell_fused_staged.cu; replaces
+#   spmm_ell_fused_staged   K3 — K1 with each trip's windows and X rows
+#                           staged by a producer warp through shared-memory
+#                           rings (csrc/spmm_ell_fused_staged.cu; replaces
 #                           spmm_ell_fused.py::spmm_ell_fused_staged)
 #   spmm_bcsr_fused_staged  K4 — K2 staged the same way, X included
 #                           (csrc/spmm_bcsr_fused_staged.cu; replaces

@@ -92,17 +92,39 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes: Sequence) -> ctypes.CDLL:
-    """The loaded library for ``name`` (built first if needed).  Its C
-    entry point ``<name>_launch`` gets ``argtypes`` and an ``int``
-    return, the ``cudaError_t`` of the launch."""
+def _open(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def load(name: str, argtypes: Sequence) -> ctypes.CDLL:
+    """The loaded library for ``name`` (built first if needed).  Its C
+    entry point ``<name>_launch`` gets ``argtypes`` and an ``int``
+    return, the ``cudaError_t`` of the launch."""
+    lib = _open(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ctas_per_sm(name: str, bm: int, smem: int) -> int:
+    """How many CTAs of ``name``'s kernel at row block ``bm`` (one of
+    the sizes the wrappers accept) the current card fits on one SM with
+    ``smem`` bytes of dynamic shared memory, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it through
+    the library's ``<name>_ctas_per_sm``."""
+    fn = getattr(_open(name), f"{name}_ctas_per_sm")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(bm, smem)
+    if n < 0:
+        raise RuntimeError(f"the occupancy query of {name} failed "
+                           f"(bm={bm}, smem={smem})")
+    return n

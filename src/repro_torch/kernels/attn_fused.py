@@ -18,7 +18,7 @@ What bounds them on an H100: operations — 2·dh flops of score and 2·dv
 of S·V per nonzero in fp32 outside the tensor cores, against 8 bytes of
 weight and column.  Each CTA keeps the descriptor's Q block in shared
 memory and each warp reduces its rows' scores across its lanes
-(``csrc/attn_trips.cuh`` has the layout).  K6 takes K3/K4's ring
+(``csrc/attn_trips.cuh`` has the layout).  K6 takes the staged walk
 (``csrc/spmm_staged.cuh``) for the weight and column windows, with the
 chunked walk for windows over the slot, and equals K5 bit for bit.
 

@@ -20,6 +20,7 @@
 // rows reuse them.  One CTA per (merged trip, 128-column tile); a merged
 // trip's members run one after another, each with its own carry.
 #include "attn_trips.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -79,4 +80,13 @@ extern "C" int attn_fused_launch(
     ATTN_DISPATCH_BM(bm, LAUNCH)
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the bm instance that fit on one SM with `smem` bytes of
+// dynamic shared memory, as the card reports it; -1 on a CUDA error.
+extern "C" int attn_fused_ctas_per_sm(int bm, int smem) {
+#define QUERY(BM) \
+    return occupancy::ctas_per_sm(attn_fused_kernel<BM>, attn::kColTile, smem)
+    ATTN_DISPATCH_BM(bm, QUERY)
+#undef QUERY
 }

@@ -21,6 +21,7 @@
 // own noted follow-up, attn_fused.py:33-39).
 #include "attn_trips.cuh"
 #include "spmm_staged.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -179,4 +180,13 @@ extern "C" int attn_fused_staged_launch(
 #define LAUNCH(BM) return static_cast<int>(launch_staged<BM>(p, o, s))
     ATTN_DISPATCH_BM(bm, LAUNCH)
 #undef LAUNCH
+}
+
+// CTAs of the bm instance that fit on one SM with `smem` bytes of
+// dynamic shared memory, as the card reports it; -1 on a CUDA error.
+extern "C" int attn_fused_staged_ctas_per_sm(int bm, int smem) {
+#define QUERY(BM) \
+    return occupancy::ctas_per_sm(attn_fused_staged_kernel<BM>, attn::kColTile, smem)
+    ATTN_DISPATCH_BM(bm, QUERY)
+#undef QUERY
 }

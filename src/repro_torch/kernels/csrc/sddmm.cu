@@ -21,6 +21,8 @@
 // after the first read.
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;    // pairs per CTA, one warp each
@@ -66,4 +68,13 @@ extern "C" int sddmm_launch(const void* rows, const void* cols,
         static_cast<const float*>(dy), static_cast<const float*>(x),
         static_cast<float*>(out), nnz_pad, d_pad, dt);
     return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs that fit on one SM, as the card reports it (one instance: bm and
+// smem are there for the common signature; the kernel takes no dynamic
+// shared memory); -1 on a CUDA error.
+extern "C" int sddmm_ctas_per_sm(int bm, int smem) {
+    (void)bm;
+    (void)smem;
+    return occupancy::ctas_per_sm(sddmm_kernel, kWarps * 32, 0);
 }

@@ -16,6 +16,7 @@
 // no TF32 and no tensor cores, as the reference computes fp32 x fp32 ->
 // fp32 and Hopper's tensor cores have no IEEE fp32 mode.
 #include "spmm_trips.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -52,4 +53,13 @@ extern "C" int spmm_bcsr_launch(const void* bcols, const void* vals,
     SPMM_DISPATCH_BM(bm, LAUNCH)
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the bm instance that fit on one SM with `smem` bytes of
+// dynamic shared memory, as the card reports it; -1 on a CUDA error.
+extern "C" int spmm_bcsr_ctas_per_sm(int bm, int smem) {
+#define QUERY(BM) \
+    return occupancy::ctas_per_sm(spmm_bcsr_kernel<BM>, spmm::kColTile, smem)
+    SPMM_DISPATCH_BM(bm, QUERY)
+#undef QUERY
 }

@@ -22,6 +22,7 @@
 // precision knob in a later change.  The tag branch is per descriptor,
 // so it is uniform across the CTA and never diverges a warp.
 #include "spmm_trips.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -73,4 +74,13 @@ extern "C" int spmm_bcsr_fused_launch(
     SPMM_DISPATCH_BM(bm, LAUNCH)
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the bm instance that fit on one SM with `smem` bytes of
+// dynamic shared memory, as the card reports it; -1 on a CUDA error.
+extern "C" int spmm_bcsr_fused_ctas_per_sm(int bm, int smem) {
+#define QUERY(BM) \
+    return occupancy::ctas_per_sm(spmm_bcsr_fused_kernel<BM>, spmm::kColTile, smem)
+    SPMM_DISPATCH_BM(bm, QUERY)
+#undef QUERY
 }

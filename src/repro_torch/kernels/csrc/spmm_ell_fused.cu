@@ -13,6 +13,7 @@
 // stream through shared memory (GE-SpMM's row caching) and the
 // double-buffered K3 variant are later work.
 #include "spmm_trips.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -56,4 +57,13 @@ extern "C" int spmm_ell_fused_launch(
     SPMM_DISPATCH_BM(bm, LAUNCH)
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the bm instance that fit on one SM with `smem` bytes of
+// dynamic shared memory, as the card reports it; -1 on a CUDA error.
+extern "C" int spmm_ell_fused_ctas_per_sm(int bm, int smem) {
+#define QUERY(BM) \
+    return occupancy::ctas_per_sm(spmm_ell_fused_kernel<BM>, spmm::kColTile, smem)
+    SPMM_DISPATCH_BM(bm, QUERY)
+#undef QUERY
 }

@@ -11,6 +11,7 @@
 // two streams.  So the sums, with their two roundings per step, are
 // K1's, and what bounds it is K1's: bytes, one gathered X row per slot.
 #include "spmm_trips.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -46,4 +47,13 @@ extern "C" int spmm_ell_segment_launch(const void* cols, const void* vals,
     SPMM_DISPATCH_BM(bm, LAUNCH)
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the bm instance that fit on one SM with `smem` bytes of
+// dynamic shared memory, as the card reports it; -1 on a CUDA error.
+extern "C" int spmm_ell_segment_ctas_per_sm(int bm, int smem) {
+#define QUERY(BM) \
+    return occupancy::ctas_per_sm(spmm_ell_segment_kernel<BM>, spmm::kColTile, smem)
+    SPMM_DISPATCH_BM(bm, QUERY)
+#undef QUERY
 }

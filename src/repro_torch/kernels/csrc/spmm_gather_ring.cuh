@@ -1,0 +1,389 @@
+// The staged fused SpMM kernels K3 (spmm_ell_fused_staged.cu) and K4
+// (spmm_bcsr_fused_staged.cu): one warp-specialised kernel template,
+// MIXED = false for K3 (all VPU descriptors, coff == off) and true for
+// K4 (tagged descriptors, MXU block steps too).
+//
+// Work.  Persistent CTAs walk merged trips g, g + gridDim.x, ... for one
+// 128-column tile (blockIdx.y), in spmm_staged.cuh's items: a trip whose
+// windows fit a slot is one item, a larger one is walked member by
+// member in chunks that keep every row's order of summation.  A CTA is
+// four consumer warps, one output column per thread with a descriptor's
+// bm fp32 accumulators in registers, and one producer warp that moves
+// every byte the consumers read into shared memory ahead of them.
+//
+// The slot ring.  kSlots slots of C + 4 value and C + 4 column entries,
+// each with a full and an empty mbarrier.  Lane 0 of the producer fills
+// item i + 1's slot with spmm_staged.cuh's cp.async.bulk window copies
+// (aligned-down starts, completion by transaction count on the slot's
+// full barrier) before it stages item i's X rows; the consumers arrive on
+// the slot's empty barrier when they finish the item.
+//
+// The X ring.  kXStages stages of max(bm, bk) rows of one column tile (4
+// KB at bm = 8), each with a full and an empty mbarrier.  For a VPU step
+// the producer reads the step's bm column indices from the slot and
+// copies X row k_r's 512-byte segment into stage row r; for an MXU step
+// it copies the bk rows of the step's X panel.  Each lane copies 16
+// bytes of every row with cp.async.ca (one warp instruction a row) and
+// then arrives on the stage's full barrier with
+// cp.async.mbarrier.arrive.noinc, which fires when its copies have
+// landed, so the barrier completes when the whole stage is in.  The
+// producer runs up to kXStages - 1 steps ahead of the consumers, across
+// member, item and trip boundaries.  The consumers wait on full, add
+// acc[r] = __fadd_rn(acc[r], __fmul_rn(v, xs[r][t])) (an MXU step: t =
+// a·xp over the panel's rows in order, then acc += t) in K1/K2's order,
+// and arrive on empty.  The only CTA-wide barrier is the one after the
+// barriers' initialisation: nothing in the walk waits for the whole CTA.
+//
+// What bounds it on an H100 is bytes: on a uniform random graph every
+// nonzero gathers one 512-byte X row segment that misses the 50 MB L2.
+// Three stages in flight per CTA (12 KB at bm = 8) and six to eight
+// 26 KB CTAs per SM keep 72-96 KB of gathers in flight per SM, over the
+// ~25 KB that 3.35 TB/s needs at ~1 us of loaded latency (Little's law);
+// the consumers spend no instruction on the copies.  Measured on an H100
+// (PERF.md): more stages cost CTAs and ran slower; the L2-only copy
+// (cp.async.cg) and one 512-byte cp.async.bulk a row both ran the
+// gathers several times slower than cp.async.ca.  (An earlier K4 had
+// whole rows copied in 16-byte pieces by one warp too, but with a
+// __syncthreads at every step and a two-step ring, and ran VPU trips ~6x
+// slower than K2; here no step waits for the CTA.)
+#pragma once
+
+#include <cstdint>
+
+#include "spmm_staged.cuh"
+
+namespace spmm_ring {
+
+using spmm_staged::Item;
+using spmm_staged::Params;
+using spmm_staged::mbar_wait;
+
+constexpr int kConsumers = spmm::kColTile;     // one thread per output column
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;      // plus the producer warp
+constexpr int kSlots = 3;                      // window slots
+constexpr int kXStages = 4;                    // X ring stages
+// full and empty barriers of every slot and stage
+constexpr int kBarriers = 2 * kSlots + 2 * kXStages;
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(spmm_staged::smem_u32(bar)) : "memory");
+}
+
+// 16 bytes from global to shared memory, cached in L1 (.ca)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
+                 :: "r"(spmm_staged::smem_u32(dst)), "l"(src) : "memory");
+}
+
+// arrive on `bar` once every earlier cp.async of this thread has landed;
+// the barrier's expected count includes this arrival
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 :: "r"(spmm_staged::smem_u32(bar)) : "memory");
+}
+
+// The CTA's shared memory and the walk both roles follow.  Use u of
+// slot i % kSlots is u = i / kSlots (of stage q % kXStages, q /
+// kXStages): a full barrier completes phase u when use u's data is in,
+// an empty one when use u has been read.
+template <int BM, bool MIXED>
+struct Ring {
+    const spmm_staged::Staged<BM, MIXED> walk;
+    uint64_t* bar;
+    float* vslot;
+    int* cslot;
+    float* xring;
+    int slot;           // entries per slot: C + 4
+    int xlen;           // floats per X stage
+
+    __device__ uint64_t* slot_full(int i) const { return bar + i % kSlots; }
+    __device__ uint64_t* slot_empty(int i) const {
+        return bar + kSlots + i % kSlots;
+    }
+    __device__ uint64_t* x_full(uint32_t q) const {
+        return bar + 2 * kSlots + q % kXStages;
+    }
+    __device__ uint64_t* x_empty(uint32_t q) const {
+        return bar + 2 * kSlots + kXStages + q % kXStages;
+    }
+    __device__ float* vs(int i) const { return vslot + (i % kSlots) * slot; }
+    __device__ int* cs(int i) const { return cslot + (i % kSlots) * slot; }
+    __device__ float* xs(uint32_t q) const {
+        return xring + (q % kXStages) * xlen;
+    }
+
+    // Item `it` from slot (vs, cs), member by member: role.begin(first
+    // chunk), then its steps through role.vpu (row r's slot for step s
+    // at vs[vp[r] + s], its column entry at cs[cp[r] + s]) or role.mxu
+    // (step k's value panel at va[k*bm*bk], its block-column cs[k]),
+    // then role.end(descriptor, last chunk).
+    template <class Role>
+    __device__ void run(const Item& it, const float* vs, const int* cs,
+                        Role& role) const {
+        const Params& p = walk.p;
+        int vp[BM], cp[BM];
+        if (it.w < 0) {
+            const long long b0 = static_cast<long long>(it.g) * p.mw;
+            const long long v0 = __ldg(p.off + b0);
+            const long long c0 = __ldg(p.coff + b0);
+            for (int w = 0; w < p.mw; ++w) {
+                const long long b = b0 + w;
+                const int L = __ldg(p.L + b);
+                // the member's first slot and column entry in the slot
+                const int lv = spmm_staged::rem4(v0)
+                               + static_cast<int>(__ldg(p.off + b) - v0);
+                const int lc = spmm_staged::rem4(c0)
+                               + static_cast<int>(__ldg(p.coff + b) - c0);
+                role.begin(true);
+                if (walk.is_mxu(b)) {
+                    role.mxu(vs + lv, cs + lc, L);
+                } else {
+#pragma unroll
+                    for (int r = 0; r < BM; ++r) {
+                        vp[r] = lv + r * L;
+                        cp[r] = lc + r * L;
+                    }
+                    role.vpu(vs, cs, vp, cp, L);
+                }
+                role.end(b, true);
+            }
+            return;
+        }
+        const long long b = static_cast<long long>(it.g) * p.mw + it.w;
+        const long long L = __ldg(p.L + b);
+        const long long ob = __ldg(p.off + b);
+        const long long cb = __ldg(p.coff + b);
+        role.begin(it.c == 0);
+        if (walk.is_mxu(b)) {
+            const long long k0 = static_cast<long long>(it.c) * p.kc;
+            const int n = static_cast<int>(min(L, k0 + p.kc) - k0);
+            role.mxu(vs + spmm_staged::rem4(ob + k0 * BM * p.bk),
+                     cs + spmm_staged::rem4(cb + k0), n);
+        } else {
+            const long long n0 = static_cast<long long>(it.c) * p.ch;
+            const int n = static_cast<int>(max(min(L, n0 + p.ch) - n0, 0LL));
+#pragma unroll
+            for (int r = 0; r < BM; ++r) {
+                vp[r] = r * (p.ch + 4) + spmm_staged::rem4(ob + r * L + n0);
+                cp[r] = r * (p.ch + 4) + spmm_staged::rem4(cb + r * L + n0);
+            }
+            role.vpu(vs, cs, vp, cp, n);
+        }
+        role.end(b, it.c + 1 == walk.member_chunks(b));
+    }
+};
+
+// The producer warp's steps: every lane copies its 16 bytes of each of
+// the step's rows into the next free stage.
+template <int BM, bool MIXED>
+struct Producer {
+    const Ring<BM, MIXED>& ring;
+    const float* x;     // X at this tile's first column and this lane's 4
+    int lane;
+    uint32_t q;         // steps staged so far
+
+    __device__ float* acquire() const {
+        mbar_wait(ring.x_empty(q), ((q / kXStages) & 1) ^ 1);
+        return ring.xs(q) + 4 * lane;
+    }
+    __device__ void commit() {
+        cp_async_arrive(ring.x_full(q));
+        ++q;
+    }
+    __device__ void begin(bool) {}
+    __device__ void end(long long, bool) {}
+
+    __device__ void vpu(const float*, const int* cs, const int (&)[BM],
+                        const int (&cp)[BM], int n) {
+        const long long d_pad = ring.walk.p.d_pad;
+        for (int s = 0; s < n; ++s) {
+            float* xb = acquire();
+#pragma unroll
+            for (int r = 0; r < BM; ++r)
+                cp_async16(xb + r * spmm::kColTile, x + cs[cp[r] + s] * d_pad);
+            commit();
+        }
+    }
+
+    __device__ void mxu(const float*, const int* cs, int n) {
+        const Params& p = ring.walk.p;
+        for (int k = 0; k < n; ++k) {
+            float* xb = acquire();
+            const float* xp = x + static_cast<long long>(cs[k]) * p.bk * p.d_pad;
+            for (int c = 0; c < p.bk; ++c)
+                cp_async16(xb + c * spmm::kColTile,
+                           xp + static_cast<long long>(c) * p.d_pad);
+            commit();
+        }
+    }
+};
+
+// A consumer thread's steps: its column of each stage, in step order.
+template <int BM, bool MIXED>
+struct Consumer {
+    const Ring<BM, MIXED>& ring;
+    int col;            // this thread's output column
+    uint32_t q;         // steps taken so far
+    float acc[BM];
+
+    __device__ const float* acquire() const {
+        mbar_wait(ring.x_full(q), (q / kXStages) & 1);
+        return ring.xs(q) + threadIdx.x;
+    }
+    // this warp is done with the stage
+    __device__ void release() {
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(ring.x_empty(q));
+        ++q;
+    }
+    __device__ void begin(bool first) {
+        if (first) spmm::zero(acc);
+    }
+    __device__ void end(long long b, bool last) {
+        if (last) spmm::store_rows<BM>(ring.walk.p.y, b, acc, col,
+                                       ring.walk.p.d_pad);
+    }
+
+    __device__ void vpu(const float* vs, const int*, const int (&vp)[BM],
+                        const int (&)[BM], int n) {
+        for (int s = 0; s < n; ++s) {
+            const float* xb = acquire();
+#pragma unroll
+            for (int r = 0; r < BM; ++r)
+                acc[r] = __fadd_rn(acc[r], __fmul_rn(vs[vp[r] + s],
+                                                     xb[r * spmm::kColTile]));
+            release();
+        }
+    }
+
+    // per step t = a·xp in K2's order, then acc += t
+    __device__ void mxu(const float* va, const int*, int n) {
+        const int bk = ring.walk.p.bk;
+        for (int k = 0; k < n; ++k) {
+            const float* xb = acquire();
+            const float* a = va + static_cast<long long>(k) * BM * bk;
+            float t[BM];
+            spmm::zero(t);
+            for (int c = 0; c < bk; ++c) {
+                const float xv = xb[c * spmm::kColTile];
+#pragma unroll
+                for (int r = 0; r < BM; ++r)
+                    t[r] = __fadd_rn(t[r], __fmul_rn(a[r * bk + c], xv));
+            }
+#pragma unroll
+            for (int r = 0; r < BM; ++r) acc[r] = __fadd_rn(acc[r], t[r]);
+            release();
+        }
+    }
+};
+
+template <int BM, bool MIXED>
+__device__ void produce(const Ring<BM, MIXED>& ring) {
+    const Params& p = ring.walk.p;
+    const int lane = threadIdx.x & 31;
+    Producer<BM, MIXED> role{
+        ring, p.x + blockIdx.y * spmm::kColTile + 4 * lane, lane, 0u};
+    Item it = ring.walk.trip_item(blockIdx.x);
+    if (lane == 0) ring.walk.issue(it, ring.vs(0), ring.cs(0), ring.slot_full(0));
+    int i = 0;
+    for (;; ++i) {
+        // item i + 1's windows go in flight before item i's X rows
+        const Item nxt = ring.walk.next(it);
+        if (nxt.g >= 0) {
+            mbar_wait(ring.slot_empty(i + 1), (((i + 1) / kSlots) & 1) ^ 1);
+            if (lane == 0)
+                ring.walk.issue(nxt, ring.vs(i + 1), ring.cs(i + 1),
+                                ring.slot_full(i + 1));
+        }
+        mbar_wait(ring.slot_full(i), (i / kSlots) & 1);
+        ring.run(it, ring.vs(i), ring.cs(i), role);
+        if (nxt.g < 0) break;
+        it = nxt;
+    }
+    // leave once the consumers have finished the last item, so that no
+    // copy of this warp is in flight when it exits
+    mbar_wait(ring.slot_empty(i), (i / kSlots) & 1);
+}
+
+template <int BM, bool MIXED>
+__device__ void consume(const Ring<BM, MIXED>& ring) {
+    Consumer<BM, MIXED> role{
+        ring, static_cast<int>(blockIdx.y) * spmm::kColTile
+                  + static_cast<int>(threadIdx.x), 0u, {}};
+    Item it = ring.walk.trip_item(blockIdx.x);
+    for (int i = 0; it.g >= 0; ++i) {
+        mbar_wait(ring.slot_full(i), (i / kSlots) & 1);
+        ring.run(it, ring.vs(i), ring.cs(i), role);
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(ring.slot_empty(i));
+        it = ring.walk.next(it);
+    }
+}
+
+template <int BM, bool MIXED>
+__global__ void __launch_bounds__(kThreads) gather_kernel(const Params p) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int slot = p.cap + 4;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+    float* vslot = reinterpret_cast<float*>(bar + kBarriers);
+    int* cslot = reinterpret_cast<int*>(vslot + kSlots * slot);
+    float* xring = reinterpret_cast<float*>(cslot + kSlots * slot);
+    const Ring<BM, MIXED> ring{{p}, bar, vslot, cslot, xring, slot,
+                               (BM > p.bk ? BM : p.bk) * spmm::kColTile};
+    if (threadIdx.x == 0) {
+        for (int k = 0; k < kSlots; ++k) {
+            spmm_staged::mbar_init(ring.slot_full(k), 1);
+            spmm_staged::mbar_init(ring.slot_empty(k), kConsumerWarps);
+        }
+        for (int j = 0; j < kXStages; ++j) {
+            spmm_staged::mbar_init(ring.x_full(j), 32);
+            spmm_staged::mbar_init(ring.x_empty(j), kConsumerWarps);
+        }
+        spmm_staged::mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x >= kConsumers)
+        produce(ring);
+    else
+        consume(ring);
+}
+
+// Dynamic shared memory of one CTA; kernels/spmm_ell_fused.py::ring_bytes
+// computes the same.
+inline size_t ring_bytes(int cap, int bm, int bk) {
+    return 8u * kBarriers + 2u * kSlots * (static_cast<size_t>(cap) + 4u) * 4u
+           + static_cast<size_t>(kXStages) * (bm > bk ? bm : bk)
+                 * spmm::kColTile * 4u;
+}
+
+// Launch with persistent CTAs: as many per column tile as fit on the
+// card at once, at most one per merged trip.
+template <int BM, bool MIXED>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+    const size_t smem = ring_bytes(p.cap, BM, p.bk);
+    auto kernel = gather_kernel<BM, MIXED>;
+    // this launch's ring, whatever an earlier launch with another window
+    // set
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const int tiles = p.d_pad / spmm::kColTile;
+    long long ctas = static_cast<long long>(sms) * per_sm / tiles;
+    ctas = ctas < 1 ? 1 : (ctas > p.num_trips ? p.num_trips : ctas);
+    kernel<<<dim3(static_cast<unsigned>(ctas), tiles), kThreads, smem,
+             stream>>>(p);
+    return cudaGetLastError();
+}
+
+}  // namespace spmm_ring

@@ -74,8 +74,8 @@ def reset_dispatch_counts() -> None:
 #             from device memory — the CPU default and the bit-identity
 #             oracle
 #   dma       K3/K4/K6 stage each merged trip's slot and column window in
-#             a double-buffered shared-memory ring (and, in K4, X too) —
-#             the card's default, as "dma" is the TPU's
+#             a shared-memory ring (and, in K3/K4, every step's X rows
+#             too) — the card's default, as "dma" is the TPU's
 STAGING_MODES = ("resident", "dma")
 
 

@@ -27,14 +27,13 @@ for CUDA tensors it launches the kernel or raises.
 
 K4, :func:`spmm_bcsr_fused_staged`, replaces the TPU kernel
 ``spmm_bcsr_fused_staged`` (``_staged_kernel``, ``staging="dma"``) with
-``csrc/spmm_bcsr_fused_staged.cu``: K3's ring of slot and column
-windows (bulk asynchronous copies, two slots, persistent CTAs, chunks
-for a window over the slot's capacity) plus X through shared memory —
-each VPU step's ``bm`` gathered rows and each MXU step's (bk, 128)
-panel are copied three steps ahead into a four-buffer X ring, as the
-reference's ``xgbuf``/``xpbuf``, each thread copying its own column.
-Bound by bytes like K2; the sums run in K2's order, so K4 is
-bit-identical to K2.
+``csrc/spmm_bcsr_fused_staged.cu``: K3's warp-specialised CTA on
+``csrc/spmm_gather_ring.cuh`` — a producer warp filling the ring of slot
+and column windows (bulk asynchronous copies, chunks for a window over
+the slot's capacity) and copying each VPU step's ``bm`` gathered rows
+and each MXU step's (bk, 128) panel into the X ring ahead of four
+consumer warps, as the reference's ``xgbuf``/``xpbuf``.  Bound by bytes
+like K2; the sums run in K2's order, so K4 is bit-identical to K2.
 :func:`spmm_bcsr_fused_staged_plain` walks the same windows and chunks
 on the CPU.
 
@@ -185,7 +184,7 @@ def spmm_bcsr_fused_staged(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                  vals_flat, x, bm=bm, mw=mw)
     _check_rows(x, bk)
     c, ch, kc = staging_geometry(span, cspan, bm=bm, bk=bk, cap=cap)
-    check_staged(x, cols_flat, vals_flat, c=c, bm=bm, bk=bk, x_staged=True)
+    check_staged(x, cols_flat, vals_flat, c=c, bm=bm, bk=bk)
     if x.device.type == "cpu":
         return spmm_bcsr_fused_staged_plain(
             blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat, x,

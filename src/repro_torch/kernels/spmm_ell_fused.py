@@ -23,19 +23,23 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises.
 
 K3, :func:`spmm_ell_fused_staged`, replaces the TPU kernel
 ``spmm_ell_fused_staged`` (``_staged_kernel``, ``staging="dma"``) with
-``csrc/spmm_ell_fused_staged.cu``: persistent CTAs walk merged trips, and
-each trip's slot and column window reaches the compute through a
-two-slot shared-memory ring filled by bulk asynchronous copies, the
-next window in flight while the current one computes.  It is bound by
-the same bytes as K1; the ring takes the window reads off the critical
-path and issues them as a few large copies instead of ``bm`` scattered
-loads per step.  A window larger than the ring's slot (a hub row) is
+``csrc/spmm_ell_fused_staged.cu`` on ``csrc/spmm_gather_ring.cuh``:
+persistent warp-specialised CTAs walk merged trips.  A producer warp
+fills a ring of :data:`RING_SLOTS` shared-memory slots with each trip's
+slot and column windows (bulk asynchronous copies) and gathers every
+step's ``bm`` X-row segments into an :data:`X_STAGES`-stage X ring, up
+to ``X_STAGES - 1`` steps ahead; four consumer warps add the steps in
+K1's order.  Every slot and stage changes hands on a full and an empty
+mbarrier, so no step waits for the whole CTA.  It is bound by the same
+bytes as K1; the ring keeps the X-row gathers in flight whatever the
+consumers do.  A window larger than the ring's slot (a hub row) is
 walked in chunks that keep every row's order of summation, so K3 is
 bit-identical to K1.  :func:`staging_geometry` and :func:`staged_walk`
 hold the window arithmetic both staged kernels share, and
 :func:`spmm_ell_fused_staged_plain` runs it on the CPU: it copies the
 same aligned windows and chunks into buffers whose unfilled entries are
 NaN (values) or out of range (columns), so a window error shows there.
+The X ring is a device detail the plain version has no need of.
 
 K8 for this backend, :func:`spmm_ell_fused_sharded`, replaces the
 reference's ``spmm_ell_fused_sharded`` (``shard_map`` over a chip mesh,
@@ -188,7 +192,11 @@ STAGE_CAP = 1024
 # shared memory one CTA may use on an H100
 MAX_SHARED_BYTES = 232448
 COL_TILE = 128          # output columns per CTA (csrc/spmm_trips.cuh)
-X_STAGES = 4            # K4's X ring buffers (csrc/spmm_staged.cuh)
+# K3/K4's rings (csrc/spmm_gather_ring.cuh): window slots and X stages,
+# each with a full and an empty mbarrier of 8 bytes
+RING_SLOTS = 3
+X_STAGES = 4
+MBARRIER_BYTES = 8
 _INT_FILL = torch.iinfo(torch.int32).max    # an unfilled column entry
 
 
@@ -214,13 +222,16 @@ def staging_geometry(span: int, cspan: int, *, bm: int, bk: int = 1,
     return c, ((c + 4) // bm - 4) // 4 * 4, c // (bm * bk)
 
 
-def ring_bytes(c: int, *, bm: int, bk: int, x_staged: bool) -> int:
-    """Dynamic shared memory of one staged CTA: two mbarriers, two slots
-    of ``c + 4`` entries for each of the value and column streams, and
-    for K4 :data:`X_STAGES` X buffers of ``max(bm, bk)`` rows by one
-    column tile (``csrc/spmm_staged.cuh`` computes the same)."""
-    x_ring = X_STAGES * max(bm, bk) * COL_TILE * 4 if x_staged else 0
-    return 16 + 2 * 2 * (c + 4) * 4 + x_ring
+def ring_bytes(c: int, *, bm: int, bk: int) -> int:
+    """Dynamic shared memory of one K3/K4 CTA: a full and an empty
+    mbarrier for each of the :data:`RING_SLOTS` slots and
+    :data:`X_STAGES` stages, the slots of ``c + 4`` entries for each of
+    the value and column streams, and the X stages of ``max(bm, bk)``
+    rows by one column tile (``csrc/spmm_gather_ring.cuh`` computes the
+    same)."""
+    barriers = 2 * (RING_SLOTS + X_STAGES) * MBARRIER_BYTES
+    slots = 2 * RING_SLOTS * (c + 4) * 4
+    return barriers + slots + X_STAGES * max(bm, bk) * COL_TILE * 4
 
 
 def aligned(src: int, length: int):
@@ -385,20 +396,21 @@ def _windows(stream, src, length, slot: int, fill):
     return buf.reshape(-1), a0
 
 
-def check_staged(x, cols_flat, vals_flat, *, c: int, bm: int, bk: int,
-                 x_staged: bool) -> None:
+def check_staged(x, cols_flat, vals_flat, *, c: int, bm: int,
+                 bk: int) -> None:
     """What a staged launch needs beyond :func:`check_tables`: whole
-    column tiles, a ring that fits a CTA, and (on the card) column and
-    value streams on 16-byte boundaries for the bulk copies."""
+    column tiles, a ring that fits a CTA, and (on the card) X and the
+    column and value streams on 16-byte boundaries for the copies."""
     if x.shape[1] % COL_TILE:
         raise ValueError(f"the staged kernels take x with a multiple of "
                          f"{COL_TILE} columns, got {x.shape[1]}")
-    nbytes = ring_bytes(c, bm=bm, bk=bk, x_staged=x_staged)
+    nbytes = ring_bytes(c, bm=bm, bk=bk)
     if nbytes > MAX_SHARED_BYTES:
         raise ValueError(f"a staging ring of {nbytes} bytes exceeds the "
                          f"{MAX_SHARED_BYTES} bytes a CTA may use")
     if x.device.type == "cuda":
-        for name, t in (("cols_flat", cols_flat), ("vals_flat", vals_flat)):
+        for name, t in (("cols_flat", cols_flat), ("vals_flat", vals_flat),
+                        ("x", x)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary "
                                  f"for the staged kernels' copies")
@@ -434,7 +446,7 @@ def spmm_ell_fused_staged(blk_off, blk_L, cols_flat, vals_flat, x, *,
     check_tables({"blk_off": blk_off, "blk_L": blk_L}, cols_flat, vals_flat,
                  x, bm=bm, mw=mw)
     c, ch, _ = staging_geometry(span, cspan, bm=bm, cap=cap)
-    check_staged(x, cols_flat, vals_flat, c=c, bm=bm, bk=1, x_staged=False)
+    check_staged(x, cols_flat, vals_flat, c=c, bm=bm, bk=1)
     if x.device.type == "cpu":
         return spmm_ell_fused_staged_plain(blk_off, blk_L, cols_flat,
                                            vals_flat, x, span=span,

@@ -60,7 +60,8 @@ def test_every_slice_module_is_covered():
                  "repro_torch.distributed.collectives"):
         assert name in modules, name
     for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
-                "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu"):
+                "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu",
+                "spmm_gather_ring.cuh", "occupancy.cuh"):
         assert (PORT / "kernels" / "csrc" / src).is_file(), src
 
 

@@ -231,6 +231,35 @@ def test_cuda_kernels_match_plain():
             torch.testing.assert_close(got, want, **TOL)
             torch.testing.assert_close(got_staged, want_staged, **TOL)
             assert torch.equal(got_staged, got)
+    # a hub row's window (8 x 600 slots, 75 MXU block steps) is over the
+    # default slot and a 64-entry one, so K3/K4 take the chunked walk
+    rng = np.random.default_rng(0)
+    hub = np.zeros((40, 600), np.float32)
+    hub[3] = rng.standard_normal(600)
+    for i in range(40):
+        hub[i, rng.choice(600, 3, replace=False)] = rng.standard_normal(3)
+    a = port_csr.CSRMatrix.from_dense(hub, device="cpu")
+    for backend, merge_threshold, d, cap in itertools.product(
+            ("pallas_ell", "pallas_bcsr"), (0, 16), (100, 640), (None, 64)):
+        ws, args = workspace(a, backend, merge_threshold, d)
+        assert ws.max_span > 1024      # over the default slot
+        t = torch_args(args, "cuda")
+        kw = dict(bm=8, mw=ws.merge_width)
+        resident, staged, staged_plain, names = (
+            (spmm_ell_fused, spmm_ell_fused_staged,
+             spmm_ell_fused_staged_plain, ELL) if backend == "pallas_ell"
+            else (spmm_bcsr_fused, spmm_bcsr_fused_staged,
+                  spmm_bcsr_fused_staged_plain, BCSR))
+        if backend == "pallas_bcsr":
+            kw["bk"] = 8
+        win = dict(span=ws.max_span, cspan=ws.max_cspan, cap=cap)
+        got = call(resident, t, names, **kw)
+        got_staged = call(staged, t, names, **kw, **win)
+        want_staged = call(staged_plain, t, names, **kw, **win)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got_staged, want_staged, **TOL)
+        assert torch.equal(got_staged, got), (backend, merge_threshold, d,
+                                              cap)
     # K5/K6 on weighted masks: K6 equals K5 bit for bit, both match the
     # plain versions to rounding (the score sums run in another order)
     from repro_torch.core import CSRMatrix, JitCache, compile_sparse_attention

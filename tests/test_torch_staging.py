@@ -309,9 +309,10 @@ def test_staging_geometry_contract():
     assert c == 64           # at least one MXU step
     with pytest.raises(ValueError):
         k3_mod.staging_geometry(0, 128, bm=8)
-    assert k3_mod.ring_bytes(384, bm=8, bk=8, x_staged=True) == (
-        16 + 4 * 388 * 4 + 4 * 8 * 128 * 4)
+    # 14 mbarriers, three slots of 388 entries a stream, four 4 KB X
+    # stages
+    assert k3_mod.ring_bytes(384, bm=8, bk=8) == (
+        14 * 8 + 2 * 3 * 388 * 4 + 4 * 8 * 128 * 4)
     with pytest.raises(ValueError, match="exceeds"):
         k3_mod.check_staged(torch.zeros(8, 128), torch.zeros(4),
-                            torch.zeros(4), c=20000, bm=8, bk=8,
-                            x_staged=True)
+                            torch.zeros(4), c=20000, bm=8, bk=8)
