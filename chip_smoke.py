@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
+    python3 chip_smoke.py --ab-parent DIR [--ab-ptxas]
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -17,11 +18,12 @@ result line):
              print ptxas's registers and spills for every template
              instance (bm; K7 has one), each beside the CTAs per SM the
              card reports for it (``<name>_ctas_per_sm``; the staged
-             SpMM kernels at the 1024-entry slot, the attention kernels
-             at dh = 128, bk = 8).
+             SpMM kernels at the 1024-entry slot, K2 at its X ring, the
+             attention kernels at dh = 128, bk = 8).
 3. kernels — each kernel against its plain PyTorch version on the card
-             (rtol = atol = 1e-5), and each staged kernel against its
-             resident twin (``torch.equal``: K3 = K1, K4 = K2): every
+             (rtol = atol = 1e-5; K2 also ``torch.equal``), and each
+             staged kernel against its resident twin (``torch.equal``:
+             K3 = K1, K4 = K2): every
              strategy x merge_threshold {0, 16} x d {16, 100, 128, 640},
              on a mixed VPU/MXU fixture, one with empty rows and an empty
              matrix, also with a 64-entry staging slot; plus a hub row
@@ -72,11 +74,16 @@ result line):
              library call (``torch.sparse.sampled_addmm`` for K7,
              ``torch.sparse.mm`` for K9/K10).
 8. attention kernels — K5 and K6 against their plain versions on the
-             card (rtol = atol = 1e-5) and K6 against K5 (``torch.equal``)
-             on the reference's weighted powerlaw mask, its multi-trip
-             fixture (q x 12), its empty-rows fixture and a fixture whose
-             windows exceed the staging slot, each backend x
-             merge_threshold {0, 16} x bm {1, 2, 4, 8, 16}.
+             card (rtol = atol = 1e-5) and K6 against K5 (``torch.equal``,
+             at the default and a 64-entry slot) on the reference's
+             weighted powerlaw mask, its multi-trip fixture (q x 12), its
+             empty-rows fixture and a fixture whose windows exceed the
+             staging slot, each of ``pallas_ell``, ``pallas_bcsr`` at bk
+             = 8 and at bk = 1 x merge_threshold {0, 16} x bm {1, 2, 4,
+             8, 16}; the fixtures must reach merged trips, MXU blocks at
+             bk = 1 and 8, chunked VPU and MXU members, VPU descriptors
+             whose steps end part-way through K6's group and whose rows
+             differ in length.
 9. attention — ``compile_sparse_attention`` on the longformer-1.4b mask
              (S = 32768, window 512, 64 global columns, 18.7 M nonzeros),
              one head, dh = dv = 128: ``pallas_bcsr`` and ``pallas_ell``
@@ -92,7 +99,11 @@ result line):
              a forward; output and weight gradients held to the
              ``backend="ref"`` layer at 1e-4; forward and forward +
              backward timed; the backward's peak memory printed, and no
-             kernel's plain version run on the way.
+             kernel's plain version run on the way; CUDA events around
+             each part of a forward split it into the 16 K6 calls, the
+             Q/K/V projections, RoPE and the rest (each forward must make
+             16, 1 and 2 such calls), and K6 alone on one head's
+             operands gives its time a launch at S = 4096.
 11. sharded — K8, the sharded path, on a mesh of 4 chips over the one
              card (``ChipMesh(("cuda:0",) * 4)``), in two parts.  After
              ``oracles``, while the SpMM artifacts live: the three sharded
@@ -120,10 +131,22 @@ result line):
 12. report — the launch counts, one JSON line of per-kernel numbers, and
              the final ``{"ok": true, ...}`` line.
 
-It writes nothing into the repo but the kernel build under ``build/``.
+With ``--ab-parent DIR`` (a parent commit unpacked with ``git
+archive``) it runs none of the phases above: it imports that tree's
+``repro_torch`` beside this one, and times its K2 and K6 wrappers (which
+build its kernels into ``DIR/build``) beside this tree's in turns A B B
+A (CUDA events, medians of 20), each output bit for bit K5's or K4's:
+K6 on the longformer mask at S = 32768 (both fused backends, and
+``pallas_bcsr`` at bm = 16 and at bk = 1) and at the layer's S = 4096,
+K2 on the two 2^20-row instances.  With ``--ab-ptxas`` as well it only
+prints K2-K6's ptxas registers and spills beside the parent's and fails
+unless K3's, K4's and K5's are the parent's.
+
+It writes nothing into the repo but the kernel builds under ``build/``.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import itertools
 import json
@@ -255,10 +278,13 @@ def phase_device() -> None:
 def build_smem(name: str, bm: int) -> int:
     """The dynamic shared memory at which the build phase asks the card
     for ``name``'s CTAs per SM: the staged SpMM kernels' ring at the
-    default 1024-entry slot (bk = 8 for K4), the attention kernels' at
-    dh = 128 and bk = 8; the other kernels take none."""
+    default 1024-entry slot (bk = 8 for K4), K2's X ring at bk = 8, the
+    attention kernels' at dh = 128 and bk = 8; the other kernels take
+    none."""
     from repro_torch.kernels.spmm_ell_fused import STAGE_CAP, ring_bytes
     attn = _kernel_module("attn_fused")
+    if name == "spmm_bcsr_fused":
+        return _kernel_module(name).ring_bytes(bm=bm, bk=8)
     if name == "spmm_ell_fused_staged":
         return ring_bytes(STAGE_CAP, bm=bm, bk=1)
     if name == "spmm_bcsr_fused_staged":
@@ -277,24 +303,31 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per kernel "
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for name, text in _build.BUILD_LOG.items():
-        # ptxas -v: per template instance (bm; K7 has one), registers
-        # and spills, and the CTAs per SM the card reports for it
-        report, inst, bm = [], "?", 8
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                found = re.search(r"ILi(\d+)E", line)
-                bm = int(found.group(1)) if found else 8
-                inst = f"bm={bm}" if found else "one instance"
-            elif "spill stores" in line:
-                spill = line.split(",")[1].strip()
-            elif "Used" in line and "registers" in line:
-                regs = re.search(r"Used (\d+) registers", line).group(1)
-                smem = build_smem(name, bm)
-                ctas = _build.ctas_per_sm(name, bm, smem)
-                report.append(f"{inst}: {regs} registers, {spill}, "
-                              f"{ctas} CTAs/SM at {smem} B of dynamic "
-                              f"shared memory")
+        # per template instance, and the CTAs per SM the card reports
+        report = []
+        for inst, bm, regs, spill in ptxas_lines(text):
+            smem = build_smem(name, bm)
+            ctas = _build.ctas_per_sm(name, bm, smem)
+            report.append(f"{inst}: {regs} registers, {spill}, {ctas} "
+                          f"CTAs/SM at {smem} B of dynamic shared memory")
         log(f"ptxas {name}: " + "; ".join(report))
+
+
+def ptxas_lines(text: str) -> list:
+    """ptxas -v's report in an nvcc log: (instance, bm, registers,
+    spills) per template instance (bm; K7 has one)."""
+    lines, inst, bm, spill = [], "?", 8, "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"ILi(\d+)E", line)
+            bm = int(found.group(1)) if found else 8
+            inst = f"bm={bm}" if found else "one instance"
+        elif "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            lines.append((inst, bm, regs, spill))
+    return lines
 
 
 def hub_dense(n: int = 8000, m: int = 64, seed: int = 2) -> np.ndarray:
@@ -389,6 +422,8 @@ def phase_kernels() -> None:
             want = plain(*operands, **knobs)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            if name == "spmm_bcsr_fused":    # the same sums in one order
+                assert torch.equal(got, want), (fname, strategy, mt, d, bm)
             worst = max(worst, (got - want).abs().max().item())
             if fname not in long_rows:
                 y = c(a.vals, x)
@@ -483,10 +518,12 @@ def gather_models(ws, nnz: int, d_pad: int, bm: int, bk: int) -> dict:
 
 def launch_ctas(c, name: str) -> int:
     """CTAs per SM the card fits for ``c``'s kernel launch (the staged
-    kernels' ring at this workspace's slot)."""
+    kernels' ring at this workspace's slot, K2's X ring)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.spmm_ell_fused import ring_bytes, staging_geometry
     smem = 0
+    if name == "spmm_bcsr_fused":
+        smem = _kernel_module(name).ring_bytes(bm=c.bm, bk=c.bk)
     if c.staging == "dma":
         ws = c.workspace
         bk = c.bk if c.backend == "pallas_bcsr" else 1
@@ -509,6 +546,8 @@ def measure(c, a, x, label: str) -> dict:
     want = plain(*operands, **knobs)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if name == "spmm_bcsr_fused":
+        assert torch.equal(got, want), (label, name)
     err = (got - want).abs().max().item()
     del got, want
     ws = c.workspace
@@ -1101,13 +1140,21 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
             kernels.spmm_bcsr(bcols, bvals, x_bp, kmax=kmax)
             kernels.spmm_bcsr_fused(*operands2, **knobs2)
         torch.cuda.synchronize()
+    # K2 is the gather ring's kernel with the resident source
+    names = {"spmm_bcsr": ("spmm_bcsr_kernel<",),
+             "spmm_bcsr_fused": ("gather_kernel<", "Resident>")}
     traced = {tag: [e.device_time_total / e.count / 1e3
-                    for e in prof.key_averages() if f"{tag}_kernel<" in e.key]
-              for tag in ("spmm_bcsr", "spmm_bcsr_fused")}
+                    for e in prof.key_averages()
+                    if all(w in e.key for w in words)]
+              for tag, words in names.items()}
+    if not all(traced.values()):
+        raise SystemExit(f"chip_smoke: torch.profiler recorded no launch of "
+                         f"K10 or K2: {traced}")
     del operands2
     ws_b = c_b.workspace
     tags_b = np.bincount(ws_b.blk_tag, minlength=2)
     in_order = bool(np.all(np.diff(ws_b.blk_coff) >= 0))
+    k2_ctas = launch_ctas(c_b, "spmm_bcsr_fused")
     a_sp = _sparse_csr(a_b)
     lib10 = time_ms(lambda: torch.sparse.mm(a_sp, x_b))
     del a_sp
@@ -1120,9 +1167,9 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     log(f"oracles/banded: K10 {ms10:.4f} / {ms10_b:.4f} ms, K2 "
         f"{k2_runs[0]:.4f} / {k2_runs[1]:.4f} ms (A B B A); grids: K10 "
         f"{blocks.n_block_rows} x {-(-D_MAIN // 128)} CTAs walking {kmax} "
-        f"block steps each, K2 {ws_b.blk_tag.shape[0] // ws_b.merge_width}"
-        f" x {-(-D_MAIN // 128)} CTAs over {ws_b.blk_tag.shape[0]} "
-        f"descriptors (merge width {ws_b.merge_width}; {int(tags_b[0])} "
+        f"block steps each, K2 persistent CTAs ({k2_ctas} an SM) over "
+        f"{ws_b.blk_tag.shape[0] // ws_b.merge_width} trips of "
+        f"{ws_b.blk_tag.shape[0]} descriptors (merge width {ws_b.merge_width}; {int(tags_b[0])} "
         f"VPU, {int(tags_b[1])} MXU; block columns in K10's order: "
         f"{in_order}); torch.profiler device ms per launch, mean of "
         f"{REPS}: K10 {traced['spmm_bcsr']}, K2 {traced['spmm_bcsr_fused']}")
@@ -1613,6 +1660,22 @@ def over_cap_dense(n: int = 1152, seed: int = 5) -> np.ndarray:
     return dense
 
 
+def vpu_shapes(ws, vals, S: int) -> tuple:
+    """Whether a workspace has a VPU descriptor whose steps end part-way
+    through a group of ``S`` (K6's VPU group), and one whose rows hold
+    different numbers of nonzero weights (padding, weight 0, fills the
+    shorter rows)."""
+    partial = ragged = False
+    for b in np.flatnonzero(ws.blk_tag == 0):
+        L, off = int(ws.blk_L[b]), int(ws.blk_off[b])
+        partial |= L % S != 0
+        if L:
+            rows = vals[off:off + ws.row_block * L].reshape(ws.row_block, L)
+            counts = np.count_nonzero(rows, axis=1)
+            ragged |= bool(counts.min() != counts.max())
+    return partial, ragged
+
+
 def phase_attn_kernels() -> None:
     """K5 and K6 against their plain versions, K6 against K5."""
     from repro_torch.core import CSRMatrix, JitCache, compile_sparse_attention
@@ -1622,6 +1685,7 @@ def phase_attn_kernels() -> None:
                                      attn_fused_staged_plain)
     from repro_torch.kernels.spmm_ell_fused import (staged_walk,
                                                     staging_geometry)
+    kv_geometry = _kernel_module("attn_fused").kv_geometry
     empty = CSRMatrix((4, 5), np.array([0, 2, 2, 3, 3]),
                       np.array([0, 3, 1], np.int32),
                       torch.ones(3, device="cuda"))
@@ -1632,17 +1696,21 @@ def phase_attn_kernels() -> None:
         "empty_rows": (empty, 6, 6, 1.0),
         "over_cap": (CSRMatrix.from_dense(over_cap_dense()), 128, 128, 1.0),
     }
-    seen = dict(merged=False, mxu=False, chunked_vpu=False,
-                chunked_mxu=False, unaligned=False)
+    seen = dict(merged=False, mxu_bk1=False, mxu_bk8=False,
+                chunked_vpu=False, chunked_mxu=False, unaligned=False,
+                vpu_partial_group=False, vpu_ragged_rows=False)
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = worst_staged = worst_fwd = 0.0
     configs = 0
-    for (fname, (a, dh, dv, scale)), backend, mt, bm in itertools.product(
-            fixtures.items(), ("pallas_ell", "pallas_bcsr"), (0, 16),
-            (1, 2, 4, 8, 16)):
+    # bk = 1 and 8 for the MXU blocks; pallas_ell tags none
+    backends = (("pallas_ell", 8), ("pallas_bcsr", 8), ("pallas_bcsr", 1))
+    for (fname, (a, dh, dv, scale)), (backend, bk), mt, bm in (
+            itertools.product(fixtures.items(), backends, (0, 16),
+                              (1, 2, 4, 8, 16))):
         c = compile_sparse_attention(a, dh, dv, backend=backend, bm=bm,
-                                     merge_threshold=mt, staging="resident",
-                                     validate="full", cache=JitCache())
+                                     bk=bk, merge_threshold=mt,
+                                     staging="resident", validate="full",
+                                     cache=JitCache())
         ws = c.workspace
         q = torch.randn(a.m, dh, device="cuda", generator=gen) * scale
         k = torch.randn(a.n, dh, device="cuda", generator=gen)
@@ -1653,10 +1721,13 @@ def phase_attn_kernels() -> None:
         want = attn_fused_plain(*operands, **knobs)
         got_s = attn_fused_staged(*operands, **knobs, **win)
         want_s = attn_fused_staged_plain(*operands, **knobs, **win)
+        # a 64-entry slot: the chunked walk on every fixture
+        got_64 = attn_fused_staged(*operands, **knobs, **win, cap=64)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
-        assert torch.equal(got_s, got), (fname, backend, mt, bm)
+        assert torch.equal(got_s, got), (fname, backend, bk, mt, bm)
+        assert torch.equal(got_64, got), (fname, backend, bk, mt, bm, 64)
         worst = max(worst, (got - want).abs().max().item())
         worst_staged = max(worst_staged, (got_s - want_s).abs().max().item())
         if fname != "over_cap":
@@ -1667,8 +1738,15 @@ def phase_attn_kernels() -> None:
             worst_fwd = max(worst_fwd, (y - ref).abs().max().item())
         configs += 1
         seen["merged"] |= ws.merge_width > 1
-        seen["mxu"] |= bool(np.any(ws.blk_tag == MXU_TAG))
+        mxu = bool(np.any(ws.blk_tag == MXU_TAG))
+        seen["mxu_bk1"] |= mxu and bk == 1
+        seen["mxu_bk8"] |= mxu and bk == 8
         seen["unaligned"] |= bool(np.any(ws.blk_off % 4))
+        group = kv_geometry(bm=bm, bk=bk, dh_pad=int(operands[6].shape[1]))
+        partial, ragged = vpu_shapes(ws, operands[5].cpu().numpy(),
+                                     group["group"])
+        seen["vpu_partial_group"] |= partial
+        seen["vpu_ragged_rows"] |= ragged
         geo = staging_geometry(ws.max_span, ws.max_cspan, bm=bm, bk=c.bk)
         tables = [torch.from_numpy(t).long() for t in
                   (ws.blk_tag, ws.blk_off, ws.blk_coff, ws.blk_L)]
@@ -1677,7 +1755,8 @@ def phase_attn_kernels() -> None:
             kc=geo[2])}
         seen["chunked_vpu"] |= "vpu" in kinds
         seen["chunked_mxu"] |= "mxu" in kinds
-    log(f"attention kernels: {configs} configurations; attn_fused: max "
+    log(f"attention kernels: {configs} configurations (bm 1-16, MXU bk 1 "
+        f"and 8, the default and a 64-entry slot); attn_fused: max "
         f"|kernel - plain| = {worst:.3g}; attn_fused_staged: bit-identical "
         f"to attn_fused, max |kernel - plain| = {worst_staged:.3g} (rtol = "
         f"atol = 1e-5); forwards vs ref max |diff| {worst_fwd:.3g} (1e-5)")
@@ -1836,33 +1915,69 @@ def phase_attention() -> tuple:
              library_ms))
 
 
-class _PlainCalls:
-    """Counts calls of the named module attributes while it is active —
-    plain versions, or the ``_Carry`` that each attention plain version
-    builds once: the card's path must run none."""
+class _Patched:
+    """While active, replaces the named module attributes (``(module,
+    attribute)`` pairs) with ``self.wrap(target, original)``."""
 
     def __init__(self, *targets):
-        self.targets = targets        # (module, attribute) pairs
+        self.targets = targets
 
     def __enter__(self):
         import importlib
-        self.calls, self.saved = 0, []
-        for module, attr in self.targets:
-            mod = importlib.import_module(module)
-            orig = getattr(mod, attr)
-
-            def counted(*args, _orig=orig, **kw):
-                self.calls += 1
-                return _orig(*args, **kw)
-
-            self.saved.append((mod, attr, orig))
-            setattr(mod, attr, counted)
+        self.saved = []
+        for target in self.targets:
+            mod = importlib.import_module(target[0])
+            orig = getattr(mod, target[1])
+            self.saved.append((mod, target[1], orig))
+            setattr(mod, target[1], self.wrap(target, orig))
         return self
 
     def __exit__(self, *exc):
         for mod, attr, orig in self.saved:
             setattr(mod, attr, orig)
         return False
+
+
+class _PlainCalls(_Patched):
+    """Counts calls of the named module attributes while it is active —
+    plain versions, or the ``_Carry`` that each attention plain version
+    builds once: the card's path must run none."""
+
+    def __enter__(self):
+        self.calls = 0
+        return super().__enter__()
+
+    def wrap(self, target, orig):
+        def counted(*args, **kw):
+            self.calls += 1
+            return orig(*args, **kw)
+        return counted
+
+
+class _Spans(_Patched):
+    """Brackets every call of the named module attributes with two CUDA
+    events on the current stream while it is active; ``spans[target]``
+    lists the event pairs, ``last[target]`` the last call's arguments."""
+
+    def __enter__(self):
+        self.spans = {t: [] for t in self.targets}
+        self.last = {}
+        return super().__enter__()
+
+    def wrap(self, target, orig):
+        def spanned(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            self.spans[target].append((start, end))
+            self.last[target] = (orig, args, kw)
+            return out
+        return spanned
+
+    def ms(self, target) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.spans[target])
 
 
 def phase_sattn() -> dict:
@@ -1956,15 +2071,215 @@ def phase_sattn() -> dict:
         f"{step_ms:.4f} ms (CUDA events, median of 5); backward peak memory "
         f"{peak / 2**30:.3f} GiB allocated ({(peak - base) / 2**30:.3f} GiB "
         f"over the {base / 2**30:.3f} GiB held before it)")
+    launch_ms = split_layer_forward(fwd, SATTN_BATCH * H)
     return dict(launches=forward["attn_fused_staged"], fwd_ms=fwd_ms,
-                step_ms=step_ms, peak=peak)
+                step_ms=step_ms, peak=peak, launch_ms=launch_ms)
+
+
+def split_layer_forward(fwd, heads: int, reps: int = 5) -> float:
+    """The sattn layer forward's parts by CUDA events around each call
+    of them, medians over ``reps`` forwards: the K6 wrapper's 16 calls
+    (each launch with its trip counter's zeroing; a span also holds any
+    wait of the card for the host), the Q/K/V projections, RoPE, and the
+    rest (the norm, the output projection, the per-head operand gathers
+    and the stacking) as the whole forward less those.  Then K6 alone on
+    the last head's operands (CUDA events, median of 20): the launch's
+    time at S = 4096, which it returns."""
+    parts = {"attn_fused_staged": ("repro_torch.kernels.ops",
+                                   "attn_fused_staged"),
+             "Q/K/V projections": ("repro_torch.models.layers",
+                                   "attn_project_qkv"),
+             "RoPE": ("repro_torch.models.layers", "apply_rope")}
+    calls = {"attn_fused_staged": heads, "Q/K/V projections": 1, "RoPE": 2}
+    rows = []
+    for _ in range(reps + 1):       # the first is a warm-up
+        with _Spans(*parts.values()) as spans:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fwd()
+            end.record()
+            torch.cuda.synchronize()
+        for name, target in parts.items():
+            assert len(spans.spans[target]) == calls[name], (
+                name, len(spans.spans[target]))
+        row = {name: spans.ms(t) for name, t in parts.items()}
+        row["forward"] = start.elapsed_time(end)
+        row["rest"] = row["forward"] - sum(row[n] for n in parts)
+        rows.append(row)
+    med = {n: statistics.median(r[n] for r in rows[1:]) for n in rows[0]}
+    k6, args, kw = spans.last[parts["attn_fused_staged"]]
+    launch_ms = time_ms(lambda: k6(*args, **kw))
+    log(f"sattn: one layer forward by CUDA events around its parts "
+        f"(medians of {reps}): {med['forward']:.4f} ms = attn_fused_staged "
+        f"{med['attn_fused_staged']:.4f} in {heads} calls + Q/K/V "
+        f"projections {med['Q/K/V projections']:.4f} + RoPE "
+        f"{med['RoPE']:.4f} + the rest (norm, output projection, per-head "
+        f"gathers, stacking) {med['rest']:.4f}; attn_fused_staged alone "
+        f"on one head's operands {launch_ms:.4f} ms a launch at S = "
+        f"{SATTN_SEQ} (CUDA events, median of {REPS})")
+    return launch_ms
+
+
+# -- K2 and K6 beside a parent tree's (``--ab-parent``, ``--ab-ptxas``) -----
+
+def parent_package(root: Path):
+    """The ``repro_torch`` package of the tree at ``root`` (a commit
+    unpacked with ``git archive``), imported as ``ab_parent`` beside this
+    tree's: its wrappers build their own kernels into ``root/build``."""
+    import importlib.util
+    pkg = root / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "ab_parent", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["ab_parent"] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def ab_ptxas(parent) -> bool:
+    """ptxas's registers and spills of K2-K6, this tree beside the
+    parent's; True when K3's, K4's and K5's are the parent's."""
+    from repro_torch.kernels import _build
+    names = SPMM_KERNELS[1:] + ATTN_KERNELS
+    same = True
+    for build in (_build, parent.kernels._build):
+        build.build(names)
+        missing = [n for n in names if n not in build.BUILD_LOG]
+        if missing:
+            raise SystemExit(f"chip_smoke: {missing} were built before "
+                             f"under {build.BUILD_DIR}; remove it")
+    for name in names:
+        mine = ptxas_lines(_build.BUILD_LOG[name])
+        theirs = ptxas_lines(parent.kernels._build.BUILD_LOG[name])
+        if name in ("spmm_ell_fused_staged", "spmm_bcsr_fused_staged",
+                    "attn_fused"):
+            same &= mine == theirs
+        log(f"ptxas {name}: equal to the parent's: {mine == theirs}; "
+            + "; ".join(f"{inst}: {regs} registers, {spill}"
+                        for inst, _, regs, spill in mine))
+    return same
+
+
+def ab_turns(a, b):
+    """Medians of a and b in turns a b b a."""
+    t = [time_ms(f) for f in (a, b, b, a)]
+    return (t[0], t[3]), (t[1], t[2])
+
+
+def ab_attention(parent) -> None:
+    """K6 beside the parent's on the longformer mask at S = 32768 (both
+    fused backends at bm = bk = 8, and pallas_bcsr at bm = 16 and at bk
+    = 1) and at the layer's S = 4096, both bit for bit K5."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import JitCache, compile_sparse_attention
+    from repro_torch.core.plan import MXU_TAG
+    from repro_torch.models.sparse_attention import sparse_attention_mask
+    cfg = get_config("longformer-1.4b")
+    cases = [(ATTN_SEQ, "pallas_bcsr", 8, 8), (ATTN_SEQ, "pallas_ell", 8, 8),
+             (ATTN_SEQ, "pallas_bcsr", 16, 8), (ATTN_SEQ, "pallas_bcsr", 8, 1),
+             (SATTN_SEQ, "pallas_bcsr", 8, 8), (SATTN_SEQ, "pallas_ell", 8, 8)]
+    for seq, backend, bm, bk in cases:
+        a = sparse_attention_mask(seq, cfg.sparse_attn_window,
+                                  cfg.sparse_attn_global)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        q, k, v = (torch.randn(n, cfg.head_dim, device="cuda", generator=gen)
+                   for n in (a.m, a.n, a.n))
+        c = compile_sparse_attention(a, cfg.head_dim, cfg.head_dim,
+                                     backend=backend, bm=bm, bk=bk,
+                                     cache=JitCache())
+        ops, knobs = c.fused_operands(a.vals, q, k, v)
+        ws = c.workspace
+        win = dict(span=ws.max_span, cspan=ws.max_cspan)
+
+        def theirs():
+            return parent.kernels.attn_fused_staged(*ops, **knobs, **win)
+
+        def mine():
+            return kernels.attn_fused_staged(*ops, **knobs, **win)
+
+        def k5():
+            return kernels.attn_fused(*ops, **knobs)
+        want = k5()
+        same = torch.equal(theirs(), want) and torch.equal(mine(), want)
+        t_theirs, t_mine = ab_turns(theirs, mine)
+        mxu = int((ws.blk_tag == MXU_TAG).sum())
+        log(f"K6 S={seq} {backend} bm={bm} bk={bk} ({mxu} MXU of "
+            f"{ws.num_blocks} descriptors): parent {t_theirs[0]:.4f}, "
+            f"{t_theirs[1]:.4f}; this tree {t_mine[0]:.4f}, "
+            f"{t_mine[1]:.4f}; K5 {time_ms(k5):.4f} ms; bit-identical to "
+            f"K5: {same}")
+        if not same:
+            raise SystemExit("chip_smoke: K6 differs from K5")
+        del c, ops
+
+
+def ab_spmm(parent) -> None:
+    """K2 beside the parent's on the two 2^20-row instances, bit for bit
+    each other and K4."""
+    from repro_torch import kernels
+    from repro_torch.core import JitCache, compile_spmm
+    for label, (a, x) in make_instances().items():
+        c = compile_spmm(a, D_MAIN, backend="pallas_bcsr",
+                         staging="resident", cache=JitCache())
+        ops, knobs = c.fused_operands(a.vals, x)
+        c4 = compile_spmm(a, D_MAIN, backend="pallas_bcsr", cache=JitCache())
+        ops4, knobs4 = c4.fused_operands(a.vals, x)
+        knobs4.update(span=c4.workspace.max_span, cspan=c4.workspace.max_cspan)
+
+        def theirs():
+            return parent.kernels.spmm_bcsr_fused(*ops, **knobs)
+
+        def mine():
+            return kernels.spmm_bcsr_fused(*ops, **knobs)
+
+        def k4():
+            return kernels.spmm_bcsr_fused_staged(*ops4, **knobs4)
+        same = torch.equal(theirs(), mine()) and torch.equal(mine(), k4())
+        t_theirs, t_mine = ab_turns(theirs, mine)
+        log(f"K2 {label}: parent {t_theirs[0]:.4f}, {t_theirs[1]:.4f}; this "
+            f"tree {t_mine[0]:.4f}, {t_mine[1]:.4f}; K4 {time_ms(k4):.4f} "
+            f"ms; bit-identical (parent, this tree, K4): {same}")
+        if not same:
+            raise SystemExit("chip_smoke: K2 differs from the parent's or K4")
+        del c, c4, ops, ops4
+
+
+def ab_main(args) -> int:
+    """K2 and K6 against the parent tree's wrappers, or only K2-K6's
+    ptxas lines (``--ab-ptxas``); no smoke phases, no result line."""
+    phase_device()
+    parent = parent_package(args.ab_parent.resolve())
+    if args.ab_ptxas:
+        return 0 if ab_ptxas(parent) else 1
+    ab_attention(parent)
+    ab_spmm(parent)
+    return 0
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the port's main path on one H100 and check it; "
+                    "with --ab-parent, time K2/K6 beside another tree's "
+                    "instead.")
+    ap.add_argument("--ab-parent", type=Path, metavar="DIR",
+                    help="a tree (a commit unpacked with git archive) whose "
+                         "K2 and K6 are timed beside this one's through its "
+                         "own wrappers, in turns A B B A, bit for bit")
+    ap.add_argument("--ab-ptxas", action="store_true",
+                    help="with --ab-parent: only compare K2-K6's ptxas "
+                         "registers and spills (K3/K4/K5 must be equal)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.ab_ptxas and args.ab_parent is None:
+        ap.error("--ab-ptxas needs --ab-parent")
+    if args.ab_parent is not None:
+        return ab_main(args)
     from repro_torch.core import JitCache
     t_start = time.perf_counter()
     phase_device()

@@ -16,11 +16,20 @@ descriptors a (bm x bk) block per step with one rescale.
 
 What bounds them on an H100: operations — 2·dh flops of score and 2·dv
 of S·V per nonzero in fp32 outside the tensor cores, against 8 bytes of
-weight and column.  Each CTA keeps the descriptor's Q block in shared
-memory and each warp reduces its rows' scores across its lanes
-(``csrc/attn_trips.cuh`` has the layout).  K6 takes the staged walk
-(``csrc/spmm_staged.cuh``) for the weight and column windows, with the
-chunked walk for windows over the slot, and equals K5 bit for bit.
+weight and column — and, on masks with long rows, the carry's chain
+through a long descriptor, which one CTA walks step by step.  K5 keeps
+the descriptor's Q block in shared memory and each warp reduces its
+rows' scores across its 32 lanes (``csrc/attn_trips.cuh``).  K6
+(``csrc/attn_fused_staged.cu``) is warp-specialised: a producer warp
+walks the staged items (``csrc/spmm_staged.cuh``: the weight and column
+windows, chunks for a window over the slot), hands the persistent CTAs
+their trips one at a time, and gathers every MXU step's K and V panels
+into a ring of stages in shared memory (:func:`kv_geometry`,
+:func:`ring_bytes`); four consumer warps score each (row, column) pair
+of a group of MXU steps, or of VPU steps (whose K and V rows they read
+in place), in one to four lanes, with the butterfly's order of K5's warp
+sum kept, meet once per group on a barrier of their own, and fold.
+Every rounding is K5's, so K6 equals K5 bit for bit.
 
 :func:`attn_fused_plain` and :func:`attn_fused_staged_plain` are the
 plain PyTorch versions: the same descriptor walk in the reference
@@ -49,7 +58,7 @@ from .spmm_ell_fused import (_INT_FILL, COL_TILE, MAX_SHARED_BYTES, _long,
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _STAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                    + [ctypes.c_void_p])
+                    + [ctypes.c_void_p] * 2)
 
 NEG = -1e30         # finite "masked" score, the reference's _NEG
 MAX_BK = 32         # an MXU block's width fits one warp's lanes
@@ -62,11 +71,64 @@ def scratch_bytes(bm: int, bk: int, dh_pad: int) -> int:
     return 4 * (bm * dh_pad + 2 * bm * bk + 3 * bm)
 
 
+# K6's rings (csrc/attn_fused_staged.cu): window slots, each with a
+# 32-byte record of its item, the K/V ring's rows (stages x rows a stage)
+# and its most stages, each slot and stage with a full and an empty
+# 8-byte mbarrier; and the (row, step) pairs of a VPU group
+WIN_SLOTS = 2
+ITEM_BYTES = 32
+KV_ROWS = 32
+KV_MAX_STAGES = 16
+VPU_PAIRS = 32
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(int(v), 1).bit_length() - 1)
+
+
+def kv_geometry(*, bm: int, bk: int, dh_pad: int) -> dict:
+    """K6's K/V ring (``csrc/attn_fused_staged.cu::geometry`` computes
+    the same): ``rows`` K rows and as many V-tile rows a stage (an MXU
+    step's panels), ``bk``; ``qstride``, the floats between K
+    (and Q) rows, ``dh_pad + 4``; ``stage``, the floats of a stage,
+    padded so that a stage starts 4 banks after the one before;
+    ``stages``, the stages (a power of two, about :data:`KV_ROWS` rows
+    in all, 2 to :data:`KV_MAX_STAGES`); ``group``, the VPU steps scored
+    together (a power of two, :data:`VPU_PAIRS` ``/ bm``, 1 to 32);
+    ``mgroup``, the MXU steps scored together (a power of two: one
+    (row, column) pair a consumer thread, a row's steps x columns within
+    a warp, at most half the stages); ``pw``, the entries of a row of
+    the weight and rescale buffers."""
+    rows = bk
+    qstride = dh_pad + 4
+    stage = rows * (qstride + COL_TILE)
+    stage += (36 - stage % 32) % 32
+    stages = min(max(_pow2_floor(max(KV_ROWS // rows, 1)), 2), KV_MAX_STAGES)
+    group = _pow2_floor(min(max(VPU_PAIRS // bm, 1), 32))
+    G = 1 << (bk - 1).bit_length()
+    mgroup = _pow2_floor(max(min(COL_TILE // (bm * G), 32 // G,
+                                 stages // 2), 1))
+    pw = -(-max(group, mgroup * bk, 2 * mgroup) // 4) * 4
+    return dict(rows=rows, qstride=qstride, stage=stage, stages=stages,
+                group=group, mgroup=mgroup, pw=pw)
+
+
 def ring_bytes(c: int, *, bm: int, bk: int, dh_pad: int) -> int:
-    """Dynamic shared memory of one K6 CTA: two mbarriers, two slots of
-    ``c + 4`` entries for each of the weight and column streams, and the
-    attention state (``csrc/attn_fused_staged.cu`` computes the same)."""
-    return 16 + 2 * 2 * (c + 4) * 4 + scratch_bytes(bm, bk, dh_pad)
+    """Dynamic shared memory of one K6 CTA: a full and an empty mbarrier
+    for each of the :data:`WIN_SLOTS` window slots and
+    :data:`KV_MAX_STAGES` stages, the slots' item records, the slots of
+    ``c + 4`` entries for each of the weight and column streams, the K/V
+    stages
+    (:func:`kv_geometry`), the Q block at the K rows' stride, two halves
+    of the weight and rescale buffers, and the denominators
+    (``csrc/attn_fused_staged.cu::attn_ring_bytes`` computes the
+    same)."""
+    g = kv_geometry(bm=bm, bk=bk, dh_pad=dh_pad)
+    barriers = 2 * (WIN_SLOTS + KV_MAX_STAGES) * 8 + WIN_SLOTS * ITEM_BYTES
+    slots = 2 * WIN_SLOTS * (c + 4) * 4
+    floats = (g["stages"] * g["stage"] + bm * g["qstride"]
+              + 4 * bm * g["pw"] + -(-bm // 4) * 4)
+    return barriers + slots + 4 * floats
 
 
 class _Carry:
@@ -272,6 +334,19 @@ def check_attn(tables, cols_flat, vals_flat, q_ws, k, v, *, bm: int,
                          f"CTA's shared memory at bm={bm}")
 
 
+def check_staged_attn(q_ws, *, c: int, bm: int, bk: int) -> None:
+    """What a K6 launch needs beyond :func:`check_attn`: a head width
+    that is a multiple of 32 (whole rows of the score's lane partials)
+    and rings that fit a CTA's shared memory (:func:`ring_bytes`)."""
+    if q_ws.shape[1] % 32:
+        raise ValueError(f"the staged attention kernel takes a head width "
+                         f"that is a multiple of 32, got {q_ws.shape[1]}")
+    nbytes = ring_bytes(c, bm=bm, bk=bk, dh_pad=q_ws.shape[1])
+    if nbytes > MAX_SHARED_BYTES:
+        raise ValueError(f"a staging ring of {nbytes} bytes exceeds the "
+                         f"{MAX_SHARED_BYTES} bytes a CTA may use")
+
+
 def _tables(blk_tag, blk_off, blk_coff, blk_L):
     return {"blk_tag": blk_tag, "blk_off": blk_off, "blk_coff": blk_coff,
             "blk_L": blk_L}
@@ -342,15 +417,13 @@ def attn_fused_staged(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat,
     check_attn(_tables(blk_tag, blk_off, blk_coff, blk_L), cols_flat,
                vals_flat, q_ws, k, v, bm=bm, bk=bk, mw=mw)
     c, ch, kc = staging_geometry(span, cspan, bm=bm, bk=bk, cap=cap)
-    nbytes = ring_bytes(c, bm=bm, bk=bk, dh_pad=q_ws.shape[1])
-    if nbytes > MAX_SHARED_BYTES:
-        raise ValueError(f"a staging ring of {nbytes} bytes exceeds the "
-                         f"{MAX_SHARED_BYTES} bytes a CTA may use")
+    check_staged_attn(q_ws, c=c, bm=bm, bk=bk)
     if v.device.type == "cpu":
         return attn_fused_staged_plain(
             blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat, q_ws, k,
             v, span=span, cspan=cspan, bm=bm, bk=bk, mw=mw, cap=cap)
-    for name, t in (("cols_flat", cols_flat), ("vals_flat", vals_flat)):
+    for name, t in (("cols_flat", cols_flat), ("vals_flat", vals_flat),
+                    ("q_ws", q_ws), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for "
                              f"the staged kernel's copies")
@@ -360,13 +433,18 @@ def attn_fused_staged(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat,
     if num_blocks == 0:
         return y
     lib = _build.load("attn_fused_staged", _STAGED_ARGTYPES)
+    # the persistent CTAs take their trips past the first from these
+    # counters, one per column tile
+    next_trip = torch.zeros(v.shape[1] // COL_TILE, dtype=torch.int32,
+                            device=v.device)
     with torch.cuda.device(v.device):
         err = lib.attn_fused_staged_launch(
             blk_tag.data_ptr(), blk_off.data_ptr(), blk_coff.data_ptr(),
             blk_L.data_ptr(), cols_flat.data_ptr(), vals_flat.data_ptr(),
             q_ws.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
             num_blocks // mw, bm, bk, mw, q_ws.shape[1], v.shape[1], c, ch,
-            kc, torch.cuda.current_stream().cuda_stream)
+            kc, next_trip.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attn_fused_staged launch failed with CUDA "
                            f"error {err}")

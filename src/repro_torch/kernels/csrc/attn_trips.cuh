@@ -1,7 +1,10 @@
-// Descriptor-trip device code of the fused sparse-attention kernels K5
-// (attn_fused.cu, resident) and K6 (attn_fused_staged.cu, staged): the
-// SDDMM score, the masked online softmax and the S·V product of one trip
-// step, with the (acc, m, l) carry of each row.
+// Descriptor-trip device code of the resident fused sparse-attention
+// kernel K5 (attn_fused.cu): the SDDMM score, the masked online softmax
+// and the S·V product of one trip step, with the (acc, m, l) carry of
+// each row.  The staged K6 (attn_fused_staged.cu) has its own CTA (a K/V
+// ring, scores in one to four lanes) and takes from here only the
+// constants, Operands, pick and the bm dispatch; it reproduces the
+// roundings of Cta below exactly, so the two agree bit for bit.
 //
 // Layout.  A CTA of 128 threads serves one 128-column tile of the value
 // width dv; each thread owns one output column and keeps the bm row

@@ -1,7 +1,12 @@
-// The staged fused SpMM kernels K3 (spmm_ell_fused_staged.cu) and K4
-// (spmm_bcsr_fused_staged.cu): one warp-specialised kernel template,
-// MIXED = false for K3 (all VPU descriptors, coff == off) and true for
-// K4 (tagged descriptors, MXU block steps too).
+// The warp-specialised fused SpMM kernels K3 (spmm_ell_fused_staged.cu),
+// K4 (spmm_bcsr_fused_staged.cu) and K2 (spmm_bcsr_fused.cu): one kernel
+// template, MIXED = false for K3 (all VPU descriptors, coff == off) and
+// true for K4 and K2 (tagged descriptors, MXU block steps too), and a
+// descriptor source: FromSlots for the staged K3/K4 (the slot ring and
+// chunked walk below), Resident for K2, which reads the descriptor
+// tables and the value and column streams where they lie in global
+// memory and walks whole trips, member by member, with no slot ring.
+// Both sources feed the same X ring.
 //
 // Work.  Persistent CTAs walk merged trips g, g + gridDim.x, ... for one
 // 128-column tile (blockIdx.y), in spmm_staged.cuh's items: a trip whose
@@ -77,6 +82,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                  :: "r"(spmm_staged::smem_u32(dst)), "l"(src) : "memory");
 }
 
+// 4 bytes from global to shared memory, cached in L1 (.ca)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(spmm_staged::smem_u32(dst)), "l"(src) : "memory");
+}
+
 // arrive on `bar` once every earlier cp.async of this thread has landed;
 // the barrier's expected count includes this arrival
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
@@ -84,12 +95,294 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                  :: "r"(spmm_staged::smem_u32(bar)) : "memory");
 }
 
+// wait until every cp.async of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Dynamic shared memory of one CTA with the slot source;
+// kernels/spmm_ell_fused.py::ring_bytes computes the same.
+inline size_t ring_bytes(int cap, int bm, int bk) {
+    return 8u * kBarriers + 2u * kSlots * (static_cast<size_t>(cap) + 4u) * 4u
+           + static_cast<size_t>(kXStages) * (bm > bk ? bm : bk)
+                 * spmm::kColTile * 4u;
+}
+
+// The resident source's: the barriers and the X ring, each stage with
+// room for an MXU step's value panel, no slots
+// (kernels/spmm_bcsr_fused.py::ring_bytes computes the same).
+inline size_t resident_ring_bytes(int bm, int bk) {
+    const size_t stage = static_cast<size_t>(bm > bk ? bm : bk) * spmm::kColTile
+                         + (static_cast<size_t>(bm) * bk + 3) / 4 * 4;
+    return 8u * kBarriers + kXStages * stage * 4u;
+}
+
+template <int BM, bool MIXED, class Src> struct Ring;
+
+// A step's BM entries of a slot, read where they are used.
+template <class T, int BM>
+struct SlotEntries {
+    const T* base;
+    const int (&at)[BM];
+    int s;
+    __device__ T operator[](int r) const { return base[at[r] + s]; }
+};
+
+// An MXU step's block-column entry of a slot, read where it is used.
+struct SlotEntry {
+    const int* base;
+    int k;
+    __device__ operator int() const { return base[k]; }
+};
+
+// A step's BM entries of a global stream, loaded as it is read.
+template <class T, int BM>
+struct Loaded {
+    T v[BM];
+    __device__ T operator[](int r) const { return v[r]; }
+};
+
+// Descriptor sources (see the top of this file).  Each says where a
+// step's column indices, values and MXU value panel come from, how
+// both roles walk the CTA's trips, and how much shared memory a CTA
+// takes; Ring, Producer and Consumer are the same for both.
+//
+// FromSlots (K3/K4): windows in the slot ring, items of the chunked walk.
+struct FromSlots {
+    __device__ static int slot_entries(int cap) { return cap + 4; }
+    __device__ static int panel_floats(int, int) { return 0; }
+    static size_t smem(int cap, int bm, int bk) {
+        return ring_bytes(cap, bm, bk);
+    }
+
+    template <int BM>
+    __device__ static SlotEntries<int, BM> columns(
+            const int* cs, const int (&cp)[BM], int s) {
+        return {cs, cp, s};
+    }
+    __device__ static SlotEntry column(const int* cs, int k) {
+        return {cs, k};
+    }
+    template <int BM>
+    __device__ static SlotEntries<float, BM> values(
+            const float* vs, const int (&vp)[BM], int s) {
+        return {vs, vp, s};
+    }
+    // the panel stays in the slot
+    template <class R>
+    __device__ static void stage_panel(const R&, uint32_t, const float*,
+                                       int) {}
+    template <class R>
+    __device__ static const float* panel(const R&, uint32_t,
+                                         const float* va) {
+        return va;
+    }
+
+    // Item `it` from slot (vs, cs), member by member: role.begin(first
+    // chunk), then its steps through role.vpu (row r's slot for step s
+    // at vs[vp[r] + s], its column entry at cs[cp[r] + s]) or role.mxu
+    // (step k's value panel at va[k*bm*bk], its block-column cs[k]),
+    // then role.end(descriptor, last chunk).
+    template <int BM, bool MIXED, class Role>
+    __device__ static void run(const Ring<BM, MIXED, FromSlots>& ring,
+                               const Item& it, const float* vs,
+                               const int* cs, Role& role) {
+        const Params& p = ring.walk.p;
+        int vp[BM], cp[BM];
+        if (it.w < 0) {
+            const long long b0 = static_cast<long long>(it.g) * p.mw;
+            const long long v0 = __ldg(p.off + b0);
+            const long long c0 = __ldg(p.coff + b0);
+            for (int w = 0; w < p.mw; ++w) {
+                const long long b = b0 + w;
+                const int L = __ldg(p.L + b);
+                // the member's first slot and column entry in the slot
+                const int lv = spmm_staged::rem4(v0)
+                               + static_cast<int>(__ldg(p.off + b) - v0);
+                const int lc = spmm_staged::rem4(c0)
+                               + static_cast<int>(__ldg(p.coff + b) - c0);
+                role.begin(true);
+                if (ring.walk.is_mxu(b)) {
+                    role.mxu(vs + lv, cs + lc, L);
+                } else {
+#pragma unroll
+                    for (int r = 0; r < BM; ++r) {
+                        vp[r] = lv + r * L;
+                        cp[r] = lc + r * L;
+                    }
+                    role.vpu(vs, cs, vp, cp, L);
+                }
+                role.end(b, true);
+            }
+            return;
+        }
+        const long long b = static_cast<long long>(it.g) * p.mw + it.w;
+        const long long L = __ldg(p.L + b);
+        const long long ob = __ldg(p.off + b);
+        const long long cb = __ldg(p.coff + b);
+        role.begin(it.c == 0);
+        if (ring.walk.is_mxu(b)) {
+            const long long k0 = static_cast<long long>(it.c) * p.kc;
+            const int n = static_cast<int>(min(L, k0 + p.kc) - k0);
+            role.mxu(vs + spmm_staged::rem4(ob + k0 * BM * p.bk),
+                     cs + spmm_staged::rem4(cb + k0), n);
+        } else {
+            const long long n0 = static_cast<long long>(it.c) * p.ch;
+            const int n = static_cast<int>(max(min(L, n0 + p.ch) - n0, 0LL));
+#pragma unroll
+            for (int r = 0; r < BM; ++r) {
+                vp[r] = r * (p.ch + 4) + spmm_staged::rem4(ob + r * L + n0);
+                cp[r] = r * (p.ch + 4) + spmm_staged::rem4(cb + r * L + n0);
+            }
+            role.vpu(vs, cs, vp, cp, n);
+        }
+        role.end(b, it.c + 1 == ring.walk.member_chunks(b));
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void produce(const Ring<BM, MIXED, FromSlots>& ring,
+                                   Role& role) {
+        const int lane = threadIdx.x & 31;
+        Item it = ring.walk.trip_item(blockIdx.x);
+        if (lane == 0)
+            ring.walk.issue(it, ring.vs(0), ring.cs(0), ring.slot_full(0));
+        int i = 0;
+        for (;; ++i) {
+            // item i + 1's windows go in flight before item i's X rows
+            const Item nxt = ring.walk.next(it);
+            if (nxt.g >= 0) {
+                mbar_wait(ring.slot_empty(i + 1),
+                          (((i + 1) / kSlots) & 1) ^ 1);
+                if (lane == 0)
+                    ring.walk.issue(nxt, ring.vs(i + 1), ring.cs(i + 1),
+                                    ring.slot_full(i + 1));
+            }
+            mbar_wait(ring.slot_full(i), (i / kSlots) & 1);
+            run(ring, it, ring.vs(i), ring.cs(i), role);
+            if (nxt.g < 0) break;
+            it = nxt;
+        }
+        // leave once the consumers have finished the last item, so that
+        // no copy of this warp is in flight when it exits
+        mbar_wait(ring.slot_empty(i), (i / kSlots) & 1);
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void consume(const Ring<BM, MIXED, FromSlots>& ring,
+                                   Role& role) {
+        Item it = ring.walk.trip_item(blockIdx.x);
+        for (int i = 0; it.g >= 0; ++i) {
+            mbar_wait(ring.slot_full(i), (i / kSlots) & 1);
+            run(ring, it, ring.vs(i), ring.cs(i), role);
+            __syncwarp();
+            if ((threadIdx.x & 31) == 0) mbar_arrive(ring.slot_empty(i));
+            it = ring.walk.next(it);
+        }
+    }
+};
+
+// Resident (K2): the descriptor tables and the value and column streams
+// where they lie in global memory, whole trips, no slots (their
+// barriers stay unused).  A step's columns and values are loaded before
+// the role waits for its stage; the producer copies an MXU step's value
+// panel into the stage after its X rows.
+struct Resident {
+    __device__ static int slot_entries(int) { return 0; }
+    // an MXU step's value panel, rounded up to whole 16-byte units
+    __device__ static int panel_floats(int bm, int bk) {
+        return (bm * bk + 3) / 4 * 4;
+    }
+    static size_t smem(int, int bm, int bk) {
+        return resident_ring_bytes(bm, bk);
+    }
+
+    template <int BM>
+    __device__ static Loaded<int, BM> columns(
+            const int* cols, const int (&cp)[BM], int s) {
+        Loaded<int, BM> k;
+#pragma unroll
+        for (int r = 0; r < BM; ++r) k.v[r] = __ldg(cols + cp[r] + s);
+        return k;
+    }
+    __device__ static int column(const int* cols, int k) {
+        return __ldg(cols + k);
+    }
+    template <int BM>
+    __device__ static Loaded<float, BM> values(
+            const float* vals, const int (&vp)[BM], int s) {
+        Loaded<float, BM> v;
+#pragma unroll
+        for (int r = 0; r < BM; ++r) v.v[r] = __ldg(vals + vp[r] + s);
+        return v;
+    }
+    // where stage q keeps its MXU step's value panel: after the X rows
+    template <class R>
+    __device__ static float* panel(const R& ring, uint32_t q,
+                                   const float* = nullptr) {
+        const int bk = ring.walk.p.bk;
+        return ring.xs(q) + (R::kBM > bk ? R::kBM : bk) * spmm::kColTile;
+    }
+    // 4 bytes a copy: a panel starts anywhere in the stream
+    template <class R>
+    __device__ static void stage_panel(const R& ring, uint32_t q,
+                                       const float* a, int lane) {
+        float* ab = panel(ring, q);
+        for (int i = lane; i < R::kBM * ring.walk.p.bk; i += 32)
+            cp_async4(ab + i, a + i);
+    }
+
+    // The CTA's trips g, g + gridDim.x, ..., member by member, each a
+    // whole descriptor (role.vpu/mxu get the streams themselves, row r's
+    // first slot at vp[r], its first column entry at cp[r]).
+    template <int BM, bool MIXED, class Role>
+    __device__ static void run(const Ring<BM, MIXED, Resident>& ring,
+                               Role& role) {
+        const Params& p = ring.walk.p;
+        int vp[BM], cp[BM];
+        for (int g = blockIdx.x; g < p.num_trips; g += gridDim.x) {
+            for (int w = 0; w < p.mw; ++w) {
+                const long long b = static_cast<long long>(g) * p.mw + w;
+                const int off = __ldg(p.off + b);
+                const int coff = __ldg(p.coff + b);
+                const int L = __ldg(p.L + b);
+                role.begin(true);
+                if (ring.walk.is_mxu(b)) {
+                    role.mxu(p.vals + off, p.cols + coff, L);
+                } else {
+#pragma unroll
+                    for (int r = 0; r < BM; ++r) {
+                        vp[r] = off + r * L;
+                        cp[r] = coff + r * L;
+                    }
+                    role.vpu(p.vals, p.cols, vp, cp, L);
+                }
+                role.end(b, true);
+            }
+        }
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void produce(const Ring<BM, MIXED, Resident>& ring,
+                                   Role& role) {
+        run(ring, role);
+        // no copy of this warp is in flight when it exits
+        cp_async_wait_all();
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void consume(const Ring<BM, MIXED, Resident>& ring,
+                                   Role& role) {
+        run(ring, role);
+    }
+};
+
 // The CTA's shared memory and the walk both roles follow.  Use u of
 // slot i % kSlots is u = i / kSlots (of stage q % kXStages, q /
 // kXStages): a full barrier completes phase u when use u's data is in,
 // an empty one when use u has been read.
-template <int BM, bool MIXED>
+template <int BM, bool MIXED, class Src = FromSlots>
 struct Ring {
+    static constexpr int kBM = BM;
     const spmm_staged::Staged<BM, MIXED> walk;
     uint64_t* bar;
     float* vslot;
@@ -113,73 +406,13 @@ struct Ring {
     __device__ float* xs(uint32_t q) const {
         return xring + (q % kXStages) * xlen;
     }
-
-    // Item `it` from slot (vs, cs), member by member: role.begin(first
-    // chunk), then its steps through role.vpu (row r's slot for step s
-    // at vs[vp[r] + s], its column entry at cs[cp[r] + s]) or role.mxu
-    // (step k's value panel at va[k*bm*bk], its block-column cs[k]),
-    // then role.end(descriptor, last chunk).
-    template <class Role>
-    __device__ void run(const Item& it, const float* vs, const int* cs,
-                        Role& role) const {
-        const Params& p = walk.p;
-        int vp[BM], cp[BM];
-        if (it.w < 0) {
-            const long long b0 = static_cast<long long>(it.g) * p.mw;
-            const long long v0 = __ldg(p.off + b0);
-            const long long c0 = __ldg(p.coff + b0);
-            for (int w = 0; w < p.mw; ++w) {
-                const long long b = b0 + w;
-                const int L = __ldg(p.L + b);
-                // the member's first slot and column entry in the slot
-                const int lv = spmm_staged::rem4(v0)
-                               + static_cast<int>(__ldg(p.off + b) - v0);
-                const int lc = spmm_staged::rem4(c0)
-                               + static_cast<int>(__ldg(p.coff + b) - c0);
-                role.begin(true);
-                if (walk.is_mxu(b)) {
-                    role.mxu(vs + lv, cs + lc, L);
-                } else {
-#pragma unroll
-                    for (int r = 0; r < BM; ++r) {
-                        vp[r] = lv + r * L;
-                        cp[r] = lc + r * L;
-                    }
-                    role.vpu(vs, cs, vp, cp, L);
-                }
-                role.end(b, true);
-            }
-            return;
-        }
-        const long long b = static_cast<long long>(it.g) * p.mw + it.w;
-        const long long L = __ldg(p.L + b);
-        const long long ob = __ldg(p.off + b);
-        const long long cb = __ldg(p.coff + b);
-        role.begin(it.c == 0);
-        if (walk.is_mxu(b)) {
-            const long long k0 = static_cast<long long>(it.c) * p.kc;
-            const int n = static_cast<int>(min(L, k0 + p.kc) - k0);
-            role.mxu(vs + spmm_staged::rem4(ob + k0 * BM * p.bk),
-                     cs + spmm_staged::rem4(cb + k0), n);
-        } else {
-            const long long n0 = static_cast<long long>(it.c) * p.ch;
-            const int n = static_cast<int>(max(min(L, n0 + p.ch) - n0, 0LL));
-#pragma unroll
-            for (int r = 0; r < BM; ++r) {
-                vp[r] = r * (p.ch + 4) + spmm_staged::rem4(ob + r * L + n0);
-                cp[r] = r * (p.ch + 4) + spmm_staged::rem4(cb + r * L + n0);
-            }
-            role.vpu(vs, cs, vp, cp, n);
-        }
-        role.end(b, it.c + 1 == walk.member_chunks(b));
-    }
 };
 
 // The producer warp's steps: every lane copies its 16 bytes of each of
 // the step's rows into the next free stage.
-template <int BM, bool MIXED>
+template <int BM, bool MIXED, class Src = FromSlots>
 struct Producer {
-    const Ring<BM, MIXED>& ring;
+    const Ring<BM, MIXED, Src>& ring;
     const float* x;     // X at this tile's first column and this lane's 4
     int lane;
     uint32_t q;         // steps staged so far
@@ -199,31 +432,35 @@ struct Producer {
                         const int (&cp)[BM], int n) {
         const long long d_pad = ring.walk.p.d_pad;
         for (int s = 0; s < n; ++s) {
+            const auto k = Src::columns(cs, cp, s);
             float* xb = acquire();
 #pragma unroll
             for (int r = 0; r < BM; ++r)
-                cp_async16(xb + r * spmm::kColTile, x + cs[cp[r] + s] * d_pad);
+                cp_async16(xb + r * spmm::kColTile, x + k[r] * d_pad);
             commit();
         }
     }
 
-    __device__ void mxu(const float*, const int* cs, int n) {
+    __device__ void mxu(const float* va, const int* cs, int n) {
         const Params& p = ring.walk.p;
         for (int k = 0; k < n; ++k) {
+            const auto bc = Src::column(cs, k);
             float* xb = acquire();
-            const float* xp = x + static_cast<long long>(cs[k]) * p.bk * p.d_pad;
+            const float* xp = x + static_cast<long long>(bc) * p.bk * p.d_pad;
             for (int c = 0; c < p.bk; ++c)
                 cp_async16(xb + c * spmm::kColTile,
                            xp + static_cast<long long>(c) * p.d_pad);
+            Src::stage_panel(ring, q, va + static_cast<long long>(k) * BM * p.bk,
+                             lane);
             commit();
         }
     }
 };
 
 // A consumer thread's steps: its column of each stage, in step order.
-template <int BM, bool MIXED>
+template <int BM, bool MIXED, class Src = FromSlots>
 struct Consumer {
-    const Ring<BM, MIXED>& ring;
+    const Ring<BM, MIXED, Src>& ring;
     int col;            // this thread's output column
     uint32_t q;         // steps taken so far
     float acc[BM];
@@ -249,10 +486,11 @@ struct Consumer {
     __device__ void vpu(const float* vs, const int*, const int (&vp)[BM],
                         const int (&)[BM], int n) {
         for (int s = 0; s < n; ++s) {
+            const auto v = Src::values(vs, vp, s);
             const float* xb = acquire();
 #pragma unroll
             for (int r = 0; r < BM; ++r)
-                acc[r] = __fadd_rn(acc[r], __fmul_rn(vs[vp[r] + s],
+                acc[r] = __fadd_rn(acc[r], __fmul_rn(v[r],
                                                      xb[r * spmm::kColTile]));
             release();
         }
@@ -263,7 +501,8 @@ struct Consumer {
         const int bk = ring.walk.p.bk;
         for (int k = 0; k < n; ++k) {
             const float* xb = acquire();
-            const float* a = va + static_cast<long long>(k) * BM * bk;
+            const float* a =
+                Src::panel(ring, q, va + static_cast<long long>(k) * BM * bk);
             float t[BM];
             spmm::zero(t);
             for (int c = 0; c < bk; ++c) {
@@ -279,59 +518,35 @@ struct Consumer {
     }
 };
 
-template <int BM, bool MIXED>
-__device__ void produce(const Ring<BM, MIXED>& ring) {
+template <int BM, bool MIXED, class Src>
+__device__ void produce(const Ring<BM, MIXED, Src>& ring) {
     const Params& p = ring.walk.p;
     const int lane = threadIdx.x & 31;
-    Producer<BM, MIXED> role{
+    Producer<BM, MIXED, Src> role{
         ring, p.x + blockIdx.y * spmm::kColTile + 4 * lane, lane, 0u};
-    Item it = ring.walk.trip_item(blockIdx.x);
-    if (lane == 0) ring.walk.issue(it, ring.vs(0), ring.cs(0), ring.slot_full(0));
-    int i = 0;
-    for (;; ++i) {
-        // item i + 1's windows go in flight before item i's X rows
-        const Item nxt = ring.walk.next(it);
-        if (nxt.g >= 0) {
-            mbar_wait(ring.slot_empty(i + 1), (((i + 1) / kSlots) & 1) ^ 1);
-            if (lane == 0)
-                ring.walk.issue(nxt, ring.vs(i + 1), ring.cs(i + 1),
-                                ring.slot_full(i + 1));
-        }
-        mbar_wait(ring.slot_full(i), (i / kSlots) & 1);
-        ring.run(it, ring.vs(i), ring.cs(i), role);
-        if (nxt.g < 0) break;
-        it = nxt;
-    }
-    // leave once the consumers have finished the last item, so that no
-    // copy of this warp is in flight when it exits
-    mbar_wait(ring.slot_empty(i), (i / kSlots) & 1);
+    Src::produce(ring, role);
 }
 
-template <int BM, bool MIXED>
-__device__ void consume(const Ring<BM, MIXED>& ring) {
-    Consumer<BM, MIXED> role{
+template <int BM, bool MIXED, class Src>
+__device__ void consume(const Ring<BM, MIXED, Src>& ring) {
+    Consumer<BM, MIXED, Src> role{
         ring, static_cast<int>(blockIdx.y) * spmm::kColTile
                   + static_cast<int>(threadIdx.x), 0u, {}};
-    Item it = ring.walk.trip_item(blockIdx.x);
-    for (int i = 0; it.g >= 0; ++i) {
-        mbar_wait(ring.slot_full(i), (i / kSlots) & 1);
-        ring.run(it, ring.vs(i), ring.cs(i), role);
-        __syncwarp();
-        if ((threadIdx.x & 31) == 0) mbar_arrive(ring.slot_empty(i));
-        it = ring.walk.next(it);
-    }
+    Src::consume(ring, role);
 }
 
-template <int BM, bool MIXED>
+template <int BM, bool MIXED, class Src = FromSlots>
 __global__ void __launch_bounds__(kThreads) gather_kernel(const Params p) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const int slot = p.cap + 4;
+    const int slot = Src::slot_entries(p.cap);
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
     float* vslot = reinterpret_cast<float*>(bar + kBarriers);
     int* cslot = reinterpret_cast<int*>(vslot + kSlots * slot);
     float* xring = reinterpret_cast<float*>(cslot + kSlots * slot);
-    const Ring<BM, MIXED> ring{{p}, bar, vslot, cslot, xring, slot,
-                               (BM > p.bk ? BM : p.bk) * spmm::kColTile};
+    // a stage: max(bm, bk) X rows and the source's panel
+    const int xlen = (BM > p.bk ? BM : p.bk) * spmm::kColTile
+                     + Src::panel_floats(BM, p.bk);
+    const Ring<BM, MIXED, Src> ring{{p}, bar, vslot, cslot, xring, slot, xlen};
     if (threadIdx.x == 0) {
         for (int k = 0; k < kSlots; ++k) {
             spmm_staged::mbar_init(ring.slot_full(k), 1);
@@ -350,20 +565,12 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Params p) {
         consume(ring);
 }
 
-// Dynamic shared memory of one CTA; kernels/spmm_ell_fused.py::ring_bytes
-// computes the same.
-inline size_t ring_bytes(int cap, int bm, int bk) {
-    return 8u * kBarriers + 2u * kSlots * (static_cast<size_t>(cap) + 4u) * 4u
-           + static_cast<size_t>(kXStages) * (bm > bk ? bm : bk)
-                 * spmm::kColTile * 4u;
-}
-
 // Launch with persistent CTAs: as many per column tile as fit on the
 // card at once, at most one per merged trip.
-template <int BM, bool MIXED>
+template <int BM, bool MIXED, class Src = FromSlots>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-    const size_t smem = ring_bytes(p.cap, BM, p.bk);
-    auto kernel = gather_kernel<BM, MIXED>;
+    const size_t smem = Src::smem(p.cap, BM, p.bk);
+    auto kernel = gather_kernel<BM, MIXED, Src>;
     // this launch's ring, whatever an earlier launch with another window
     // set
     cudaError_t err = cudaFuncSetAttribute(

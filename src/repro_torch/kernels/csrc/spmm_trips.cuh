@@ -1,7 +1,8 @@
-// Descriptor-trip device code shared by the resident SpMM kernels: the
-// fused ones (spmm_ell_fused.cu, spmm_bcsr_fused.cu) and the
-// single-segment and pre-fusion BCSR micro-oracles (spmm_ell_segment.cu,
-// spmm_bcsr.cu), which run one trip each.
+// Descriptor-trip device code of the resident SpMM kernels K1
+// (spmm_ell_fused.cu) and the single-segment and pre-fusion BCSR
+// micro-oracles K9/K10 (spmm_ell_segment.cu, spmm_bcsr.cu), which run
+// one trip each; K2 (spmm_bcsr_fused.cu) runs on spmm_gather_ring.cuh
+// and takes only kColTile, zero, store_rows and the bm dispatch here.
 //
 // Layout: one CTA per (merged trip, 128-column tile); each thread owns
 // one output column of the tile and keeps one descriptor's bm row

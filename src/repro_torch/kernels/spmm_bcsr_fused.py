@@ -12,28 +12,37 @@ CUDA kernel ``csrc/spmm_bcsr_fused.cu``.  Every descriptor carries a tag:
       value panel at ``vals[off + k*bm*bk:]`` by the (bk, d_pad) X panel
       of block-column ``cols[coff + k]`` and adds it to the block.
 
-What bounds it on an H100: bytes.  On the block-structured instances
-the planner tags MXU, neighbouring block-rows share X panels that L2
-keeps, so the floor is X once, the value panels once and the output once
-over 3.35 TB/s.  The kernel loads each X panel row once per step and
-reuses it for all ``bm`` rows from registers, in full fp32 (the
-reference computes fp32 × fp32 → fp32; tensor cores have no IEEE fp32
-mode); the tag branch is per descriptor, uniform across the CTA.
+What bounds it on an H100: bytes.  A VPU step gathers ``bm`` X rows
+that mostly miss L2 on a large random graph; on the block-structured
+instances the planner tags MXU, neighbouring block-rows share X panels
+that L2 keeps, so the floor is X once, the value panels once and the
+output once over 3.35 TB/s.  K2 is K4's warp-specialised CTA on
+``csrc/spmm_gather_ring.cuh`` with the resident descriptor source: a
+producer warp reads each step's column indices from global memory and
+copies the step's X rows (and an MXU step's value panel) into an
+``X_STAGES``-stage ring ahead of four consumer warps, which read the
+descriptor tables and a VPU step's values where they lie and add the
+steps in full fp32 (the reference
+computes fp32 × fp32 → fp32; tensor cores have no IEEE fp32 mode).  It
+has no slot ring and no chunked walk; :func:`ring_bytes` is its shared
+memory.  The tag branch is per descriptor, uniform across the CTA.
 
 :func:`spmm_bcsr_fused_plain` is the plain PyTorch version, walking the
 same stream in the same per-row order, vectorised over the descriptors,
 rows and columns of each step.  The wrapper runs it for CPU tensors;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises.  Kernel and plain
+version add the same products in the same order, so they agree bit for
+bit.
 
 K4, :func:`spmm_bcsr_fused_staged`, replaces the TPU kernel
 ``spmm_bcsr_fused_staged`` (``_staged_kernel``, ``staging="dma"``) with
-``csrc/spmm_bcsr_fused_staged.cu``: K3's warp-specialised CTA on
-``csrc/spmm_gather_ring.cuh`` — a producer warp filling the ring of slot
-and column windows (bulk asynchronous copies, chunks for a window over
-the slot's capacity) and copying each VPU step's ``bm`` gathered rows
-and each MXU step's (bk, 128) panel into the X ring ahead of four
-consumer warps, as the reference's ``xgbuf``/``xpbuf``.  Bound by bytes
-like K2; the sums run in K2's order, so K4 is bit-identical to K2.
+``csrc/spmm_bcsr_fused_staged.cu``: the same CTA with the slot source —
+the producer warp also fills the ring of slot and column windows (bulk
+asynchronous copies, chunks for a window over the slot's capacity)
+before copying each VPU step's ``bm`` gathered rows and each MXU step's
+(bk, 128) panel into the X ring, as the reference's ``xgbuf``/``xpbuf``.
+Bound by bytes like K2; the sums run in K2's order, so K4 is
+bit-identical to K2.
 :func:`spmm_bcsr_fused_staged_plain` walks the same windows and chunks
 on the CPU.
 
@@ -50,8 +59,10 @@ import torch
 
 from ..distributed import check_on_mesh, run_on_chips, sharded_x
 from . import _build
-from .spmm_ell_fused import (_long, check_staged, check_tables, staged_plain,
-                             staging_geometry, vpu_trips)
+from .spmm_ell_fused import (COL_TILE, MAX_SHARED_BYTES, MBARRIER_BYTES,
+                             RING_SLOTS, X_STAGES, _long, check_staged,
+                             check_tables, staged_plain, staging_geometry,
+                             vpu_trips)
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _STAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
@@ -104,6 +115,36 @@ def _check_rows(x, bk: int) -> None:
                          f"bk={bk}")
 
 
+def ring_bytes(*, bm: int, bk: int) -> int:
+    """Dynamic shared memory of one K2 CTA: the gather ring's barriers
+    (a full and an empty mbarrier for each of the :data:`RING_SLOTS`
+    slots, unused by the resident source, and each of the
+    :data:`X_STAGES` stages) and the X stages, each ``max(bm, bk)`` rows
+    by one column tile plus an MXU step's ``bm * bk`` value panel
+    rounded up to whole 16-byte units
+    (``csrc/spmm_gather_ring.cuh::resident_ring_bytes`` computes the
+    same)."""
+    barriers = 2 * (RING_SLOTS + X_STAGES) * MBARRIER_BYTES
+    stage = max(bm, bk) * COL_TILE + -(-bm * bk // 4) * 4
+    return barriers + X_STAGES * stage * 4
+
+
+def check_resident(x, *, bm: int, bk: int) -> None:
+    """What a K2 launch needs beyond :func:`check_tables`: whole column
+    tiles, an X ring that fits a CTA, and (on the card) X on a 16-byte
+    boundary for the copies."""
+    if x.shape[1] % COL_TILE:
+        raise ValueError(f"spmm_bcsr_fused takes x with a multiple of "
+                         f"{COL_TILE} columns, got {x.shape[1]}")
+    nbytes = ring_bytes(bm=bm, bk=bk)
+    if nbytes > MAX_SHARED_BYTES:
+        raise ValueError(f"an X ring of {nbytes} bytes exceeds the "
+                         f"{MAX_SHARED_BYTES} bytes a CTA may use")
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary for the "
+                         "kernel's copies")
+
+
 def spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                     vals_flat, x, *, bm: int = 8, bk: int = 8,
                     mw: int = 1) -> torch.Tensor:
@@ -115,7 +156,8 @@ def spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
     blk_L     : (B,) int32 — trips: padded nnz/row (VPU) or K (MXU)
     cols_flat : (Sc,) int32 — X row per slot (VPU) / block-column (MXU)
     vals_flat : (S,) float32 — slot values; MXU panels flattened (K,bm,bk)
-    x         : (n_pad, d_pad) float32 — rows padded to a bk multiple
+    x         : (n_pad, d_pad) float32 — rows padded to a bk multiple,
+                d_pad a multiple of 128
     mw        : CGCM merge width — descriptors per CTA; divides B
 
     CPU tensors run :func:`spmm_bcsr_fused_plain`; CUDA tensors launch
@@ -126,6 +168,7 @@ def spmm_bcsr_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat,
                   "blk_coff": blk_coff, "blk_L": blk_L}, cols_flat,
                  vals_flat, x, bm=bm, mw=mw)
     _check_rows(x, bk)
+    check_resident(x, bm=bm, bk=bk)
     if x.device.type == "cpu":
         return spmm_bcsr_fused_plain(blk_tag, blk_off, blk_coff, blk_L,
                                      cols_flat, vals_flat, x, bm=bm, bk=bk,

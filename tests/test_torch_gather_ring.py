@@ -72,3 +72,40 @@ def test_check_staged_refuses_a_ring_over_the_cta():
     with pytest.raises(ValueError, match="multiple of 128"):
         k3_mod.check_staged(torch.zeros(8, 100), cols, vals, c=64, bm=8,
                             bk=1)
+
+
+# -- K2: the same ring with the resident descriptor source -------------------
+
+k2_mod = importlib.import_module("repro_torch.kernels.spmm_bcsr_fused")
+
+
+def test_resident_ring_is_declared_in_the_header():
+    text = HEADER.read_text()
+    assert "struct Resident" in text and "resident_ring_bytes" in text
+    k2_src = (HEADER.parent / "spmm_bcsr_fused.cu").read_text()
+    assert "spmm_ring::Resident" in k2_src
+
+
+@pytest.mark.parametrize("bk", BKS)
+@pytest.mark.parametrize("bm", BMS)
+def test_resident_ring_bytes_counts_barriers_and_x_stages(bm, bk):
+    slots, stages = header_constant("kSlots"), header_constant("kXStages")
+    # every barrier of the slot source (the slots' stay unused), no
+    # slots, and a stage of max(bm, bk) rows of 128 floats and an MXU
+    # step's bm x bk value panel in whole 16-byte units
+    panel = -(-bm * bk // 4) * 4
+    want = 2 * (slots + stages) * 8 + stages * (max(bm, bk) * 128
+                                                + panel) * 4
+    assert want % 16 == 0
+    assert k2_mod.ring_bytes(bm=bm, bk=bk) == want
+    assert want <= 232448
+    k2_mod.check_resident(torch.zeros(8, 128), bm=bm, bk=bk)
+
+
+def test_check_resident_refuses_a_ring_over_the_cta_and_partial_tiles():
+    # bk = 128 asks for four 64 KB X stages
+    assert k2_mod.ring_bytes(bm=8, bk=128) > 232448
+    with pytest.raises(ValueError, match="exceeds"):
+        k2_mod.check_resident(torch.zeros(128, 128), bm=8, bk=128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k2_mod.check_resident(torch.zeros(8, 100), bm=8, bk=8)

@@ -8,7 +8,8 @@ per-row order, but the MXU step's dot product may sum in another order.
 
 The CUDA kernels themselves are held to the plain versions by the
 ``cuda``-marked test, which runs only on a Hopper card; there the staged
-kernels K3/K4 must also equal K1/K2 bit for bit, and the attention
+kernels K3/K4 must also equal K1/K2 bit for bit (and K2 its plain
+version, which adds the same products in the same order), and the attention
 kernels K5/K6 (``tests/test_torch_attn.py`` holds their plain versions
 to the reference) their plain versions at 1e-5, K6 equal to K5.  The staged kernels'
 plain versions are held to the reference on the CPU in
@@ -231,6 +232,9 @@ def test_cuda_kernels_match_plain():
             torch.testing.assert_close(got, want, **TOL)
             torch.testing.assert_close(got_staged, want_staged, **TOL)
             assert torch.equal(got_staged, got)
+            if backend == "pallas_bcsr":
+                # K2 adds the plain version's products in its order
+                assert torch.equal(got, want)
     # a hub row's window (8 x 600 slots, 75 MXU block steps) is over the
     # default slot and a 64-entry one, so K3/K4 take the chunked walk
     rng = np.random.default_rng(0)
@@ -267,15 +271,18 @@ def test_cuda_kernels_match_plain():
                                      attn_fused_staged,
                                      attn_fused_staged_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for fixture, backend, merge_threshold, cap, bm in itertools.product(
-            sorted(FIXTURES), ("pallas_ell", "pallas_bcsr"), (0, 16),
-            (None, 16), (8, 2)):
+    # bm = 16, MXU blocks of width 1 and 8, a 16- and a 64-entry slot
+    for fixture, (backend, bk), merge_threshold, cap, bm in (
+            itertools.product(sorted(FIXTURES), (("pallas_ell", 8),
+                                                 ("pallas_bcsr", 8),
+                                                 ("pallas_bcsr", 1)),
+                              (0, 16), (None, 16, 64), (8, 2, 16))):
         s = FIXTURES[fixture]()
         w = np.random.default_rng(1).uniform(0.2, 2.0, s.nnz)
         a = CSRMatrix(s.shape, s.row_ptr, s.col_indices,
                       torch.tensor(w, dtype=torch.float32, device="cuda"))
         c = compile_sparse_attention(a, 24, 40, backend=backend, bm=bm,
-                                     merge_threshold=merge_threshold,
+                                     bk=bk, merge_threshold=merge_threshold,
                                      staging="resident", cache=JitCache())
         q = torch.randn(a.m, 24, device="cuda", generator=gen) * 4
         k = torch.randn(a.n, 24, device="cuda", generator=gen)
