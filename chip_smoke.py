@@ -16,10 +16,10 @@ result line):
              K10 ``spmm_bcsr``) from ``src/repro_torch/kernels/csrc``
              into ``build/``, one ``nvcc`` per source, in parallel, and
              print ptxas's registers and spills for every template
-             instance (bm; K7 has one), each beside the CTAs per SM the
-             card reports for it (``<name>_ctas_per_sm``; the staged
-             SpMM kernels at the 1024-entry slot, K2 at its X ring, the
-             attention kernels at dh = 128, bk = 8).
+             instance (bm; K7's by elements a lane), each beside the CTAs
+             per SM the card reports for it (``<name>_ctas_per_sm``; the
+             staged SpMM kernels at the 1024-entry slot, K2 and K9 at
+             their X rings, the attention kernels at dh = 128, bk = 8).
 3. kernels — each kernel against its plain PyTorch version on the card
              (rtol = atol = 1e-5; K2 also ``torch.equal``), and each
              staged kernel against its resident twin (``torch.equal``:
@@ -52,9 +52,14 @@ result line):
              ~17.8 M edges): 5 SGD steps with the default artifacts, 4
              staged launches and no dvals work a step, a falling loss,
              and step 0's weight gradients held to the ``ref`` backend
-             (rtol = atol = 1e-4); the step time is printed.
+             (rtol = atol = 1e-4); the step time is printed, and dvals at
+             the output width 47 through K7 timed beside the chunked
+             torch SDDMM (the ``ref`` backend's, K7's form before), which
+             K7 must beat.
 6. grad    — dvals and dX of ``(A·X * G).sum()`` on the uniform graph
-             through the default artifact, held to ``ref`` at 1e-4.
+             through the default artifact, held to ``ref`` at 1e-4:
+             dvals by one K7 launch (counted) against ``ref``'s chunked
+             torch SDDMM, which K7 must beat at d = 128.
 7. oracles — K7, K9 and K10 against their plain versions on small
              fixtures (rtol = atol = 1e-5): K7 through ``sddmm_csr`` at
              T {8, 128} x d {16, 100, 128, 640} with empty rows, ragged
@@ -72,7 +77,12 @@ result line):
              kernel against its plain version at size (1e-5), and timed
              beside its bounds, its fused or chunked counterpart and the
              library call (``torch.sparse.sampled_addmm`` for K7,
-             ``torch.sparse.mm`` for K9/K10).
+             ``torch.sparse.mm`` for K9/K10).  Operands that start 4
+             bytes past a 16-byte boundary: X of the default and the
+             resident SpMM forward on the uniform graph, K and V of both
+             fused backends' default and resident attention forwards at
+             the layer's S = 4096, dY and X of K7, X of K9, each result
+             bit for bit the aligned operands' result.
 8. attention kernels — K5 and K6 against their plain versions on the
              card (rtol = atol = 1e-5) and K6 against K5 (``torch.equal``,
              at the default and a 64-entry slot) on the reference's
@@ -133,14 +143,18 @@ result line):
 
 With ``--ab-parent DIR`` (a parent commit unpacked with ``git
 archive``) it runs none of the phases above: it imports that tree's
-``repro_torch`` beside this one, and times its K2 and K6 wrappers (which
-build its kernels into ``DIR/build``) beside this tree's in turns A B B
-A (CUDA events, medians of 20), each output bit for bit K5's or K4's:
-K6 on the longformer mask at S = 32768 (both fused backends, and
-``pallas_bcsr`` at bm = 16 and at bk = 1) and at the layer's S = 4096,
-K2 on the two 2^20-row instances.  With ``--ab-ptxas`` as well it only
-prints K2-K6's ptxas registers and spills beside the parent's and fails
-unless K3's, K4's and K5's are the parent's.
+``repro_torch`` beside this one, and times its K2, K6, K7 and K9
+wrappers (which build its kernels into ``DIR/build``) beside this
+tree's in turns A B B A (CUDA events, medians of 20), each output bit
+for bit the parent's: K7 on the uniform graph at d_pad 47 (a direct
+call, unplanned), 128, 256 and 1024; K9 on small fixtures at every bm
+(each segment also bit for bit K1's rows) and over the uniform graph's
+5 segments at bm = 8, summed; K2 on the two 2^20-row instances (also
+bit for bit K4); K6 on the longformer mask at S = 32768 (both fused
+backends, and ``pallas_bcsr`` at bm = 16 and at bk = 1) and at the
+layer's S = 4096 (bit for bit K5).  With ``--ab-ptxas`` as well it only
+prints K2-K7's and K9's ptxas registers and spills beside the parent's
+and fails unless K2's to K6's are the parent's.
 
 It writes nothing into the repo but the kernel builds under ``build/``.
 """
@@ -278,9 +292,9 @@ def phase_device() -> None:
 def build_smem(name: str, bm: int) -> int:
     """The dynamic shared memory at which the build phase asks the card
     for ``name``'s CTAs per SM: the staged SpMM kernels' ring at the
-    default 1024-entry slot (bk = 8 for K4), K2's X ring at bk = 8, the
-    attention kernels' at dh = 128 and bk = 8; the other kernels take
-    none."""
+    default 1024-entry slot (bk = 8 for K4), K2's and K9's X rings at bk
+    = 8 and 0, the attention kernels' at dh = 128 and bk = 8, K7's at its
+    elements a lane (``bm`` there); K1 and K10 take none."""
     from repro_torch.kernels.spmm_ell_fused import STAGE_CAP, ring_bytes
     attn = _kernel_module("attn_fused")
     if name == "spmm_bcsr_fused":
@@ -293,6 +307,10 @@ def build_smem(name: str, bm: int) -> int:
         return attn.scratch_bytes(bm, 8, 128)
     if name == "attn_fused_staged":
         return attn.ring_bytes(STAGE_CAP, bm=bm, bk=8, dh_pad=128)
+    if name == "spmm_ell_segment":
+        return _kernel_module("spmm_bcsr_fused").ring_bytes(bm=bm, bk=0)
+    if name == "sddmm":
+        return _kernel_module(name).ring_bytes(bm)
     return 0
 
 
@@ -313,15 +331,30 @@ def phase_build() -> None:
         log(f"ptxas {name}: " + "; ".join(report))
 
 
+def entry_name(mangled: str) -> str:
+    """The unqualified name in a mangled kernel name:
+    ``_ZN9spmm_ring13gather_kernelILi8E...`` gives ``gather_kernel``."""
+    rest, name = mangled[2:].lstrip("N"), mangled
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        end = len(digits) + int(digits)
+        name, rest = rest[len(digits):end], rest[end:]
+    return name
+
+
 def ptxas_lines(text: str) -> list:
-    """ptxas -v's report in an nvcc log: (instance, bm, registers,
-    spills) per template instance (bm; K7 has one)."""
+    """ptxas -v's report in an nvcc log: (instance, arg, registers,
+    spills) per kernel instance, the instance named by its kernel and
+    its integer and bool template arguments, the first of which is
+    ``arg`` (bm; K7's elements a lane)."""
     lines, inst, bm, spill = [], "?", 8, "?"
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"ILi(\d+)E", line)
-            bm = int(found.group(1)) if found else 8
-            inst = f"bm={bm}" if found else "one instance"
+            mangled = re.search(r"'(_Z\w+)'", line).group(1)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            bm = int(args[0]) if args else 8
+            inst = (f"{entry_name(mangled)}<{','.join(args)}>" if args
+                    else entry_name(mangled))
         elif "spill stores" in line:
             spill = line.split(",")[1].strip()
         elif "Used" in line and "registers" in line:
@@ -819,6 +852,12 @@ def phase_train(a, cache) -> dict:
     assert all(c._rows is None for c in aggs)
     assert all(c._transpose is not None and c._transpose.staging == "dma"
                for c in aggs)
+    # a step that learned the edge values would add dvals at each width:
+    # K7's at the output width 47, beside the chunked torch SDDMM
+    dvals_times(aggs[1], refs[1],
+                torch.randn(a_hat.m, CLASSES, device="cuda", generator=gen),
+                torch.randn(a_hat.n, CLASSES, device="cuda", generator=gen),
+                "the uniform graph plus self-loops")
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     log(f"train: losses {', '.join(f'{v:.6f}' for v in losses)}; step 0 "
         f"grads match ref (rtol = atol = 1e-4)")
@@ -831,26 +870,53 @@ def phase_train(a, cache) -> dict:
                 step_ms=statistics.median(step_ms[1:]))
 
 
+def dvals_times(c, c_ref, dy, x, label: str) -> None:
+    """dvals of the artifact ``c`` (K7 over its cached pairs) beside the
+    chunked torch SDDMM that the ``ref`` artifact ``c_ref`` keeps (the
+    form every backend's dvals took before K7), on the same dY and X,
+    held to each other at 1e-4; fails unless K7's is the faster."""
+    k7 = c._sddmm(dy, x)
+    chunked = c_ref._sddmm(dy, x)
+    torch.testing.assert_close(k7, chunked, rtol=1e-4, atol=1e-4)
+    t_k7 = time_ms(lambda: c._sddmm(dy, x))
+    t_chunked = time_ms(lambda: c_ref._sddmm(dy, x))
+    log(f"grad: dvals on {label}, d = {x.shape[1]}: K7 {t_k7:.4f} ms, the "
+        f"chunked torch SDDMM {t_chunked:.4f} ms (max |diff| "
+        f"{(k7 - chunked).abs().max().item():.3g})")
+    if not t_k7 < t_chunked:
+        raise SystemExit(f"chip_smoke: dvals through K7 are not faster "
+                         f"than the chunked SDDMM on {label}")
+
+
 def phase_grad(c, a, x, cache) -> tuple:
-    """dvals and dX through the default artifact at size, held to ref;
-    returns G (the output gradient) and both dvals."""
+    """dvals and dX through the default artifact at size, held to ref
+    (dvals: K7 against the ref backend's chunked torch SDDMM); the one
+    K7 launch of the backward, counted; dvals timed beside the chunked
+    form.  Returns G (the output gradient), both dvals, dX and the K7
+    launches."""
+    from repro_torch import kernels
     from repro_torch.core import compile_spmm
     gen = torch.Generator(device="cuda").manual_seed(4)
     g = torch.randn(a.m, D_MAIN, device="cuda", generator=gen)
+    c_ref = compile_spmm(a, D_MAIN, backend="ref", cache=cache)
     grads = []
-    for art in (c, compile_spmm(a, D_MAIN, backend="ref", cache=cache)):
+    for art in (c, c_ref):
         vals = a.vals.clone().requires_grad_(True)
         xx = x.clone().requires_grad_(True)
+        kernels.sddmm.launches = 0
         (art(vals, xx) * g).sum().backward()
-        grads.append((vals.grad, xx.grad))
-    (dv, dx), (dv_ref, dx_ref) = grads
+        torch.cuda.synchronize()
+        grads.append((vals.grad, xx.grad, kernels.sddmm.launches))
+    (dv, dx, launches), (dv_ref, dx_ref, ref_launches) = grads
+    assert (launches, ref_launches) == (1, 0), (launches, ref_launches)
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dx, dx_ref, rtol=1e-4, atol=1e-4)
-    log(f"grad: {c.backend}/{c.staging} dvals max |diff| "
-        f"{(dv - dv_ref).abs().max().item():.3g}, dX max |diff| "
+    log(f"grad: {c.backend}/{c.staging} dvals (K7, {launches} launch) max "
+        f"|diff| {(dv - dv_ref).abs().max().item():.3g}, dX max |diff| "
         f"{(dx - dx_ref).abs().max().item():.3g} vs ref "
         f"(rtol = atol = 1e-4)")
-    return g, dv, dv_ref, dx
+    dvals_times(c, c_ref, g, x, "the uniform graph")
+    return g, dv, dv_ref, dx, launches
 
 
 # -- the SDDMM and the micro-oracles: K7, K9, K10 ----------------------------
@@ -946,17 +1012,83 @@ def phase_oracle_fixtures() -> None:
                          f"{missing}")
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary, as ``torch.empty(numel + 1)[1:].view(shape)`` does."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                       device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def phase_misaligned(instances: dict, compiled: dict) -> None:
+    """Valid float32 views that start off a 16-byte boundary: the
+    default SpMM forward on the uniform graph (X), the default attention
+    forward on the layer's mask (K and V, both fused backends), K7 (dY
+    and X) and K9 (X) each give bit for bit what the aligned operands
+    and ``staging="resident"`` give."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import JitCache, compile_sparse_attention
+    from repro_torch.models.sparse_attention import sparse_attention_mask
+    a, x = instances["uniform"]
+    x_off = misaligned(x)
+    y = compiled[("uniform", "auto", None)](a.vals, x)
+    same = [torch.equal(compiled[("uniform", "auto", s)](a.vals, x_off), y)
+            for s in (None, "resident")]
+    del y, x_off
+    cfg = get_config("longformer-1.4b")
+    mask = sparse_attention_mask(SATTN_SEQ, cfg.sparse_attn_window,
+                                 cfg.sparse_attn_global)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(SATTN_SEQ, cfg.head_dim, device="cuda",
+                           generator=gen) for _ in range(3))
+    k_off, v_off = misaligned(k), misaligned(v)
+    for backend in ("pallas_bcsr", "pallas_ell"):
+        arts = [compile_sparse_attention(mask, cfg.head_dim, cfg.head_dim,
+                                         backend=backend, staging=st,
+                                         cache=JitCache())
+                for st in (None, "resident")]
+        assert arts[0].staging == "dma"
+        want = arts[0](mask.vals, q, k, v)
+        same += [torch.equal(c(mask.vals, q, k_off, v_off), want)
+                 for c in arts]
+    k7 = _kernel_module("sddmm")
+    g = torch.randn(a.m, D_MAIN, device="cuda", generator=gen)
+    rows, cols, _, _ = k7._csr_pairs(a, g, x, device=str(x.device))
+    same.append(torch.equal(
+        kernels.sddmm(rows, cols, misaligned(g), misaligned(x)),
+        kernels.sddmm(rows, cols, g, x)))
+    del rows, cols, g
+    seg = compiled[("uniform", "pallas_ell", "resident")].plan.segments[-1]
+    vals_ext = torch.cat([a.vals.float(), a.vals.new_zeros(1)])
+    cols = torch.from_numpy(seg.cols_pad.reshape(-1)).cuda()
+    vals = vals_ext[torch.from_numpy(seg.gather_idx).cuda()]
+    same.append(torch.equal(kernels.spmm_ell_segment(cols, vals,
+                                                     misaligned(x)),
+                            kernels.spmm_ell_segment(cols, vals, x)))
+    log(f"misaligned operands (data_ptr % 16 = 4), bit-identical to the "
+        f"aligned and resident results: SpMM default, resident {same[:2]}; "
+        f"attention pallas_bcsr default, resident {same[2:4]}, pallas_ell "
+        f"{same[4:6]}; K7 {same[6]}; K9 {same[7]}")
+    if not all(same):
+        raise SystemExit("chip_smoke: a misaligned operand changed a result")
+
+
 def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     """K7, K9 and K10 at size: the counted run, the checks against the
-    fused kernels and the backward, and the timings."""
+    fused kernels and the backward, the misaligned operands, and the
+    timings."""
     from repro_torch import kernels
     from repro_torch.core import BCSRMatrix
     from repro_torch.kernels import ops
     k7, k10 = _kernel_module("sddmm"), _kernel_module("spmm_bcsr")
     phase_oracle_fixtures()
+    phase_misaligned(instances, compiled)
 
     a, x = instances["uniform"]
-    g, dv, dv_ref, _ = grad
+    g, dv, dv_ref, _, _ = grad
     c_ell = compiled[("uniform", "pallas_ell", "resident")]
     assert c_ell.plan.strategy == "nnz_split"
     vals_ext = torch.cat([a.vals.float(), a.vals.new_zeros(1)])
@@ -1032,7 +1164,7 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     torch.cuda.empty_cache()
 
     rows = {}
-    # K7 alone, end to end, the backward's chunked SDDMM, the library
+    # K7 alone, end to end, in the backward's dvals, the library
     ops7 = k7._csr_pairs(a, g, x, device=str(x.device))
     got = kernels.sddmm(*ops7)
     want = kernels.sddmm_plain(*ops7)
@@ -1043,7 +1175,7 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     c_default = compiled[("uniform", "auto", None)]
     ms7 = time_ms(lambda: kernels.sddmm(*ops7))
     e2e_ms = time_ms(lambda: kernels.sddmm_csr(a, g, x))
-    chunked_ms = time_ms(lambda: c_default._sddmm(g, x))
+    backward_ms = time_ms(lambda: c_default._sddmm(g, x))
     plain7 = time_ms(lambda: kernels.sddmm_plain(*ops7), reps=5)
     a_sp = _sparse_csr(a)
     xt = x.t()
@@ -1061,8 +1193,8 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     gather7 = (a.nnz * (4 * d_pad + 12) + 4 * a.m * d_pad) \
         / HBM_BYTES_PER_S * 1e3
     log(f"oracles/uniform: sddmm kernel {ms7:.4f} ms, sddmm_csr end to end "
-        f"{e2e_ms:.4f} ms, the backward's chunked torch SDDMM "
-        f"{chunked_ms:.4f} ms, plain {plain7:.4f} ms, "
+        f"{e2e_ms:.4f} ms, the backward's dvals (K7 over the artifact's "
+        f"pairs) {backward_ms:.4f} ms, plain {plain7:.4f} ms, "
         f"torch.sparse.sampled_addmm {lib7:.4f} ms (max |diff| "
         f"{lib_diff:.3g} vs the backward's dvals), bound {bound7:.4f} ms "
         f"({by7}; operations {t_ops:.4f}), gather model {gather7:.4f} ms, "
@@ -1517,7 +1649,7 @@ def phase_sharded(instances: dict, compiled: dict, grad: tuple,
 
     # dvals and dX through the sharded default and rows artifacts on (a)
     a, x = instances["uniform"]
-    g, dv0, _, dx0 = grad
+    g, dv0, _, dx0, _ = grad
     for label in ("a", "a/rows"):
         vals = a.vals.clone().requires_grad_(True)
         xx = x.clone().requires_grad_(True)
@@ -2139,10 +2271,10 @@ def parent_package(root: Path):
 
 
 def ab_ptxas(parent) -> bool:
-    """ptxas's registers and spills of K2-K6, this tree beside the
-    parent's; True when K3's, K4's and K5's are the parent's."""
+    """ptxas's registers and spills of K2-K7 and K9, this tree beside
+    the parent's; True when K2's to K6's are the parent's."""
     from repro_torch.kernels import _build
-    names = SPMM_KERNELS[1:] + ATTN_KERNELS
+    names = SPMM_KERNELS[1:] + ATTN_KERNELS + ("sddmm", "spmm_ell_segment")
     same = True
     for build in (_build, parent.kernels._build):
         build.build(names)
@@ -2153,12 +2285,15 @@ def ab_ptxas(parent) -> bool:
     for name in names:
         mine = ptxas_lines(_build.BUILD_LOG[name])
         theirs = ptxas_lines(parent.kernels._build.BUILD_LOG[name])
-        if name in ("spmm_ell_fused_staged", "spmm_bcsr_fused_staged",
-                    "attn_fused"):
+        if name in SPMM_KERNELS + ATTN_KERNELS:
             same &= mine == theirs
         log(f"ptxas {name}: equal to the parent's: {mine == theirs}; "
             + "; ".join(f"{inst}: {regs} registers, {spill}"
                         for inst, _, regs, spill in mine))
+        if mine != theirs:
+            log(f"ptxas {name} (parent): " + "; ".join(
+                f"{inst}: {regs} registers, {spill}"
+                for inst, _, regs, spill in theirs))
     return same
 
 
@@ -2216,12 +2351,12 @@ def ab_attention(parent) -> None:
         del c, ops
 
 
-def ab_spmm(parent) -> None:
+def ab_spmm(parent, instances: dict) -> None:
     """K2 beside the parent's on the two 2^20-row instances, bit for bit
     each other and K4."""
     from repro_torch import kernels
     from repro_torch.core import JitCache, compile_spmm
-    for label, (a, x) in make_instances().items():
+    for label, (a, x) in instances.items():
         c = compile_spmm(a, D_MAIN, backend="pallas_bcsr",
                          staging="resident", cache=JitCache())
         ops, knobs = c.fused_operands(a.vals, x)
@@ -2247,30 +2382,160 @@ def ab_spmm(parent) -> None:
         del c, c4, ops, ops4
 
 
+def ab_sddmm(parent, a, x) -> None:
+    """K7 beside the parent's on the uniform graph's 16.8 M pairs at
+    d_pad 47 (a direct call at an unplanned width: one 47-wide tile),
+    128, 256 and 1024 (two 512-wide tiles), bit for bit the parent's, and
+    torch.sparse.sampled_addmm at each width."""
+    from repro_torch import kernels
+    k7 = _kernel_module("sddmm")
+    a_sp = _sparse_csr(a)
+    for d in (47, D_MAIN, 256, 1024):
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        g = torch.randn(a.m, d, device="cuda", generator=gen)
+        xd = x if d == D_MAIN else torch.randn(a.n, d, device="cuda",
+                                                generator=gen)
+        ops7 = k7._csr_pairs(a, g, xd, device=str(xd.device))
+        if d == 47:                 # the width as given, not planned
+            ops7 = ops7[:2] + (g, xd)
+        d_pad = ops7[3].shape[1]
+
+        def theirs():
+            return parent.kernels.sddmm(*ops7)
+
+        def mine():
+            return kernels.sddmm(*ops7)
+        same = torch.equal(theirs(), mine())
+        t_theirs, t_mine = ab_turns(theirs, mine)
+        xt = xd.t()
+        lib = time_ms(lambda: torch.sparse.sampled_addmm(a_sp, g, xt,
+                                                         beta=0.0))
+        log(f"K7 uniform d_pad={d_pad} (lane tile "
+            f"{k7._lane_tile(d_pad)}): parent {t_theirs[0]:.4f}, "
+            f"{t_theirs[1]:.4f}; this tree {t_mine[0]:.4f}, "
+            f"{t_mine[1]:.4f}; torch.sparse.sampled_addmm {lib:.4f} ms; "
+            f"bit-identical to the parent's: {same}")
+        if not same:
+            raise SystemExit("chip_smoke: K7 differs from the parent's")
+        del ops7, g, xd
+
+
+def segment_pieces(c, a, x):
+    """K9's operands for each segment of the resident ``pallas_ell``
+    artifact ``c``'s plan (X padded to the plan's width), and a function
+    that scatters the segments' outputs back into K1's row order."""
+    vals_ext = torch.cat([a.vals.float(), a.vals.new_zeros(1)])
+    x_pad = torch.nn.functional.pad(x, (0, c.d_tiling.d_pad - x.shape[1]))
+    segs = [(torch.from_numpy(s.cols_pad.reshape(-1)).cuda(),
+             vals_ext[torch.from_numpy(s.gather_idx).cuda()], x_pad, s)
+            for s in c.plan.segments]
+
+    def scatter(outs):
+        y = torch.zeros((a.m, x.shape[1]), device="cuda")
+        for out, (_, _, _, s) in zip(outs, segs):
+            y[torch.from_numpy(s.row_ids).cuda()] = out[:s.R, :x.shape[1]]
+        return y
+    return segs, scatter
+
+
+def ab_segment(parent, a, x) -> None:
+    """K9 beside the parent's: on small fixtures at every supported bm
+    (each segment bit for bit the parent's, the segments scattered back
+    bit for bit K1's forward), then over the uniform graph's nnz_split
+    segments at bm = 8, timed A B B A as a sum over the segments, beside
+    K1 on the whole plan and torch.sparse.mm."""
+    from repro_torch import kernels
+    from repro_torch.core import CSRMatrix, JitCache, compile_spmm, random_csr
+    from repro_torch.core.plan import STRATEGIES
+    from repro_torch.kernels.spmm_ell_fused import SUPPORTED_BM
+    fixtures = {
+        "mixed": CSRMatrix.from_dense(mixed_dense(0)),
+        "empty_rows": random_csr(300, 256, density=0.03, family="powerlaw",
+                                 seed=1),
+        "hub": CSRMatrix.from_dense(hub_dense(600, 40)),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = 0
+    for (fname, fa), strategy, bm in itertools.product(
+            fixtures.items(), STRATEGIES, SUPPORTED_BM):
+        c = compile_spmm(fa, 20, backend="pallas_ell", staging="resident",
+                         strategy=strategy, bm=bm, cache=JitCache())
+        xf = torch.randn(fa.n, 20, device="cuda", generator=gen)
+        segs, scatter = segment_pieces(c, fa, xf)
+        outs = []
+        for cols, vals, xp, _ in segs:
+            mine = kernels.spmm_ell_segment(cols, vals, xp, bm=bm)
+            theirs = parent.kernels.spmm_ell_segment(cols, vals, xp, bm=bm)
+            if not torch.equal(mine, theirs):
+                raise SystemExit(f"chip_smoke: K9 differs from the parent's "
+                                 f"({fname}, {strategy}, bm = {bm})")
+            outs.append(mine)
+        if not torch.equal(scatter(outs), c(fa.vals, xf)):
+            raise SystemExit(f"chip_smoke: K9 differs from K1 ({fname}, "
+                             f"{strategy}, bm = {bm})")
+        cases += 1
+    log(f"K9 fixtures: {cases} (fixture, strategy, bm in {SUPPORTED_BM}) "
+        f"cases, every segment bit-identical to the parent's and the "
+        f"segments to K1's forward")
+    c = compile_spmm(a, D_MAIN, backend="pallas_ell", staging="resident",
+                     cache=JitCache())
+    segs, scatter = segment_pieces(c, a, x)
+
+    def theirs():
+        return [parent.kernels.spmm_ell_segment(cols, vals, xp, bm=c.bm)
+                for cols, vals, xp, _ in segs]
+
+    def mine():
+        return [kernels.spmm_ell_segment(cols, vals, xp, bm=c.bm)
+                for cols, vals, xp, _ in segs]
+    same = all(torch.equal(u, v) for u, v in zip(theirs(), mine()))
+    same_k1 = torch.equal(scatter(mine()), c(a.vals, x))
+    t_theirs, t_mine = ab_turns(theirs, mine)
+    operands1, knobs1 = c.fused_operands(a.vals, x)
+    k1 = time_ms(lambda: kernels.spmm_ell_fused(*operands1, **knobs1))
+    a_sp = _sparse_csr(a)
+    lib = time_ms(lambda: torch.sparse.mm(a_sp, x))
+    log(f"K9 uniform, {len(segs)} segments at bm = {c.bm}, summed: parent "
+        f"{t_theirs[0]:.4f}, {t_theirs[1]:.4f}; this tree {t_mine[0]:.4f}, "
+        f"{t_mine[1]:.4f}; K1 {k1:.4f}; torch.sparse.mm {lib:.4f} ms; "
+        f"bit-identical to the parent's: {same}, to K1: {same_k1}")
+    if not (same and same_k1):
+        raise SystemExit("chip_smoke: K9 differs from the parent's or K1")
+
+
 def ab_main(args) -> int:
-    """K2 and K6 against the parent tree's wrappers, or only K2-K6's
-    ptxas lines (``--ab-ptxas``); no smoke phases, no result line."""
+    """K2, K6, K7 and K9 against the parent tree's wrappers, or only
+    K2-K7's and K9's ptxas lines (``--ab-ptxas``); no smoke phases, no
+    result line."""
     phase_device()
     parent = parent_package(args.ab_parent.resolve())
     if args.ab_ptxas:
         return 0 if ab_ptxas(parent) else 1
+    instances = make_instances()
+    ab_sddmm(parent, *instances["uniform"])
+    ab_segment(parent, *instances["uniform"])
+    ab_spmm(parent, instances)
+    del instances
+    gc.collect()
+    torch.cuda.empty_cache()
     ab_attention(parent)
-    ab_spmm(parent)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port's main path on one H100 and check it; "
-                    "with --ab-parent, time K2/K6 beside another tree's "
+                    "with --ab-parent, time K2/K6/K7/K9 beside another tree's "
                     "instead.")
     ap.add_argument("--ab-parent", type=Path, metavar="DIR",
                     help="a tree (a commit unpacked with git archive) whose "
-                         "K2 and K6 are timed beside this one's through its "
-                         "own wrappers, in turns A B B A, bit for bit")
+                         "K2, K6, K7 and K9 are timed beside this one's "
+                         "through its own wrappers, in turns A B B A, bit "
+                         "for bit")
     ap.add_argument("--ab-ptxas", action="store_true",
-                    help="with --ab-parent: only compare K2-K6's ptxas "
-                         "registers and spills (K3/K4/K5 must be equal)")
+                    help="with --ab-parent: only compare K2-K7's and K9's "
+                         "ptxas registers and spills (K2-K6 must be "
+                         "equal)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2293,6 +2558,8 @@ def main() -> int:
                       *instances["uniform"], cache)
     t_phase = time.perf_counter()
     oracles = phase_oracles(instances, compiled, grad)
+    # K7's launches: the oracles path's and the backward's dvals
+    oracles["sddmm"]["launches"] += grad[4]
     log(f"oracles: phase {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     sharded = phase_sharded(instances, compiled, grad, cache)

@@ -74,14 +74,15 @@ from .plan import (SPARSE_ATTN_EINSUM, SPARSE_ATTN_MIXED_EINSUM, MixedPlan,
                    build_sharded_workspace, choose_merge_width,
                    sharded_workspace_row_maps, workspace_row_map)
 from ..analysis.verify import PlanVerificationError, check_workspace
-from ..distributed.sharding import (ChipMesh, chip_mesh, place_on_chips,
-                                    resolve_chip_mesh)
+from ..distributed.sharding import (ChipMesh, aligned16, chip_mesh,
+                                    place_on_chips, resolve_chip_mesh)
 from ..kernels.ops import (attn_fused_op, attn_fused_sharded_op,
                            record_build_seconds, resolve_device,
                            resolve_staging, resolve_validate,
                            spmm_bcsr_fused_op, spmm_bcsr_fused_sharded_op,
                            spmm_ell_fused_op, spmm_ell_fused_sharded_op)
 from ..kernels.ref import spmm_coo_ref, spmm_dense_ref
+from ..kernels.sddmm import sddmm
 
 __all__ = ["BACKENDS", "FUSED_BACKENDS", "X_SHARDING_MODES", "ChipMesh",
            "CompiledSparseAttention", "CompiledSpmm", "PlanVerificationError",
@@ -92,6 +93,9 @@ __all__ = ["BACKENDS", "FUSED_BACKENDS", "X_SHARDING_MODES", "ChipMesh",
 # 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]; the
 # attention backward's chunks of whole query rows keep to it as well
 SDDMM_CHUNK = 1 << 25
+# the fused backends' dvals run K7 over pairs padded to a multiple of
+# this many, its default pair group
+SDDMM_T = 128
 
 BACKENDS = ("pallas_ell", "pallas_bcsr", "ref", "dense", "auto")
 
@@ -349,6 +353,7 @@ class CompiledSpmm:
         self._t_order: Optional[torch.Tensor] = None
         self._rows: Optional[torch.Tensor] = None
         self._cols: Optional[torch.Tensor] = None
+        self._pairs: Optional[tuple] = None
         # the mixed kernel slices (bk, d_pad) X panels per block-column,
         # so X rows are padded up to the block-column grid
         self._x_rows_pad = -(-a.shape[1] // bk) * bk
@@ -419,8 +424,8 @@ class CompiledSpmm:
 
     def _expanded(self):
         """(nnz,) int64 row and column of every nonzero on the device —
-        shared by the ref/dense forwards and the SDDMM gradient (built
-        once, on first use by the fused backends)."""
+        shared by the ref/dense forwards and their SDDMM gradient (built
+        once, at compile time)."""
         if self._rows is None:
             m = self.shape[0]
             self._rows = torch.from_numpy(
@@ -482,7 +487,7 @@ class CompiledSpmm:
                 self._x_rows_pad:
             x_pad = torch.nn.functional.pad(
                 x_pad, (0, 0, 0, self._x_rows_pad - x_pad.shape[0]))
-        return x_pad.contiguous()
+        return aligned16(x_pad.contiguous())
 
     def fused_operands(self, vals: torch.Tensor, x: torch.Tensor):
         """The fused kernel's arguments for one forward: the descriptor
@@ -541,10 +546,35 @@ class CompiledSpmm:
                               x_pad.shape[1])
 
     # -- gradients ----------------------------------------------------------
+    def _sddmm_pairs(self):
+        """K7's pair operands: the (row, col) of every nonzero in CSR
+        order, int32 on the device, padded with (0, 0) to a multiple of
+        :data:`SDDMM_T`; built once, on the first backward that needs
+        dvals."""
+        if self._pairs is None:
+            nnz = self._col_indices.shape[0]
+            pairs = np.zeros((2, -(-nnz // SDDMM_T) * SDDMM_T), np.int32)
+            pairs[0, :nnz] = np.repeat(np.arange(self.shape[0]),
+                                       np.diff(self._row_ptr))
+            pairs[1, :nnz] = self._col_indices
+            self._pairs = tuple(torch.from_numpy(p).to(self.device)
+                                for p in pairs)
+        return self._pairs
+
     def _sddmm(self, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """dvals[p] = sum_d dY[row_p, d] * X[col_p, d], in chunks of
+        """dvals[p] = sum_d dY[row_p, d] * X[col_p, d].  The fused
+        backends run K7 (``kernels.sddmm``: the kernel on the card, its
+        plain version on the CPU) over :meth:`_sddmm_pairs`.  ``ref`` and
+        ``dense`` stay plain torch, as their forwards do, in chunks of
         nonzeros so the gathered rows stay within :data:`SDDMM_CHUNK`
         entries; each nonzero's sum is the same as unchunked."""
+        if self.backend in FUSED_BACKENDS:
+            nnz = self._col_indices.shape[0]
+            if nnz == 0:
+                return torch.zeros(0, dtype=torch.float32, device=dy.device)
+            rows, cols = self._sddmm_pairs()
+            return sddmm(rows, cols, aligned16(dy.float().contiguous()),
+                         aligned16(x.float().contiguous()), T=SDDMM_T)[:nnz]
         rows, cols = self._expanded()
         out = torch.empty(rows.shape[0], dtype=torch.float32,
                           device=dy.device)
@@ -948,7 +978,8 @@ class CompiledSparseAttention:
         if grow > 0:
             k_pad = torch.nn.functional.pad(k_pad, (0, 0, 0, grow))
             v_pad = torch.nn.functional.pad(v_pad, (0, 0, 0, grow))
-        return vals_ext, q_ext, k_pad.contiguous(), v_pad.contiguous()
+        return (vals_ext, q_ext, aligned16(k_pad.contiguous()),
+                aligned16(v_pad.contiguous()))
 
     def _forward(self, vals, q, k, v) -> torch.Tensor:
         self._check_operands(vals, q, k, v)

@@ -21,7 +21,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .sharding import ChipMesh, place_on_chips
+from .sharding import ChipMesh, aligned16, place_on_chips
 
 
 def exact_panel_exchange(strips, send_tbl: Sequence[torch.Tensor],
@@ -92,13 +92,8 @@ def _exchange_one_gather(strips, send_tbl, recv_sel,
         src = torch.div(r, T2, rounding_mode="floor")
         picks.append(starts[src] + send[src, dst, r % T2])
     panels = owned.index_select(0, torch.cat(picks))    # (sum T, bk, d)
-    out = []
-    for p in panels.split([len(p) for p in picks]):
-        ws = p.reshape(-1, p.shape[-1])
-        if dev.type == "cuda" and ws.data_ptr() % 16:
-            ws = ws.clone()
-        out.append(ws)
-    return tuple(out)
+    return tuple(aligned16(p.reshape(-1, p.shape[-1]))
+                 for p in panels.split([len(p) for p in picks]))
 
 
 def sharded_x(x, mesh: ChipMesh, x_sharding: str, x_send, x_recv):

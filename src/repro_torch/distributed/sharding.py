@@ -124,13 +124,19 @@ def place_on_chips(stacked, mesh: ChipMesh) -> Tuple[torch.Tensor, ...]:
     if len(stacked) != mesh.size:
         raise ValueError(f"{len(stacked)} chip rows for a mesh of "
                          f"{mesh.size} chips")
-    rows = []
-    for row, dev in zip(stacked, mesh.devices):
-        t = row.to(dev).contiguous()
-        if dev.type == "cuda" and t.data_ptr() % 16:
-            t = t.clone()
-        rows.append(t)
-    return tuple(rows)
+    return tuple(aligned16(row.to(dev).contiguous())
+                 for row, dev in zip(stacked, mesh.devices))
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it lies on the CPU or starts on a 16-byte
+    boundary, else a contiguous copy (which the allocator places on
+    one).  The kernels that copy an operand in 16-byte units take it
+    through here, so a valid view that starts elsewhere is computed, not
+    refused."""
+    if t.device.type == "cpu" or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def check_on_mesh(mesh: ChipMesh, **operands) -> None:

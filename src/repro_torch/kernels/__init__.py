@@ -24,12 +24,14 @@
 #                           staged through K3/K4's ring
 #                           (csrc/attn_fused_staged.cu; replaces
 #                           attn_fused.py::attn_fused_staged)
-#   sddmm                   K7 — the SDDMM dA.vals = <dY[row], X[col]>, one
-#                           warp per (row, col) pair (csrc/sddmm.cu;
-#                           replaces src/repro/kernels/sddmm.py::sddmm);
-#                           sddmm_csr is its entry point on a CSR structure
+#   sddmm                   K7 — the SDDMM dA.vals = <dY[row], X[col]>,
+#                           persistent warps over runs of 32 pairs
+#                           (csrc/sddmm.cu; replaces
+#                           src/repro/kernels/sddmm.py::sddmm); the fused
+#                           SpMM backward's dvals, and sddmm_csr, its entry
+#                           point on a CSR structure
 #   spmm_ell_segment        K9 — one ELL segment, the per-segment
-#                           micro-oracle, on K1's trip
+#                           micro-oracle, on K2's gather ring
 #                           (csrc/spmm_ell_segment.cu; replaces
 #                           src/repro/kernels/spmm_csr.py::spmm_ell_segment)
 #   spmm_bcsr               K10 — the pre-fusion block-CSR micro-oracle at

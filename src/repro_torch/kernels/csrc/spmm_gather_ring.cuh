@@ -1,9 +1,10 @@
 // The warp-specialised fused SpMM kernels K3 (spmm_ell_fused_staged.cu),
-// K4 (spmm_bcsr_fused_staged.cu) and K2 (spmm_bcsr_fused.cu): one kernel
-// template, MIXED = false for K3 (all VPU descriptors, coff == off) and
-// true for K4 and K2 (tagged descriptors, MXU block steps too), and a
+// K4 (spmm_bcsr_fused_staged.cu) and K2 (spmm_bcsr_fused.cu), and the
+// segment micro-oracle K9 (spmm_ell_segment.cu): one kernel template,
+// MIXED = false for K3 and K9 (all VPU descriptors, coff == off) and true
+// for K4 and K2 (tagged descriptors, MXU block steps too), and a
 // descriptor source: FromSlots for the staged K3/K4 (the slot ring and
-// chunked walk below), Resident for K2, which reads the descriptor
+// chunked walk below), Resident for K2 and K9, which reads the descriptor
 // tables and the value and column streams where they lie in global
 // memory and walks whole trips, member by member, with no slot ring.
 // Both sources feed the same X ring.
@@ -281,7 +282,7 @@ struct FromSlots {
     }
 };
 
-// Resident (K2): the descriptor tables and the value and column streams
+// Resident (K2, K9): the descriptor tables and the value and column streams
 // where they lie in global memory, whole trips, no slots (their
 // barriers stay unused).  A step's columns and values are loaded before
 // the role waits for its stage; the producer copies an MXU step's value

@@ -10,10 +10,14 @@ the pair's total in tile order.
 
 What bounds it on an H100: bytes.  A pair does ``2*d_pad`` flops on two
 gathered rows, and for a large X the X row of most pairs misses L2, so
-the honest floor is about one X row per pair over 3.35 TB/s.  The kernel
-gives each pair one warp: the lanes stride the rows with 4-byte loads,
-and a shuffle butterfly adds the lanes' partial sums (``csrc/sddmm.cu``
-has more).
+the honest floor is about one X row per pair over 3.35 TB/s.  Persistent
+warps walk runs of 32 consecutive pairs: each warp copies the next
+step's X row slices into its own shared-memory ring (``cp.async``, 16
+bytes a lane where X allows it) while it reads the current one, keeps
+dY in registers while the row stays the same, and adds the 32 pairs'
+lane partials in one transposed shuffle butterfly, so each lane stores
+one pair's total (``csrc/sddmm.cu`` has more).  Its sums are those of a
+warp per pair, bit for bit.
 
 :func:`sddmm_plain` is the plain PyTorch version, the same tiles summed
 in the same order; the wrapper runs it for CPU tensors, and for CUDA
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..distributed import aligned16
 from .ops import DISPATCH_COUNTS, resolve_device
 from .spmm_ell_fused import check_placement
 
@@ -38,6 +43,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
 # bound on the (pairs x d_pad) entries the plain version gathers per
 # operand at a time: 2^25 float32, 128 MiB
 _PLAIN_CHUNK = 1 << 25
+
+# csrc/sddmm.cu's CTA: RING_WARPS warps, each with RING_STAGES X stages
+# of 4 KB (8 KB for 512-wide lane tiles)
+RING_WARPS, RING_STAGES = 8, 2
+
+
+def ring_bytes(nj: int) -> int:
+    """Dynamic shared memory of one K7 CTA of the instance with ``nj``
+    elements a lane (``csrc/sddmm.cu::smem_bytes`` computes the same)."""
+    return RING_WARPS * RING_STAGES * (2048 if nj == 16 else 1024) * 4
 
 
 def _lane_tile(d_pad: int) -> int:
@@ -142,8 +157,8 @@ def _csr_pairs(a, dy, x, *, T: int = 128, device: str):
     d_pad = ccm.plan_d_tiles(dy.shape[1]).d_pad
     return (torch.from_numpy(rows).to(device),
             torch.from_numpy(cols).to(device),
-            ccm.pad_cols(dy.float(), d_pad).contiguous(),
-            ccm.pad_cols(x.float(), d_pad).contiguous())
+            aligned16(ccm.pad_cols(dy.float(), d_pad).contiguous()),
+            aligned16(ccm.pad_cols(x.float(), d_pad).contiguous()))
 
 
 def sddmm_csr(a, dy, x, *, T: int = 128, device=None) -> torch.Tensor:

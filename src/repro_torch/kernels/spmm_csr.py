@@ -11,13 +11,19 @@ literal form of the paper's generated loop (Listing 2).  Row ``r`` sums
 kernel; here it is a launch argument.
 
 What bounds it on an H100: bytes, as K1 — one gathered X row per slot.
-The kernel is K1's VPU trip (``csrc/spmm_trips.cuh``) over an implicit
-descriptor table: row block ``i`` starts at slot ``i*bm*L``.  So each
-row's sum, with its two roundings a step, is K1's.
+The kernel is K2's warp-specialised gather ring
+(``csrc/spmm_gather_ring.cuh``, VPU steps only, its resident descriptor
+source) over the segment's implicit descriptor table, which
+:func:`segment_tables` writes out: row block ``i`` starts at slot
+``i*bm*L`` and takes ``L`` steps.  So each row's sum, with its two
+roundings a step, is K1's.  The ring takes whole 128-column tiles and X
+on a 16-byte boundary: the wrapper pads an unplanned width with zero
+columns (and drops them from the result) and passes X through
+``aligned16``.
 
 :func:`spmm_ell_segment_plain` is the plain PyTorch version, K1's plain
-trip over the same implicit table; the wrapper runs it for CPU tensors,
-and for CUDA tensors it launches the kernel or raises.
+trip over the same table; the wrapper runs it for CPU tensors, and for
+CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -26,9 +32,11 @@ import ctypes
 import torch
 
 from . import _build
-from .spmm_ell_fused import SUPPORTED_BM, check_placement, vpu_trips
+from ..distributed import aligned16
+from .spmm_ell_fused import (COL_TILE, SUPPORTED_BM, check_placement,
+                             vpu_trips)
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _INT32_LIMIT = 2 ** 31
 
 
@@ -54,6 +62,15 @@ def _check(cols_pad_flat, vals_pad, x, bm: int) -> None:
                     x)
 
 
+def segment_tables(R_pad: int, L: int, *, bm: int, device):
+    """The segment's descriptor table, int32 on ``device``: row block
+    ``i``'s first slot ``i*bm*L`` (its column entries start there too)
+    and its ``L`` steps."""
+    nb = R_pad // bm
+    off = torch.arange(nb, dtype=torch.int32, device=device) * (bm * L)
+    return off, torch.full((nb,), L, dtype=torch.int32, device=device)
+
+
 def spmm_ell_segment_plain(cols_pad_flat, vals_pad, x, *,
                            bm: int = 8) -> torch.Tensor:
     """Plain PyTorch K9: (R_pad, d_pad) float32."""
@@ -61,10 +78,10 @@ def spmm_ell_segment_plain(cols_pad_flat, vals_pad, x, *,
     nb = R_pad // bm
     acc = torch.zeros((nb, bm, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    ids = torch.arange(nb, device=x.device)
-    off = ids * (bm * L)
-    vpu_trips(acc, ids, off, off, torch.full_like(ids, L), cols_pad_flat,
-              vals_pad.reshape(-1), x, bm=bm)
+    off, steps = (t.long() for t in segment_tables(R_pad, L, bm=bm,
+                                                   device=x.device))
+    vpu_trips(acc, torch.arange(nb, device=x.device), off, off, steps,
+              cols_pad_flat, vals_pad.reshape(-1), x, bm=bm)
     return acc.reshape(R_pad, x.shape[1])
 
 
@@ -86,20 +103,26 @@ def spmm_ell_segment(cols_pad_flat, vals_pad, x, *,
         return spmm_ell_segment_plain(cols_pad_flat, vals_pad, x, bm=bm)
     R_pad, L = vals_pad.shape
     d_pad = x.shape[1]
-    y = torch.empty((R_pad, d_pad), dtype=torch.float32, device=x.device)
     if R_pad == 0 or d_pad == 0:
-        return y
+        return torch.empty((R_pad, d_pad), dtype=torch.float32,
+                           device=x.device)
+    # whole column tiles for the ring; the zero columns change no other
+    tiles = -(-d_pad // COL_TILE) * COL_TILE
+    x_ring = aligned16(torch.nn.functional.pad(x, (0, tiles - d_pad))
+                       if tiles != d_pad else x)
+    y = torch.empty((R_pad, tiles), dtype=torch.float32, device=x.device)
+    off, steps = segment_tables(R_pad, L, bm=bm, device=x.device)
     lib = _build.load("spmm_ell_segment", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = lib.spmm_ell_segment_launch(
-            cols_pad_flat.data_ptr(), vals_pad.data_ptr(), x.data_ptr(),
-            y.data_ptr(), R_pad // bm, bm, L, d_pad,
-            torch.cuda.current_stream().cuda_stream)
+            off.data_ptr(), steps.data_ptr(), cols_pad_flat.data_ptr(),
+            vals_pad.data_ptr(), x_ring.data_ptr(), y.data_ptr(),
+            R_pad // bm, bm, tiles, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"spmm_ell_segment launch failed with CUDA "
                            f"error {err}")
     spmm_ell_segment.launches += 1
-    return y
+    return y if tiles == d_pad else y[:, :d_pad].contiguous()
 
 
 spmm_ell_segment.launches = 0

@@ -117,7 +117,8 @@ def test_no_gradient_work_for_inputs_that_need_none(monkeypatch):
     assert not calls and x.grad is not None
     # one forward and one transposed dispatch, both staged
     assert ops.DISPATCH_COUNTS["ell_fused_dma"] == 2
-    assert c._rows is None        # the SDDMM's expansion was never built
+    # the SDDMM's expansion and pairs were never built
+    assert c._rows is None and c._pairs is None
 
 
 def test_sddmm_chunks_give_the_unchunked_sums(monkeypatch):
@@ -125,7 +126,8 @@ def test_sddmm_chunks_give_the_unchunked_sums(monkeypatch):
     x, b, xt = both(a, 24, seed=20)
     g = np.random.default_rng(21).standard_normal((a.m, 24)).astype(
         np.float32)
-    c = spmm_mod.compile_spmm(b, 24, backend="pallas_bcsr", device="cpu",
+    # the plain backends chunk; the fused ones run K7
+    c = spmm_mod.compile_spmm(b, 24, backend="ref", device="cpu",
                               cache=JitCache())
     whole = c._sddmm(torch.from_numpy(g), xt)
     monkeypatch.setattr(spmm_mod, "SDDMM_CHUNK", 24 * 7)   # 7 nonzeros
