@@ -20,6 +20,7 @@ result line):
              per SM the card reports for it (``<name>_ctas_per_sm``; the
              staged SpMM kernels at the 1024-entry slot, K2 and K9 at
              their X rings, the attention kernels at dh = 128, bk = 8).
+             K5 runs on K6's CTA template (``attn_ring.cuh``).
 3. kernels — each kernel against its plain PyTorch version on the card
              (rtol = atol = 1e-5; K2 also ``torch.equal``), and each
              staged kernel against its resident twin (``torch.equal``:
@@ -93,7 +94,12 @@ result line):
              8, 16}; the fixtures must reach merged trips, MXU blocks at
              bk = 1 and 8, chunked VPU and MXU members, VPU descriptors
              whose steps end part-way through K6's group and whose rows
-             differ in length.
+             differ in length.  K5 and K6 share one CTA body, so the
+             plain versions are what holds each of them here; K5 alone
+             also against its plain version at the head widths K6 does
+             not take: ragged (dh 100, called directly), a ring of one
+             stage (bm = 16, bk = 32, dh 1024) and none (LEAN, dh 4096),
+             at rtol = atol = 1e-5.
 9. attention — ``compile_sparse_attention`` on the longformer-1.4b mask
              (S = 32768, window 512, 64 global columns, 18.7 M nonzeros),
              one head, dh = dv = 128: ``pallas_bcsr`` and ``pallas_ell``
@@ -143,18 +149,25 @@ result line):
 
 With ``--ab-parent DIR`` (a parent commit unpacked with ``git
 archive``) it runs none of the phases above: it imports that tree's
-``repro_torch`` beside this one, and times its K2, K6, K7 and K9
+``repro_torch`` beside this one, and times its K1, K2, K5, K6, K7 and K9
 wrappers (which build its kernels into ``DIR/build``) beside this
 tree's in turns A B B A (CUDA events, medians of 20), each output bit
 for bit the parent's: K7 on the uniform graph at d_pad 47 (a direct
 call, unplanned), 128, 256 and 1024; K9 on small fixtures at every bm
 (each segment also bit for bit K1's rows) and over the uniform graph's
 5 segments at bm = 8, summed; K2 on the two 2^20-row instances (also
-bit for bit K4); K6 on the longformer mask at S = 32768 (both fused
-backends, and ``pallas_bcsr`` at bm = 16 and at bk = 1) and at the
-layer's S = 4096 (bit for bit K5).  With ``--ab-ptxas`` as well it only
-prints K2-K7's and K9's ptxas registers and spills beside the parent's
-and fails unless K2's to K6's are the parent's.
+bit for bit K4); K1 under ``pallas_ell``/``resident`` on both instances
+at bm = 8 and on the uniform graph at bm = 1 and 16, with merged trips
+(merge_threshold 64), called directly at the unplanned width 47 and with
+a misaligned X (also bit for bit K3); K5 and K6 on the longformer mask
+at S = 32768 (both fused backends, and ``pallas_bcsr`` at bm = 16 and at
+bk = 1) and at the layer's S = 4096 (all bit for bit the parent's K5),
+and K5 on a small mask at the ragged head width 100, at widths where
+its ring takes one stage (bm = 16, bk = 32, dh = 1024) or none (dh =
+4096, both backends), and with a misaligned K.  With ``--ab-ptxas`` as
+well it only prints K1-K7's and K9's ptxas registers and spills beside
+the parent's and fails unless all but K5's (redesigned) are the
+parent's.
 
 It writes nothing into the repo but the kernel builds under ``build/``.
 """
@@ -297,18 +310,19 @@ def build_smem(name: str, bm: int) -> int:
     elements a lane (``bm`` there); K1 and K10 take none."""
     from repro_torch.kernels.spmm_ell_fused import STAGE_CAP, ring_bytes
     attn = _kernel_module("attn_fused")
+    resident = _kernel_module("spmm_bcsr_fused").ring_bytes
     if name == "spmm_bcsr_fused":
-        return _kernel_module(name).ring_bytes(bm=bm, bk=8)
+        return resident(bm=bm, bk=8)
+    if name == "spmm_ell_segment":
+        return resident(bm=bm, bk=0)
     if name == "spmm_ell_fused_staged":
         return ring_bytes(STAGE_CAP, bm=bm, bk=1)
     if name == "spmm_bcsr_fused_staged":
         return ring_bytes(STAGE_CAP, bm=bm, bk=8)
     if name == "attn_fused":
-        return attn.scratch_bytes(bm, 8, 128)
+        return attn.resident_ring_bytes(bm=bm, bk=8, dh_pad=128)
     if name == "attn_fused_staged":
         return attn.ring_bytes(STAGE_CAP, bm=bm, bk=8, dh_pad=128)
-    if name == "spmm_ell_segment":
-        return _kernel_module("spmm_bcsr_fused").ring_bytes(bm=bm, bk=0)
     if name == "sddmm":
         return _kernel_module(name).ring_bytes(bm)
     return 0
@@ -1892,10 +1906,58 @@ def phase_attn_kernels() -> None:
         f"|kernel - plain| = {worst:.3g}; attn_fused_staged: bit-identical "
         f"to attn_fused, max |kernel - plain| = {worst_staged:.3g} (rtol = "
         f"atol = 1e-5); forwards vs ref max |diff| {worst_fwd:.3g} (1e-5)")
+    worst_k5, reached = k5_head_widths(fixtures["over_cap"][0], gen)
+    log(f"attention kernels: attn_fused alone at head widths attn_fused_"
+        f"staged does not take ({', '.join(reached)}): max |kernel - "
+        f"plain| = {worst_k5:.3g} (rtol = atol = 1e-5)")
     missing = [k for k, v in seen.items() if not v]
     if missing:
         raise SystemExit(f"chip_smoke: attention fixtures never reached "
                          f"{missing}")
+
+
+def k5_head_widths(a, gen) -> tuple:
+    """K5 against its plain version on mask ``a`` (MXU blocks and VPU
+    rows) at the head widths K6 does not take, called directly on the
+    artifact's operands cut to the width: ragged (100), a ring of one
+    stage (bm = 16, bk = 32, 1024) and none (LEAN, 4096).  Returns the
+    largest difference and the geometries reached."""
+    from repro_torch.core import JitCache, compile_sparse_attention
+    from repro_torch.core.plan import MXU_TAG
+    from repro_torch.kernels import attn_fused, attn_fused_plain
+    attn = _kernel_module("attn_fused")
+    worst, reached = 0.0, set()
+    for backend, bm, bk, dh in (("pallas_bcsr", 8, 8, 100),
+                                ("pallas_ell", 4, 8, 100),
+                                ("pallas_bcsr", 16, 32, 1024),
+                                ("pallas_bcsr", 8, 8, 4096),
+                                ("pallas_ell", 8, 8, 4096)):
+        c = compile_sparse_attention(a, dh, 128, backend=backend, bm=bm,
+                                     bk=bk, staging="resident",
+                                     cache=JitCache())
+        assert backend == "pallas_ell" or np.any(
+            c.workspace.blk_tag == MXU_TAG), (backend, bm, bk)
+        q = torch.randn(a.m, dh, device="cuda", generator=gen) / dh ** 0.5
+        k = torch.randn(a.n, dh, device="cuda", generator=gen)
+        v = torch.randn(a.n, 128, device="cuda", generator=gen)
+        ops, knobs = c.fused_operands(a.vals, q, k, v)
+        ops = list(ops)
+        ops[6] = ops[6][:, :dh].contiguous()
+        ops[7] = ops[7][:, :dh].contiguous()
+        got = attn_fused(*ops, **knobs)
+        want = attn_fused_plain(*ops, **knobs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst = max(worst, (got - want).abs().max().item())
+        stages = attn.resident_geometry(bm=bm, bk=bk,
+                                        dh_pad=attn.head_width(dh))["stages"]
+        reached.add("ragged" if dh % 32 else
+                    "LEAN" if stages == 0 else f"{stages} stage(s)")
+    want = {"ragged", "1 stage(s)", "LEAN"}
+    if not want <= reached:
+        raise SystemExit(f"chip_smoke: K5's head widths never reached "
+                         f"{sorted(want - reached)}")
+    return worst, sorted(reached)
 
 
 def attn_bound(a, dh: int, dv: int):
@@ -2270,11 +2332,19 @@ def parent_package(root: Path):
     return module
 
 
+# the kernels --ab-ptxas holds to the parent's registers and spills; K5
+# (redesigned) is printed beside the parent's
+PTXAS_KEPT = ("spmm_ell_fused", "spmm_bcsr_fused", "spmm_ell_fused_staged",
+              "spmm_bcsr_fused_staged", "attn_fused_staged", "sddmm",
+              "spmm_ell_segment")
+
+
 def ab_ptxas(parent) -> bool:
-    """ptxas's registers and spills of K2-K7 and K9, this tree beside
-    the parent's; True when K2's to K6's are the parent's."""
+    """ptxas's registers and spills of K1-K7 and K9, this tree beside
+    the parent's; True when those of :data:`PTXAS_KEPT` are the
+    parent's."""
     from repro_torch.kernels import _build
-    names = SPMM_KERNELS[1:] + ATTN_KERNELS + ("sddmm", "spmm_ell_segment")
+    names = SPMM_KERNELS + ATTN_KERNELS + ("sddmm", "spmm_ell_segment")
     same = True
     for build in (_build, parent.kernels._build):
         build.build(names)
@@ -2285,7 +2355,7 @@ def ab_ptxas(parent) -> bool:
     for name in names:
         mine = ptxas_lines(_build.BUILD_LOG[name])
         theirs = ptxas_lines(parent.kernels._build.BUILD_LOG[name])
-        if name in SPMM_KERNELS + ATTN_KERNELS:
+        if name in PTXAS_KEPT:
             same &= mine == theirs
         log(f"ptxas {name}: equal to the parent's: {mine == theirs}; "
             + "; ".join(f"{inst}: {regs} registers, {spill}"
@@ -2304,14 +2374,18 @@ def ab_turns(a, b):
 
 
 def ab_attention(parent) -> None:
-    """K6 beside the parent's on the longformer mask at S = 32768 (both
-    fused backends at bm = bk = 8, and pallas_bcsr at bm = 16 and at bk
-    = 1) and at the layer's S = 4096, both bit for bit K5."""
+    """K5 and K6 beside the parent's on the longformer mask at S = 32768
+    (both fused backends at bm = bk = 8, and pallas_bcsr at bm = 16 and
+    at bk = 1) and at the layer's S = 4096, every output bit for bit the
+    parent's K5; then K5 alone on a small mask at a ragged head width,
+    at one where the ring takes a single stage and at one where it takes
+    none (LEAN), and with a misaligned K."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import JitCache, compile_sparse_attention
     from repro_torch.core.plan import MXU_TAG
     from repro_torch.models.sparse_attention import sparse_attention_mask
+    geo = _kernel_module("attn_fused").resident_geometry
     cfg = get_config("longformer-1.4b")
     cases = [(ATTN_SEQ, "pallas_bcsr", 8, 8), (ATTN_SEQ, "pallas_ell", 8, 8),
              (ATTN_SEQ, "pallas_bcsr", 16, 8), (ATTN_SEQ, "pallas_bcsr", 8, 1),
@@ -2329,31 +2403,89 @@ def ab_attention(parent) -> None:
         ws = c.workspace
         win = dict(span=ws.max_span, cspan=ws.max_cspan)
 
-        def theirs():
+        def k6_theirs():
             return parent.kernels.attn_fused_staged(*ops, **knobs, **win)
 
-        def mine():
+        def k6_mine():
             return kernels.attn_fused_staged(*ops, **knobs, **win)
 
-        def k5():
+        def k5_theirs():
+            return parent.kernels.attn_fused(*ops, **knobs)
+
+        def k5_mine():
             return kernels.attn_fused(*ops, **knobs)
-        want = k5()
-        same = torch.equal(theirs(), want) and torch.equal(mine(), want)
-        t_theirs, t_mine = ab_turns(theirs, mine)
+        want = k5_theirs()
+        same5 = torch.equal(k5_mine(), want)
+        same6 = torch.equal(k6_theirs(), want) and torch.equal(k6_mine(),
+                                                               want)
+        t6_theirs, t6_mine = ab_turns(k6_theirs, k6_mine)
+        t5_theirs, t5_mine = ab_turns(k5_theirs, k5_mine)
         mxu = int((ws.blk_tag == MXU_TAG).sum())
-        log(f"K6 S={seq} {backend} bm={bm} bk={bk} ({mxu} MXU of "
-            f"{ws.num_blocks} descriptors): parent {t_theirs[0]:.4f}, "
-            f"{t_theirs[1]:.4f}; this tree {t_mine[0]:.4f}, "
-            f"{t_mine[1]:.4f}; K5 {time_ms(k5):.4f} ms; bit-identical to "
-            f"K5: {same}")
-        if not same:
-            raise SystemExit("chip_smoke: K6 differs from K5")
+        log(f"K5 S={seq} {backend} bm={bm} bk={bk} ({mxu} MXU of "
+            f"{ws.num_blocks} descriptors, "
+            f"{geo(bm=bm, bk=bk, dh_pad=cfg.head_dim)['stages']} stages): "
+            f"parent {t5_theirs[0]:.4f}, {t5_theirs[1]:.4f}; this tree "
+            f"{t5_mine[0]:.4f}, {t5_mine[1]:.4f} ms; bit-identical to the "
+            f"parent's K5: {same5}")
+        log(f"K6 S={seq} {backend} bm={bm} bk={bk}: parent "
+            f"{t6_theirs[0]:.4f}, {t6_theirs[1]:.4f}; this tree "
+            f"{t6_mine[0]:.4f}, {t6_mine[1]:.4f} ms; both bit-identical to "
+            f"the parent's K5: {same6}")
+        if not (same5 and same6):
+            raise SystemExit("chip_smoke: K5 or K6 differs from the "
+                             "parent's K5")
         del c, ops
+    # K5 alone at the head widths K6 does not take, on a small mask: the
+    # operands are the artifact's cut to the width (direct calls)
+    from repro_torch.core import CSRMatrix
+    a = CSRMatrix.from_dense(over_cap_dense())
+    for backend, bm, bk, dh, misalign in (
+            ("pallas_bcsr", 8, 8, 100, False), ("pallas_ell", 2, 8, 100,
+                                                 False),
+            ("pallas_bcsr", 16, 32, 1024, False),
+            ("pallas_bcsr", 8, 8, 4096, False),
+            ("pallas_ell", 8, 8, 4096, False),
+            ("pallas_bcsr", 8, 8, 128, True)):
+        gen = torch.Generator(device="cuda").manual_seed(dh)
+        q = torch.randn(a.m, dh, device="cuda", generator=gen) / dh ** 0.5
+        k = torch.randn(a.n, dh, device="cuda", generator=gen)
+        v = torch.randn(a.n, 128, device="cuda", generator=gen)
+        c = compile_sparse_attention(a, dh, 128, backend=backend, bm=bm,
+                                     bk=bk, merge_threshold=16,
+                                     cache=JitCache())
+        ops, knobs = c.fused_operands(a.vals, q, k, v)
+        ops = list(ops)
+        ops[6] = ops[6][:, :dh].contiguous()
+        ops[7] = ops[7][:, :dh].contiguous()
+        if misalign:
+            ops[7] = misaligned(ops[7])
+
+        def theirs():
+            return parent.kernels.attn_fused(*ops, **knobs)
+
+        def mine():
+            return kernels.attn_fused(*ops, **knobs)
+        same = torch.equal(mine(), theirs())
+        t_theirs, t_mine = ab_turns(theirs, mine)
+        g = geo(bm=bm, bk=bk, dh_pad=-(-dh // 32) * 32)
+        log(f"K5 small mask {backend} bm={bm} bk={bk} dh={dh}"
+            f"{' (K misaligned)' if misalign else ''} "
+            f"(mw={c.workspace.merge_width}, {g['stages']} stages"
+            f"{', LEAN' if g['stages'] == 0 else ''}): parent "
+            f"{t_theirs[0]:.4f}, {t_theirs[1]:.4f}; this tree "
+            f"{t_mine[0]:.4f}, {t_mine[1]:.4f} ms; bit-identical to the "
+            f"parent's K5: {same}")
+        if not same:
+            raise SystemExit("chip_smoke: K5 differs from the parent's")
 
 
 def ab_spmm(parent, instances: dict) -> None:
     """K2 beside the parent's on the two 2^20-row instances, bit for bit
-    each other and K4."""
+    each other and K4; then K1 beside the parent's under pallas_ell /
+    resident, bit for bit each other and K3: on both instances at bm =
+    8, and on the uniform graph at bm = 1 and 16, with merged trips (mw
+    > 1), called directly at the unplanned width 47 and with a
+    misaligned X."""
     from repro_torch import kernels
     from repro_torch.core import JitCache, compile_spmm
     for label, (a, x) in instances.items():
@@ -2380,6 +2512,51 @@ def ab_spmm(parent, instances: dict) -> None:
         if not same:
             raise SystemExit("chip_smoke: K2 differs from the parent's or K4")
         del c, c4, ops, ops4
+    cases = [("uniform", 8, 0, None), ("banded", 8, 0, None),
+             ("uniform", 1, 0, None), ("uniform", 16, 0, None),
+             ("uniform", 8, 64, None), ("uniform", 8, 0, 47),
+             ("uniform", 8, 0, "misaligned")]
+    for label, bm, mt, how in cases:
+        a, x = instances[label]
+        c = compile_spmm(a, D_MAIN, backend="pallas_ell", staging="resident",
+                         bm=bm, merge_threshold=mt, cache=JitCache())
+        ops, knobs = c.fused_operands(a.vals, x)
+        c3 = compile_spmm(a, D_MAIN, backend="pallas_ell", bm=bm,
+                          merge_threshold=mt, cache=JitCache())
+        ops3, knobs3 = c3.fused_operands(a.vals, x)
+        knobs3.update(span=c3.workspace.max_span,
+                      cspan=c3.workspace.max_cspan)
+        ops = list(ops)
+        # K3 takes whole tiles on a 16-byte boundary: the planned X
+        x3 = ops3[4]
+        if how == 47:           # the width as given, not planned
+            ops[4] = ops[4][:, :47].contiguous()
+            x3 = torch.nn.functional.pad(ops[4], (0, D_MAIN - 47))
+        elif how == "misaligned":
+            ops[4] = misaligned(ops[4])
+        width = ops[4].shape[1]
+
+        def theirs():
+            return parent.kernels.spmm_ell_fused(*ops, **knobs)
+
+        def mine():
+            return kernels.spmm_ell_fused(*ops, **knobs)
+
+        def k3():
+            y = kernels.spmm_ell_fused_staged(*ops3[:4], x3, **knobs3)
+            return y if width == D_MAIN else y[:, :width]
+        want = theirs()
+        same = torch.equal(mine(), want) and torch.equal(k3(), want)
+        t_theirs, t_mine = ab_turns(theirs, mine)
+        note = " (X misaligned)" if how == "misaligned" else ""
+        log(f"K1 {label} bm={bm} mw={c.workspace.merge_width} "
+            f"d_pad={width}{note}: parent {t_theirs[0]:.4f}, "
+            f"{t_theirs[1]:.4f}; this tree {t_mine[0]:.4f}, "
+            f"{t_mine[1]:.4f}; K3 {time_ms(k3):.4f} ms; bit-identical "
+            f"(parent, this tree, K3): {same}")
+        if not same:
+            raise SystemExit("chip_smoke: K1 differs from the parent's or K3")
+        del c, c3, ops, ops3, x3
 
 
 def ab_sddmm(parent, a, x) -> None:
@@ -2504,9 +2681,9 @@ def ab_segment(parent, a, x) -> None:
 
 
 def ab_main(args) -> int:
-    """K2, K6, K7 and K9 against the parent tree's wrappers, or only
-    K2-K7's and K9's ptxas lines (``--ab-ptxas``); no smoke phases, no
-    result line."""
+    """K1, K2, K5, K6, K7 and K9 against the parent tree's wrappers, or
+    only K1-K7's and K9's ptxas lines (``--ab-ptxas``); no smoke phases,
+    no result line."""
     phase_device()
     parent = parent_package(args.ab_parent.resolve())
     if args.ab_ptxas:
@@ -2525,16 +2702,16 @@ def ab_main(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port's main path on one H100 and check it; "
-                    "with --ab-parent, time K2/K6/K7/K9 beside another tree's "
-                    "instead.")
+                    "with --ab-parent, time K1/K2/K5/K6/K7/K9 beside another "
+                    "tree's instead.")
     ap.add_argument("--ab-parent", type=Path, metavar="DIR",
                     help="a tree (a commit unpacked with git archive) whose "
-                         "K2, K6, K7 and K9 are timed beside this one's "
-                         "through its own wrappers, in turns A B B A, bit "
-                         "for bit")
+                         "K1, K2, K5, K6, K7 and K9 are timed beside this "
+                         "one's through its own wrappers, in turns A B B A, "
+                         "bit for bit")
     ap.add_argument("--ab-ptxas", action="store_true",
-                    help="with --ab-parent: only compare K2-K7's and K9's "
-                         "ptxas registers and spills (K2-K6 must be "
+                    help="with --ab-parent: only compare K1-K7's and K9's "
+                         "ptxas registers and spills (all but K5's must be "
                          "equal)")
     args = ap.parse_args()
     if not torch.cuda.is_available():

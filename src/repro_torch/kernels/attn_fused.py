@@ -17,19 +17,27 @@ descriptors a (bm x bk) block per step with one rescale.
 What bounds them on an H100: operations — 2·dh flops of score and 2·dv
 of S·V per nonzero in fp32 outside the tensor cores, against 8 bytes of
 weight and column — and, on masks with long rows, the carry's chain
-through a long descriptor, which one CTA walks step by step.  K5 keeps
-the descriptor's Q block in shared memory and each warp reduces its
-rows' scores across its 32 lanes (``csrc/attn_trips.cuh``).  K6
-(``csrc/attn_fused_staged.cu``) is warp-specialised: a producer warp
-walks the staged items (``csrc/spmm_staged.cuh``: the weight and column
-windows, chunks for a window over the slot), hands the persistent CTAs
-their trips one at a time, and gathers every MXU step's K and V panels
-into a ring of stages in shared memory (:func:`kv_geometry`,
-:func:`ring_bytes`); four consumer warps score each (row, column) pair
-of a group of MXU steps, or of VPU steps (whose K and V rows they read
-in place), in one to four lanes, with the butterfly's order of K5's warp
-sum kept, meet once per group on a barrier of their own, and fold.
-Every rounding is K5's, so K6 equals K5 bit for bit.
+through a long descriptor, which one CTA walks step by step.  K5 and K6
+run one warp-specialised CTA (``csrc/attn_ring.cuh``) with two
+descriptor sources.  A producer warp hands the persistent CTAs their
+trips one at a time and gathers every MXU step's K and V panels into a
+ring of stages in shared memory; four consumer warps score each (row,
+column) pair of a group of MXU steps, or of VPU steps (whose K and V
+rows they read in place), in one to four lanes, with a warp
+butterfly's order kept, meet once per group on a barrier of their own,
+and fold.  K6 (``csrc/attn_fused_staged.cu``) walks the staged items
+(``csrc/spmm_staged.cuh``: the weight and column windows, chunks for a
+window over the slot; :func:`kv_geometry`, :func:`ring_bytes`).  K5
+(``csrc/attn_fused.cu``) reads the descriptor tables and streams where
+they lie and walks whole trips, its producer also copying each MXU
+step's weight panel into the step's stage; where K6's ring does not fit
+a CTA it takes fewer stages, or none (:func:`resident_geometry`,
+:func:`resident_ring_bytes`), and it zero-pads a head width that is not
+a multiple of 32 (:func:`head_padded`).  Every rounding is the same in
+both, so K6 equals K5 bit for bit.  Since they share the CTA, the card
+holds each to its plain version and K5 to the parent tree's K5
+(``chip_smoke.py --ab-parent``); the CPU tests hold the plain versions
+to the reference.
 
 :func:`attn_fused_plain` and :func:`attn_fused_staged_plain` are the
 plain PyTorch versions: the same descriptor walk in the reference
@@ -49,26 +57,21 @@ import ctypes
 
 import torch
 
-from ..distributed import check_on_mesh, place_on_chips, run_on_chips
+from ..distributed import (aligned16, check_on_mesh, place_on_chips,
+                           run_on_chips)
 from . import _build
 from .spmm_bcsr_fused import _check_rows
 from .spmm_ell_fused import (_INT_FILL, COL_TILE, MAX_SHARED_BYTES, _long,
                              _windows, check_tables, fitting_buffers,
                              staged_walk, staging_geometry)
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p] * 2)
 _STAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p] * 2)
 
 NEG = -1e30         # finite "masked" score, the reference's _NEG
 MAX_BK = 32         # an MXU block's width fits one warp's lanes
-
-
-def scratch_bytes(bm: int, bk: int, dh_pad: int) -> int:
-    """Shared memory of a CTA's attention state: the Q block, two halves
-    of the step's weights and rescales, and the denominators
-    (``csrc/attn_trips.cuh::scratch_floats``)."""
-    return 4 * (bm * dh_pad + 2 * bm * bk + 3 * bm)
 
 
 # K6's rings (csrc/attn_fused_staged.cu): window slots, each with a
@@ -86,9 +89,20 @@ def _pow2_floor(v: int) -> int:
     return 1 << (max(int(v), 1).bit_length() - 1)
 
 
+def _groups(*, bm: int, bk: int, stages: int) -> dict:
+    """The VPU and MXU groups and the buffer rows of a CTA whose ring has
+    ``stages`` stages (``csrc/attn_ring.cuh::set_groups``)."""
+    group = _pow2_floor(min(max(VPU_PAIRS // bm, 1), 32))
+    G = 1 << (bk - 1).bit_length()
+    mgroup = _pow2_floor(max(min(COL_TILE // (bm * G), 32 // G,
+                                 stages // 2), 1))
+    pw = -(-max(group, mgroup * bk, 2 * mgroup) // 4) * 4
+    return dict(group=group, mgroup=mgroup, pw=pw)
+
+
 def kv_geometry(*, bm: int, bk: int, dh_pad: int) -> dict:
-    """K6's K/V ring (``csrc/attn_fused_staged.cu::geometry`` computes
-    the same): ``rows`` K rows and as many V-tile rows a stage (an MXU
+    """K6's K/V ring (``csrc/attn_ring.cuh::geometry`` computes the
+    same): ``rows`` K rows and as many V-tile rows a stage (an MXU
     step's panels), ``bk``; ``qstride``, the floats between K
     (and Q) rows, ``dh_pad + 4``; ``stage``, the floats of a stage,
     padded so that a stage starts 4 banks after the one before;
@@ -104,13 +118,8 @@ def kv_geometry(*, bm: int, bk: int, dh_pad: int) -> dict:
     stage = rows * (qstride + COL_TILE)
     stage += (36 - stage % 32) % 32
     stages = min(max(_pow2_floor(max(KV_ROWS // rows, 1)), 2), KV_MAX_STAGES)
-    group = _pow2_floor(min(max(VPU_PAIRS // bm, 1), 32))
-    G = 1 << (bk - 1).bit_length()
-    mgroup = _pow2_floor(max(min(COL_TILE // (bm * G), 32 // G,
-                                 stages // 2), 1))
-    pw = -(-max(group, mgroup * bk, 2 * mgroup) // 4) * 4
     return dict(rows=rows, qstride=qstride, stage=stage, stages=stages,
-                group=group, mgroup=mgroup, pw=pw)
+                **_groups(bm=bm, bk=bk, stages=stages))
 
 
 def ring_bytes(c: int, *, bm: int, bk: int, dh_pad: int) -> int:
@@ -129,6 +138,68 @@ def ring_bytes(c: int, *, bm: int, bk: int, dh_pad: int) -> int:
     floats = (g["stages"] * g["stage"] + bm * g["qstride"]
               + 4 * bm * g["pw"] + -(-bm // 4) * 4)
     return barriers + slots + 4 * floats
+
+
+HEAD_ALIGN = 32     # K5/K6 score whole rows of 32 lane partials
+
+
+def head_width(dh: int) -> int:
+    """The head width K5 runs at: ``dh`` rounded up to :data:`HEAD_ALIGN`."""
+    return -(-int(dh) // HEAD_ALIGN) * HEAD_ALIGN
+
+
+def _resident_bytes(g: dict, bm: int) -> int:
+    barriers = 2 * (WIN_SLOTS + KV_MAX_STAGES) * 8 + WIN_SLOTS * ITEM_BYTES
+    q_block = bm * g["qstride"] if g["stages"] else 0
+    floats = (g["stages"] * g["stage"] + q_block + 4 * bm * g["pw"]
+              + -(-bm // 4) * 4)
+    return barriers + 4 * floats
+
+
+def resident_geometry(*, bm: int, bk: int, dh_pad: int) -> dict:
+    """K5's CTA at the kernel's head width ``dh_pad`` (a multiple of
+    :data:`HEAD_ALIGN`; ``csrc/attn_ring.cuh::resident_geometry``
+    computes the same): K6's ring (:func:`kv_geometry`) with each stage
+    also holding the step's (bm x bk) weight panel, in whole 16-byte
+    units, its stages halved (down to 1) until the CTA fits
+    :data:`MAX_SHARED_BYTES`.  If not even one stage fits, ``stages`` is
+    0 (LEAN): no ring and no Q block in shared memory, the Q rows and
+    the K/V panels read in place at a stride of ``dh_pad``, the MXU
+    groups bounded as by a :data:`KV_MAX_STAGES`-stage ring."""
+    g = kv_geometry(bm=bm, bk=bk, dh_pad=dh_pad)
+    stage = bk * (g["qstride"] + COL_TILE) + -(-bm * bk // 4) * 4
+    g["stage"] = stage + (36 - stage % 32) % 32
+    while g["stages"] > 1 and _resident_bytes(g, bm) > MAX_SHARED_BYTES:
+        g["stages"] //= 2
+        g.update(_groups(bm=bm, bk=bk, stages=g["stages"]))
+    if _resident_bytes(g, bm) > MAX_SHARED_BYTES:
+        g.update(qstride=dh_pad, stage=0, stages=0,
+                 **_groups(bm=bm, bk=bk, stages=KV_MAX_STAGES))
+    return g
+
+
+def resident_ring_bytes(*, bm: int, bk: int, dh_pad: int) -> int:
+    """Dynamic shared memory of one K5 CTA at head width ``dh_pad``: a
+    full and an empty mbarrier for each of the :data:`WIN_SLOTS` trip
+    slots and :data:`KV_MAX_STAGES` stages, the slots' item records, the
+    stages of :func:`resident_geometry`, the Q block at the K rows'
+    stride (none when LEAN), two halves of the weight and rescale
+    buffers, and the denominators (``csrc/attn_ring.cuh::
+    resident_bytes`` computes the same)."""
+    return _resident_bytes(resident_geometry(bm=bm, bk=bk, dh_pad=dh_pad),
+                           bm)
+
+
+def head_padded(q_ws, k):
+    """Q and K at :func:`head_width`: zero columns appended where the
+    head width is not a multiple of :data:`HEAD_ALIGN`.  Each lane
+    partial of a score (an fmaf chain over columns l, l + 32, ...) gains
+    only fmaf(0, 0, x) terms, which leave its value as it was."""
+    pad = head_width(q_ws.shape[1]) - q_ws.shape[1]
+    if pad == 0:
+        return q_ws, k
+    return (torch.nn.functional.pad(q_ws, (0, pad)),
+            torch.nn.functional.pad(k, (0, pad)))
 
 
 class _Carry:
@@ -305,8 +376,8 @@ def check_attn(tables, cols_flat, vals_flat, q_ws, k, v, *, bm: int,
     descriptor tables and streams as for the SpMM kernels, f32 2-D
     contiguous Q/K/V on one device, Q with ``bm`` rows per descriptor,
     K and V with the same rows (a multiple of ``bk``), Q and K with the
-    same head width, V with whole 128-column tiles, ``bk`` within a warp
-    and the attention state within a CTA's shared memory."""
+    same head width, V with whole 128-column tiles and ``bk`` within a
+    warp."""
     check_tables(tables, cols_flat, vals_flat, v, bm=bm, mw=mw)
     for name, t in (("q_ws", q_ws), ("k", k)):
         if t.dtype != torch.float32 or t.dim() != 2:
@@ -329,9 +400,6 @@ def check_attn(tables, cols_flat, vals_flat, q_ws, k, v, *, bm: int,
     if v.shape[1] % COL_TILE:
         raise ValueError(f"v must have a multiple of {COL_TILE} columns, "
                          f"got {v.shape[1]}")
-    if scratch_bytes(bm, bk, q_ws.shape[1]) > MAX_SHARED_BYTES:
-        raise ValueError(f"a head width of {q_ws.shape[1]} does not fit a "
-                         f"CTA's shared memory at bm={bm}")
 
 
 def check_staged_attn(q_ws, *, c: int, bm: int, bk: int) -> None:
@@ -370,7 +438,11 @@ def attn_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat, q_ws,
     mw        : CGCM merge width — descriptors per CTA; divides B
 
     CPU tensors run :func:`attn_fused_plain`; CUDA tensors launch
-    ``csrc/attn_fused.cu`` once (counted in ``attn_fused.launches``).
+    ``csrc/attn_fused.cu`` once (counted in ``attn_fused.launches``),
+    with Q and K zero-padded to :func:`head_width` and Q, K and V on
+    16-byte boundaries (``aligned16``).  It takes every head width: where
+    K6's ring does not fit a CTA, :func:`resident_geometry` takes fewer
+    stages or none.
     """
     check_attn(_tables(blk_tag, blk_off, blk_coff, blk_L), cols_flat,
                vals_flat, q_ws, k, v, bm=bm, bk=bk, mw=mw)
@@ -380,16 +452,22 @@ def attn_fused(blk_tag, blk_off, blk_coff, blk_L, cols_flat, vals_flat, q_ws,
     num_blocks = blk_tag.shape[0]
     y = torch.empty((num_blocks * bm, v.shape[1]), dtype=torch.float32,
                     device=v.device)
-    if num_blocks == 0:
+    if num_blocks == 0 or v.shape[1] == 0:
         return y
+    q_k, k_k = (aligned16(t) for t in head_padded(q_ws, k))
+    v_k = aligned16(v)
     lib = _build.load("attn_fused", _ARGTYPES)
+    # the persistent CTAs take their trips past the first from these
+    # counters, one per column tile
+    next_trip = torch.zeros(v.shape[1] // COL_TILE, dtype=torch.int32,
+                            device=v.device)
     with torch.cuda.device(v.device):
         err = lib.attn_fused_launch(
             blk_tag.data_ptr(), blk_off.data_ptr(), blk_coff.data_ptr(),
             blk_L.data_ptr(), cols_flat.data_ptr(), vals_flat.data_ptr(),
-            q_ws.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-            num_blocks // mw, bm, bk, mw, q_ws.shape[1], v.shape[1],
-            torch.cuda.current_stream().cuda_stream)
+            q_k.data_ptr(), k_k.data_ptr(), v_k.data_ptr(), y.data_ptr(),
+            num_blocks // mw, bm, bk, mw, q_k.shape[1], v.shape[1],
+            next_trip.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attn_fused launch failed with CUDA error {err}")
     attn_fused.launches += 1

@@ -1,4 +1,5 @@
-"""K6's shared-memory layout (``csrc/attn_fused_staged.cu``) and its
+"""K6's shared-memory layout (``csrc/attn_ring.cuh``, the CTA that
+``csrc/attn_fused_staged.cu`` launches) and its
 Python mirrors ``kernels/attn_fused.py::kv_geometry`` / ``ring_bytes``,
 and the arithmetic its scores rest on, on the CPU.
 
@@ -22,7 +23,7 @@ import torch
 attn_mod = importlib.import_module("repro_torch.kernels.attn_fused")
 stage_mod = importlib.import_module("repro_torch.kernels.spmm_ell_fused")
 
-SOURCE = Path(attn_mod.__file__).parent / "csrc" / "attn_fused_staged.cu"
+SOURCE = Path(attn_mod.__file__).parent / "csrc" / "attn_ring.cuh"
 BMS = (1, 2, 4, 8, 16)
 BKS = (1, 8)
 MASK_C_SPAN = 4736          # the longformer mask's widest window
