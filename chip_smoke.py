@@ -18,18 +18,24 @@ result line):
              print ptxas's registers and spills for every template
              instance (bm; K7's by elements a lane), each beside the CTAs
              per SM the card reports for it (``<name>_ctas_per_sm``; the
-             staged SpMM kernels at the 1024-entry slot, K2 and K9 at
-             their X rings, the attention kernels at dh = 128, bk = 8).
-             K5 runs on K6's CTA template (``attn_ring.cuh``).
+             staged SpMM kernels at the 1024-entry slot, K2, K10, K9 and
+             K1 at their X rings, the attention kernels at dh = 128, bk =
+             8; K1's and K10's one-thread-a-column bodies in the CTAs of
+             d_pad 47 and 200).  K5 runs on K6's CTA template
+             (``attn_ring.cuh``); K1 and K10 on the gather ring at planned
+             widths (``spmm_gather_ring.cuh``).
 3. kernels — each kernel against its plain PyTorch version on the card
-             (rtol = atol = 1e-5; K2 also ``torch.equal``), and each
-             staged kernel against its resident twin (``torch.equal``:
-             K3 = K1, K4 = K2): every
+             (rtol = atol = 1e-5; K1 and K2 also ``torch.equal``), and
+             each staged kernel against its resident twin
+             (``torch.equal``: K3 = K1, K4 = K2): every
              strategy x merge_threshold {0, 16} x d {16, 100, 128, 640},
              on a mixed VPU/MXU fixture, one with empty rows and an empty
              matrix, also with a 64-entry staging slot; plus a hub row
              and a dense 8-row block-row whose windows exceed the slot
-             (and shared memory), which must take the chunked walk.
+             (and shared memory), which must take the chunked walk.  Then
+             K1 called directly at d_pad 47, 128 and 200 (both routes)
+             at every bm, merged and not, bit for bit its plain version
+             and K3.
 4. main    — ``compile_spmm(a, 128)`` then a forward, through the entry
              points a user calls, on two 2^20-row instances: a uniform
              graph (16.8 M edges, pure VPU trips) and a banded stencil
@@ -66,8 +72,10 @@ result line):
              T {8, 128} x d {16, 100, 128, 640} with empty rows, ragged
              pair counts and an empty matrix, and called directly at
              unplanned widths; K9 on every segment of each strategy's
-             plan at bm {1, 2, 4, 8}; K10 on ``BCSRMatrix`` at bm = bk
-             = 8, padded to the global kmax.  Then at size, counted
+             plan at bm {1, 2, 4, 8}; K10 on ``BCSRMatrix`` padded to
+             the global kmax at every bm x bk {1, 8} x d {16, 47, 128,
+             200} and at bk = 128 (both routes), bit for bit its plain
+             version.  Then at size, counted
              (each count zeroed just before, read just after, no plain
              version run): K7 through ``sddmm_csr`` on the uniform graph
              at d = 128, held to the grad phase's dvals and to ``ref``
@@ -149,8 +157,8 @@ result line):
 
 With ``--ab-parent DIR`` (a parent commit unpacked with ``git
 archive``) it runs none of the phases above: it imports that tree's
-``repro_torch`` beside this one, and times its K1, K2, K5, K6, K7 and K9
-wrappers (which build its kernels into ``DIR/build``) beside this
+``repro_torch`` beside this one, and times its K1, K2, K5, K6, K7, K9
+and K10 wrappers (which build its kernels into ``DIR/build``) beside this
 tree's in turns A B B A (CUDA events, medians of 20), each output bit
 for bit the parent's: K7 on the uniform graph at d_pad 47 (a direct
 call, unplanned), 128, 256 and 1024; K9 on small fixtures at every bm
@@ -158,16 +166,19 @@ call, unplanned), 128, 256 and 1024; K9 on small fixtures at every bm
 5 segments at bm = 8, summed; K2 on the two 2^20-row instances (also
 bit for bit K4); K1 under ``pallas_ell``/``resident`` on both instances
 at bm = 8 and on the uniform graph at bm = 1 and 16, with merged trips
-(merge_threshold 64), called directly at the unplanned width 47 and with
-a misaligned X (also bit for bit K3); K5 and K6 on the longformer mask
+(merge_threshold 64), called directly at the unplanned widths 47 and
+200 and with a misaligned X (also bit for bit K3); K10 on the banded
+stencil's ``BCSRMatrix`` at bm = bk = 8, bm = 16, bk = 1, the unplanned
+width 47 and a misaligned X (also bit for bit its plain version); K5
+and K6 on the longformer mask
 at S = 32768 (both fused backends, and ``pallas_bcsr`` at bm = 16 and at
 bk = 1) and at the layer's S = 4096 (all bit for bit the parent's K5),
 and K5 on a small mask at the ragged head width 100, at widths where
 its ring takes one stage (bm = 16, bk = 32, dh = 1024) or none (dh =
 4096, both backends), and with a misaligned K.  With ``--ab-ptxas`` as
-well it only prints K1-K7's and K9's ptxas registers and spills beside
-the parent's and fails unless all but K5's (redesigned) are the
-parent's.
+well it only prints K1-K7's, K9's and K10's ptxas registers and spills
+beside the parent's and fails unless all but K1's and K10's
+(redesigned) are the parent's.
 
 It writes nothing into the repo but the kernel builds under ``build/``.
 """
@@ -305,14 +316,20 @@ def phase_device() -> None:
 def build_smem(name: str, bm: int) -> int:
     """The dynamic shared memory at which the build phase asks the card
     for ``name``'s CTAs per SM: the staged SpMM kernels' ring at the
-    default 1024-entry slot (bk = 8 for K4), K2's and K9's X rings at bk
-    = 8 and 0, the attention kernels' at dh = 128 and bk = 8, K7's at its
-    elements a lane (``bm`` there); K1 and K10 take none."""
-    from repro_torch.kernels.spmm_ell_fused import STAGE_CAP, ring_bytes
+    default 1024-entry slot (bk = 8 for K4), K2's, K10's and K9's X rings
+    at bk = 8, 8 and 0, K1's ring at its stage of ``max(8, bm)`` rows,
+    the attention kernels' at dh = 128 and bk = 8, K7's at its elements a
+    lane (``bm`` there)."""
+    from repro_torch.kernels.spmm_ell_fused import (STAGE_CAP, ring_bytes,
+                                                    resident_ring_bytes)
     attn = _kernel_module("attn_fused")
     resident = _kernel_module("spmm_bcsr_fused").ring_bytes
     if name == "spmm_bcsr_fused":
         return resident(bm=bm, bk=8)
+    if name == "spmm_bcsr":
+        return _kernel_module(name).ring_bytes(bm=bm, bk=8)
+    if name == "spmm_ell_fused":
+        return resident_ring_bytes(bm=bm)
     if name == "spmm_ell_segment":
         return resident(bm=bm, bk=0)
     if name == "spmm_ell_fused_staged":
@@ -338,11 +355,27 @@ def phase_build() -> None:
         # per template instance, and the CTAs per SM the card reports
         report = []
         for inst, bm, regs, spill in ptxas_lines(text):
+            if inst.startswith(NARROW_BODIES):
+                # K1's and K10's one-thread-a-column route, in the CTAs
+                # of d_pad 47 and 200
+                threads = [_kernel_module(name).narrow_threads(d)
+                           for d in (47, 200)]
+                ctas = [_build.ctas_per_sm(name, bm, 0, threads=t)
+                        for t in threads]
+                report.append(f"{inst}: {regs} registers, {spill}, "
+                              f"{ctas[0]} CTAs/SM of {threads[0]} threads, "
+                              f"{ctas[1]} of {threads[1]}")
+                continue
             smem = build_smem(name, bm)
             ctas = _build.ctas_per_sm(name, bm, smem)
             report.append(f"{inst}: {regs} registers, {spill}, {ctas} "
                           f"CTAs/SM at {smem} B of dynamic shared memory")
         log(f"ptxas {name}: " + "; ".join(report))
+
+
+# the kernel bodies of K1's and K10's route at unplanned widths, one
+# thread a column
+NARROW_BODIES = ("spmm_ell_fused_kernel", "spmm_bcsr_kernel")
 
 
 def entry_name(mangled: str) -> str:
@@ -469,8 +502,8 @@ def phase_kernels() -> None:
             want = plain(*operands, **knobs)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-            if name == "spmm_bcsr_fused":    # the same sums in one order
-                assert torch.equal(got, want), (fname, strategy, mt, d, bm)
+            # the same sums in one order
+            assert torch.equal(got, want), (fname, strategy, mt, d, bm)
             worst = max(worst, (got - want).abs().max().item())
             if fname not in long_rows:
                 y = c(a.vals, x)
@@ -510,6 +543,50 @@ def phase_kernels() -> None:
     if missing:
         raise SystemExit(f"chip_smoke: kernel fixtures never reached "
                          f"{missing}")
+    k1_routes()
+
+
+def k1_routes() -> None:
+    """K1 called directly at a width of each route (47 and 200: the
+    one-thread-a-column body, width-fitted below 128; 128: the gather
+    ring) at every supported bm, with merged trips and without, each
+    output bit for bit its plain version and K3's (X padded to whole
+    column tiles for K3)."""
+    from repro_torch import kernels
+    from repro_torch.core import CSRMatrix, JitCache, compile_spmm, random_csr
+    k1 = _kernel_module("spmm_ell_fused")
+    fixtures = {
+        "mixed": CSRMatrix.from_dense(mixed_dense(0)),
+        "empty_rows": random_csr(300, 256, density=0.03, family="powerlaw",
+                                 seed=1),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    routes = {}
+    for (fname, a), bm, mt, width in itertools.product(
+            fixtures.items(), k1.SUPPORTED_BM, (0, 16), (47, 128, 200)):
+        c = compile_spmm(a, 20, backend="pallas_ell", staging="resident",
+                         bm=bm, merge_threshold=mt, cache=JitCache())
+        ops, knobs = c.fused_operands(a.vals, torch.zeros(a.n, 20,
+                                                          device="cuda"))
+        x = torch.randn(ops[4].shape[0], width, device="cuda", generator=gen)
+        x3 = torch.nn.functional.pad(x, (0, -(-width // 128) * 128 - width))
+        got = kernels.spmm_ell_fused(*ops[:4], x, **knobs)
+        want = kernels.spmm_ell_fused_plain(*ops[:4], x, **knobs)
+        y3 = kernels.spmm_ell_fused_staged(*ops[:4], x3, **knobs,
+                                           **windows(c))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(y3[:, :width], got)):
+            raise SystemExit(f"chip_smoke: K1 differs from its plain version "
+                             f"or K3 ({fname}, bm = {bm}, merge_threshold "
+                             f"{mt}, d_pad {width})")
+        route = ("ring" if k1.ring_route(width) else
+                 f"narrow, {k1.narrow_threads(width)} threads")
+        routes[route] = routes.get(route, 0) + 1
+    log(f"K1 routes, direct calls at d_pad 47, 128, 200 x bm "
+        f"{k1.SUPPORTED_BM} x merge_threshold {{0, 16}}: cases by route "
+        f"{routes}, each bit-identical to the plain version and to K3")
+    if len(routes) != 3:
+        raise SystemExit(f"chip_smoke: K1's routes not all reached: {routes}")
 
 
 def bound(operands, out_elems: int, vpu_slots: int, mxu_macs_per_col: int,
@@ -565,12 +642,14 @@ def gather_models(ws, nnz: int, d_pad: int, bm: int, bk: int) -> dict:
 
 def launch_ctas(c, name: str) -> int:
     """CTAs per SM the card fits for ``c``'s kernel launch (the staged
-    kernels' ring at this workspace's slot, K2's X ring)."""
+    kernels' ring at this workspace's slot, K2's and K1's X rings)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.spmm_ell_fused import ring_bytes, staging_geometry
     smem = 0
     if name == "spmm_bcsr_fused":
         smem = _kernel_module(name).ring_bytes(bm=c.bm, bk=c.bk)
+    if name == "spmm_ell_fused":
+        smem = _kernel_module(name).resident_ring_bytes(bm=c.bm)
     if c.staging == "dma":
         ws = c.workspace
         bk = c.bk if c.backend == "pallas_bcsr" else 1
@@ -593,7 +672,7 @@ def measure(c, a, x, label: str) -> dict:
     want = plain(*operands, **knobs)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    if name == "spmm_bcsr_fused":
+    if name in ("spmm_bcsr_fused", "spmm_ell_fused"):
         assert torch.equal(got, want), (label, name)
     err = (got - want).abs().max().item()
     del got, want
@@ -949,6 +1028,7 @@ def phase_oracle_fixtures() -> None:
     from repro_torch.kernels import (sddmm, sddmm_csr, sddmm_plain, spmm_bcsr,
                                      spmm_bcsr_plain, spmm_ell_segment,
                                      spmm_ell_segment_plain)
+    from repro_torch.kernels.spmm_ell_fused import SUPPORTED_BM
     k7, k10 = _kernel_module("sddmm"), _kernel_module("spmm_bcsr")
     fixtures = {
         "mixed": CSRMatrix.from_dense(mixed_dense(0)),
@@ -962,7 +1042,7 @@ def phase_oracle_fixtures() -> None:
     configs = dict.fromkeys(ORACLE_KERNELS, 0)
     seen = dict(ragged_pairs=False, no_pairs=False, two_tiles=False,
                 unplanned_width=False, empty_segment=False,
-                padded_block_rows=False)
+                padded_block_rows=False, k10_routes=False)
 
     def check(name, got, want):
         torch.cuda.synchronize()
@@ -1009,14 +1089,30 @@ def phase_oracle_fixtures() -> None:
             check("spmm_ell_segment", spmm_ell_segment(cols, vals, x, bm=bm),
                   spmm_ell_segment_plain(cols, vals, x, bm=bm))
             seen["empty_segment"] |= seg.L == 0
-    for fname, d in itertools.product(("mixed", "banded"), (16, 128, 200)):
-        b = BCSRMatrix.from_csr(fixtures[fname], 8, 8)
+    # K10 on both routes: the ring at d_pad 128, the one-CTA-a-block-row
+    # body at 16 and 47 (width-fitted CTAs), at 200 and where the ring
+    # does not fit (bk = 128); each bit for bit its plain version
+    k10_routes = {}
+    k10_cases = list(itertools.product(("mixed", "banded"), (16, 47, 128, 200),
+                                       SUPPORTED_BM, (1, 8)))
+    for fname, d, bm, bk in k10_cases + [("mixed", 128, 8, 128)]:
+        b = BCSRMatrix.from_csr(fixtures[fname], bm, bk)
         cols, vals, kmax = k10._pad_to_kmax(b)
         x = rand(b.shape[1], d)
-        check("spmm_bcsr", spmm_bcsr(cols, vals, x, kmax=kmax),
-              spmm_bcsr_plain(cols, vals, x, kmax=kmax))
+        got = spmm_bcsr(cols, vals, x, kmax=kmax)
+        want = spmm_bcsr_plain(cols, vals, x, kmax=kmax)
+        check("spmm_bcsr", got, want)
+        if not torch.equal(got, want):
+            raise SystemExit(f"chip_smoke: K10 differs from its plain "
+                             f"version ({fname}, d {d}, bm {bm}, bk {bk})")
+        route = ("ring" if k10.ring_route(d, bm=bm, bk=bk)
+                 else "narrow" if d % 128 else "narrow, ring over the CTA")
+        k10_routes[route] = k10_routes.get(route, 0) + 1
         seen["padded_block_rows"] |= bool(
             np.any(np.diff(b.block_row_ptr) < kmax))
+    log(f"K10 cases by route: {k10_routes}, each bit-identical to the "
+        f"plain version")
+    seen["k10_routes"] = len(k10_routes) == 3
     log("oracle kernels vs plain (rtol = atol = 1e-5): " + "; ".join(
         f"{name}: {configs[name]} configurations, max |kernel - plain| "
         f"{worst[name]:.3g}" for name in ORACLE_KERNELS))
@@ -1096,7 +1192,7 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     timings."""
     from repro_torch import kernels
     from repro_torch.core import BCSRMatrix
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     k7, k10 = _kernel_module("sddmm"), _kernel_module("spmm_bcsr")
     phase_oracle_fixtures()
     phase_misaligned(instances, compiled)
@@ -1286,8 +1382,9 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
             kernels.spmm_bcsr(bcols, bvals, x_bp, kmax=kmax)
             kernels.spmm_bcsr_fused(*operands2, **knobs2)
         torch.cuda.synchronize()
-    # K2 is the gather ring's kernel with the resident source
-    names = {"spmm_bcsr": ("spmm_bcsr_kernel<",),
+    # both are the gather ring's kernel: K10 with the BlockRows source,
+    # K2 with the resident one
+    names = {"spmm_bcsr": ("gather_kernel<", "BlockRows>"),
              "spmm_bcsr_fused": ("gather_kernel<", "Resident>")}
     traced = {tag: [e.device_time_total / e.count / 1e3
                     for e in prof.key_averages()
@@ -1301,6 +1398,9 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
     tags_b = np.bincount(ws_b.blk_tag, minlength=2)
     in_order = bool(np.all(np.diff(ws_b.blk_coff) >= 0))
     k2_ctas = launch_ctas(c_b, "spmm_bcsr_fused")
+    assert k10.ring_route(D_MAIN, bm=blocks.bm, bk=blocks.bk)
+    k10_ctas = _build.ctas_per_sm(
+        "spmm_bcsr", blocks.bm, k10.ring_bytes(bm=blocks.bm, bk=blocks.bk))
     a_sp = _sparse_csr(a_b)
     lib10 = time_ms(lambda: torch.sparse.mm(a_sp, x_b))
     del a_sp
@@ -1311,9 +1411,10 @@ def phase_oracles(instances: dict, compiled: dict, grad: tuple) -> dict:
         f"plain {plain10:.4f} ms, bound {bound10:.4f} ms ({by10}), max "
         f"|kernel - plain| {err10:.3g}; {bcols.shape[0]} block steps")
     log(f"oracles/banded: K10 {ms10:.4f} / {ms10_b:.4f} ms, K2 "
-        f"{k2_runs[0]:.4f} / {k2_runs[1]:.4f} ms (A B B A); grids: K10 "
-        f"{blocks.n_block_rows} x {-(-D_MAIN // 128)} CTAs walking {kmax} "
-        f"block steps each, K2 persistent CTAs ({k2_ctas} an SM) over "
+        f"{k2_runs[0]:.4f} / {k2_runs[1]:.4f} ms (A B B A); both on the "
+        f"gather ring: K10 persistent CTAs ({k10_ctas} an SM) over "
+        f"{blocks.n_block_rows} block-rows of {kmax} block steps, K2 "
+        f"persistent CTAs ({k2_ctas} an SM) over "
         f"{ws_b.blk_tag.shape[0] // ws_b.merge_width} trips of "
         f"{ws_b.blk_tag.shape[0]} descriptors (merge width {ws_b.merge_width}; {int(tags_b[0])} "
         f"VPU, {int(tags_b[1])} MXU; block columns in K10's order: "
@@ -2332,19 +2433,19 @@ def parent_package(root: Path):
     return module
 
 
-# the kernels --ab-ptxas holds to the parent's registers and spills; K5
-# (redesigned) is printed beside the parent's
-PTXAS_KEPT = ("spmm_ell_fused", "spmm_bcsr_fused", "spmm_ell_fused_staged",
-              "spmm_bcsr_fused_staged", "attn_fused_staged", "sddmm",
-              "spmm_ell_segment")
+# the kernels --ab-ptxas holds to the parent's registers and spills; K1
+# and K10 (redesigned) are printed beside the parent's
+PTXAS_KEPT = ("spmm_bcsr_fused", "spmm_ell_fused_staged",
+              "spmm_bcsr_fused_staged", "attn_fused", "attn_fused_staged",
+              "sddmm", "spmm_ell_segment")
 
 
 def ab_ptxas(parent) -> bool:
-    """ptxas's registers and spills of K1-K7 and K9, this tree beside
-    the parent's; True when those of :data:`PTXAS_KEPT` are the
+    """ptxas's registers and spills of K1-K7, K9 and K10, this tree
+    beside the parent's; True when those of :data:`PTXAS_KEPT` are the
     parent's."""
     from repro_torch.kernels import _build
-    names = SPMM_KERNELS + ATTN_KERNELS + ("sddmm", "spmm_ell_segment")
+    names = SPMM_KERNELS + ATTN_KERNELS + ORACLE_KERNELS
     same = True
     for build in (_build, parent.kernels._build):
         build.build(names)
@@ -2515,7 +2616,8 @@ def ab_spmm(parent, instances: dict) -> None:
     cases = [("uniform", 8, 0, None), ("banded", 8, 0, None),
              ("uniform", 1, 0, None), ("uniform", 16, 0, None),
              ("uniform", 8, 64, None), ("uniform", 8, 0, 47),
-             ("uniform", 8, 0, "misaligned")]
+             ("uniform", 8, 0, 200), ("uniform", 8, 0, "misaligned")]
+    k1 = _kernel_module("spmm_ell_fused")
     for label, bm, mt, how in cases:
         a, x = instances[label]
         c = compile_spmm(a, D_MAIN, backend="pallas_ell", staging="resident",
@@ -2532,6 +2634,11 @@ def ab_spmm(parent, instances: dict) -> None:
         if how == 47:           # the width as given, not planned
             ops[4] = ops[4][:, :47].contiguous()
             x3 = torch.nn.functional.pad(ops[4], (0, D_MAIN - 47))
+        elif how == 200:        # a partial last column tile
+            gen = torch.Generator(device="cuda").manual_seed(200)
+            ops[4] = torch.randn(ops[4].shape[0], 200, device="cuda",
+                                 generator=gen)
+            x3 = torch.nn.functional.pad(ops[4], (0, 56))
         elif how == "misaligned":
             ops[4] = misaligned(ops[4])
         width = ops[4].shape[1]
@@ -2544,11 +2651,13 @@ def ab_spmm(parent, instances: dict) -> None:
 
         def k3():
             y = kernels.spmm_ell_fused_staged(*ops3[:4], x3, **knobs3)
-            return y if width == D_MAIN else y[:, :width]
+            return y if width == x3.shape[1] else y[:, :width]
         want = theirs()
         same = torch.equal(mine(), want) and torch.equal(k3(), want)
         t_theirs, t_mine = ab_turns(theirs, mine)
         note = " (X misaligned)" if how == "misaligned" else ""
+        note += (", ring" if k1.ring_route(width) else
+                 f", narrow, {k1.narrow_threads(width)} threads")
         log(f"K1 {label} bm={bm} mw={c.workspace.merge_width} "
             f"d_pad={width}{note}: parent {t_theirs[0]:.4f}, "
             f"{t_theirs[1]:.4f}; this tree {t_mine[0]:.4f}, "
@@ -2557,6 +2666,57 @@ def ab_spmm(parent, instances: dict) -> None:
         if not same:
             raise SystemExit("chip_smoke: K1 differs from the parent's or K3")
         del c, c3, ops, ops3, x3
+
+
+def ab_bcsr(parent, a, x) -> None:
+    """K10 beside the parent's on ``BCSRMatrix.from_csr`` of the banded
+    stencil, in turns A B B A, each output bit for bit the parent's and
+    the plain version's: at bm = bk = 8 (kmax 5), a direct call at the
+    unplanned width 47 (the one-CTA-a-block-row body), with a misaligned
+    X, at bm = 16 and at bk = 1."""
+    from repro_torch import kernels
+    from repro_torch.core import BCSRMatrix
+    k10 = _kernel_module("spmm_bcsr")
+    blocks = {}
+    for bm, bk, how in ((8, 8, None), (8, 8, 47), (8, 8, "misaligned"),
+                        (16, 8, None), (8, 1, None)):
+        if (bm, bk) not in blocks:
+            blocks.clear()
+            t0 = time.perf_counter()
+            b = BCSRMatrix.from_csr(a, bm, bk)
+            blocks[(bm, bk)] = (b, *k10._pad_to_kmax(b),
+                                time.perf_counter() - t0)
+        b, cols, vals, kmax, seconds = blocks[(bm, bk)]
+        xp = torch.nn.functional.pad(x, (0, 0, 0, b.shape[1] - x.shape[0]))
+        if how == 47:           # the width as given, not planned
+            xp = xp[:, :47].contiguous()
+        elif how == "misaligned":
+            xp = misaligned(xp)
+
+        def theirs():
+            return parent.kernels.spmm_bcsr(cols, vals, xp, kmax=kmax)
+
+        def mine():
+            return kernels.spmm_bcsr(cols, vals, xp, kmax=kmax)
+        want = theirs()
+        same = (torch.equal(mine(), want)
+                and torch.equal(kernels.spmm_bcsr_plain(cols, vals, xp,
+                                                        kmax=kmax), want))
+        t_theirs, t_mine = ab_turns(theirs, mine)
+        width = xp.shape[1]
+        route = ("ring" if k10.ring_route(width, bm=bm, bk=bk) else
+                 f"narrow, {k10.narrow_threads(width)} threads")
+        note = " (X misaligned)" if how == "misaligned" else ""
+        log(f"K10 banded bm={bm} bk={bk} kmax={kmax} d_pad={width}{note}, "
+            f"{route} ({b.n_block_rows} block-rows; from_csr + padding "
+            f"{seconds:.1f} s): parent {t_theirs[0]:.4f}, {t_theirs[1]:.4f}; "
+            f"this tree {t_mine[0]:.4f}, {t_mine[1]:.4f} ms; bit-identical "
+            f"(parent, plain): {same}")
+        if not same:
+            raise SystemExit("chip_smoke: K10 differs from the parent's or "
+                             "its plain version")
+        del xp
+    del blocks
 
 
 def ab_sddmm(parent, a, x) -> None:
@@ -2681,9 +2841,9 @@ def ab_segment(parent, a, x) -> None:
 
 
 def ab_main(args) -> int:
-    """K1, K2, K5, K6, K7 and K9 against the parent tree's wrappers, or
-    only K1-K7's and K9's ptxas lines (``--ab-ptxas``); no smoke phases,
-    no result line."""
+    """K1, K2, K5, K6, K7, K9 and K10 against the parent tree's
+    wrappers, or only K1-K7's, K9's and K10's ptxas lines
+    (``--ab-ptxas``); no smoke phases, no result line."""
     phase_device()
     parent = parent_package(args.ab_parent.resolve())
     if args.ab_ptxas:
@@ -2692,6 +2852,7 @@ def ab_main(args) -> int:
     ab_sddmm(parent, *instances["uniform"])
     ab_segment(parent, *instances["uniform"])
     ab_spmm(parent, instances)
+    ab_bcsr(parent, *instances["banded"])
     del instances
     gc.collect()
     torch.cuda.empty_cache()
@@ -2702,17 +2863,17 @@ def ab_main(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port's main path on one H100 and check it; "
-                    "with --ab-parent, time K1/K2/K5/K6/K7/K9 beside another "
-                    "tree's instead.")
+                    "with --ab-parent, time K1/K2/K5/K6/K7/K9/K10 beside "
+                    "another tree's instead.")
     ap.add_argument("--ab-parent", type=Path, metavar="DIR",
                     help="a tree (a commit unpacked with git archive) whose "
-                         "K1, K2, K5, K6, K7 and K9 are timed beside this "
-                         "one's through its own wrappers, in turns A B B A, "
-                         "bit for bit")
+                         "K1, K2, K5, K6, K7, K9 and K10 are timed beside "
+                         "this one's through its own wrappers, in turns A B "
+                         "B A, bit for bit")
     ap.add_argument("--ab-ptxas", action="store_true",
-                    help="with --ab-parent: only compare K1-K7's and K9's "
-                         "ptxas registers and spills (all but K5's must be "
-                         "equal)")
+                    help="with --ab-parent: only compare K1-K7's, K9's and "
+                         "K10's ptxas registers and spills (all but K1's and "
+                         "K10's must be equal)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

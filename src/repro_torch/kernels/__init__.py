@@ -2,7 +2,8 @@
 # PyTorch version beside it (what the CPU tests run and what the card's
 # results are held against):
 #   spmm_ell_fused          K1 — the whole multi-segment ELL plan in one
-#                           launch (csrc/spmm_ell_fused.cu; replaces
+#                           launch, on K2's gather ring at planned widths
+#                           (csrc/spmm_ell_fused.cu; replaces
 #                           src/repro/kernels/spmm_ell_fused.py::
 #                           spmm_ell_fused)
 #   spmm_bcsr_fused         K2 — the mixed VPU/MXU plan in one launch
@@ -35,8 +36,8 @@
 #                           (csrc/spmm_ell_segment.cu; replaces
 #                           src/repro/kernels/spmm_csr.py::spmm_ell_segment)
 #   spmm_bcsr               K10 — the pre-fusion block-CSR micro-oracle at
-#                           a global kmax, on K2's block trip
-#                           (csrc/spmm_bcsr.cu; replaces
+#                           a global kmax, on K2's gather ring at planned
+#                           widths (csrc/spmm_bcsr.cu; replaces
 #                           src/repro/kernels/spmm_bcsr.py::spmm_bcsr)
 #   spmm_ell_fused_sharded  K8 — one K1/K3 (K2/K4, K5/K6) launch per chip of
 #   spmm_bcsr_fused_sharded a ChipMesh, after the exact-panel X exchange

@@ -114,17 +114,20 @@ def load(name: str, argtypes: Sequence) -> ctypes.CDLL:
     return lib
 
 
-def ctas_per_sm(name: str, bm: int, smem: int) -> int:
+def ctas_per_sm(name: str, bm: int, smem: int, *, threads: int = 0) -> int:
     """How many CTAs of ``name``'s kernel at row block ``bm`` (one of
     the sizes the wrappers accept) the current card fits on one SM with
     ``smem`` bytes of dynamic shared memory, as
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it through
-    the library's ``<name>_ctas_per_sm``."""
-    fn = getattr(_open(name), f"{name}_ctas_per_sm")
+    the library's ``<name>_ctas_per_sm``.  With ``threads``, K1's and
+    K10's one-thread-a-column route instead, in CTAs of that many threads
+    (``<name>_narrow_ctas_per_sm``; ``smem`` is then ignored)."""
+    query = f"{name}_narrow_ctas_per_sm" if threads else f"{name}_ctas_per_sm"
+    fn = getattr(_open(name), query)
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    n = fn(bm, smem)
+    n = fn(bm, threads or smem)
     if n < 0:
-        raise RuntimeError(f"the occupancy query of {name} failed "
-                           f"(bm={bm}, smem={smem})")
+        raise RuntimeError(f"the occupancy query {query} failed "
+                           f"(bm={bm}, smem={smem}, threads={threads})")
     return n

@@ -1,13 +1,16 @@
 // The warp-specialised fused SpMM kernels K3 (spmm_ell_fused_staged.cu),
-// K4 (spmm_bcsr_fused_staged.cu) and K2 (spmm_bcsr_fused.cu), and the
-// segment micro-oracle K9 (spmm_ell_segment.cu): one kernel template,
-// MIXED = false for K3 and K9 (all VPU descriptors, coff == off) and true
-// for K4 and K2 (tagged descriptors, MXU block steps too), and a
+// K4 (spmm_bcsr_fused_staged.cu), K2 (spmm_bcsr_fused.cu) and K1
+// (spmm_ell_fused.cu, at planned widths), and the micro-oracles K9
+// (spmm_ell_segment.cu) and K10 (spmm_bcsr.cu, at planned widths): one
+// kernel template, MIXED = false for K3, K9 and K1 (all VPU descriptors,
+// coff == off) and true for K4, K2 and K10 (MXU block steps too), and a
 // descriptor source: FromSlots for the staged K3/K4 (the slot ring and
 // chunked walk below), Resident for K2 and K9, which reads the descriptor
 // tables and the value and column streams where they lie in global
-// memory and walks whole trips, member by member, with no slot ring.
-// Both sources feed the same X ring.
+// memory and walks whole trips, member by member, with no slot ring;
+// and, with stages of several steps whose values ride in the stage,
+// EllStages for K1 and BlockRows for K10 (an implicit table of
+// block-rows).  All sources feed the same X ring.
 //
 // Work.  Persistent CTAs walk merged trips g, g + gridDim.x, ... for one
 // 128-column tile (blockIdx.y), in spmm_staged.cuh's items: a trip whose
@@ -374,6 +377,306 @@ struct Resident {
     __device__ static void consume(const Ring<BM, MIXED, Resident>& ring,
                                    Role& role) {
         run(ring, role);
+    }
+};
+
+// EllStages (K1): the resident ELL plan (VPU descriptors only, coff ==
+// off) where it lies in global memory, whole trips, and stages of
+// ell_rows(bm) = max(kStageRows, bm) rows: S = rows / bm consecutive steps
+// of one descriptor, so a row block of bm = 1 keeps as many X rows in
+// flight a stage as bm = 8.  Lane i of the producer holds step i / bm,
+// row i % bm of a stage: it loads that slot's column entry one stage
+// ahead (one warp load a stage), and when the stage is free every lane
+// copies its 16 bytes of each of the stage's X rows (the column entry
+// broadcast by a shuffle) and lane i the slot's value (4 bytes, after
+// the rows), then arrives on the stage's full barrier.  The consumers
+// add the stage's steps in order, every operand from shared memory, so
+// each row is summed in K1's order.  The launch sets p.bk to the stage's
+// rows, which sizes the stage (rows of X, then their values).
+constexpr int kStageRows = 8;
+
+__host__ __device__ constexpr int ell_rows(int bm) {
+    return bm > kStageRows ? bm : kStageRows;
+}
+
+// kernels/spmm_ell_fused.py::resident_ring_bytes computes the same
+inline size_t ell_ring_bytes(int rows) {
+    return 8u * kBarriers
+           + kXStages * (static_cast<size_t>(rows) * spmm::kColTile
+                         + (rows + 3) / 4 * 4) * 4u;
+}
+
+struct EllStages {
+    // where the CTA's walk stands: steps [s0, s0 + S) of descriptor b
+    struct Stage {
+        long long b;
+        int off, L, s0;
+    };
+
+    __device__ static int slot_entries(int) { return 0; }
+    // a stage's values after its rows, in whole 16-byte units
+    __device__ static int panel_floats(int, int rows) {
+        return (rows + 3) / 4 * 4;
+    }
+    static size_t smem(int, int, int rows) { return ell_ring_bytes(rows); }
+
+    // from st: the first stage that has steps, or false past the CTA's
+    // last trip (its trips g, g + gridDim.x, ..., members in order)
+    __device__ static bool seek(const Params& p, Stage& st) {
+        const long long end = static_cast<long long>(p.num_trips) * p.mw;
+        while (st.s0 >= st.L) {
+            if (++st.b % p.mw == 0)
+                st.b += static_cast<long long>(gridDim.x - 1) * p.mw;
+            if (st.b >= end) return false;
+            st.off = __ldg(p.off + st.b);
+            st.L = __ldg(p.L + st.b);
+            st.s0 = 0;
+        }
+        return true;
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void produce(const Ring<BM, MIXED, EllStages>& ring,
+                                   Role& role) {
+        constexpr int R = ell_rows(BM);
+        constexpr int S = R / BM;
+        const Params& p = ring.walk.p;
+        const long long d_pad = p.d_pad;
+        const int r = role.lane % BM;
+        const int j = role.lane / BM;
+        // this lane's slot of stage st, or -1 (no such step or row)
+        auto slot = [&](const Stage& st) {
+            return role.lane < R && st.s0 + j < st.L
+                       ? st.off + r * st.L + st.s0 + j : -1;
+        };
+        Stage cur{static_cast<long long>(blockIdx.x) * p.mw, 0, 0, 0};
+        bool more = cur.b < static_cast<long long>(p.num_trips) * p.mw;
+        if (more) {
+            cur.off = __ldg(p.off + cur.b);
+            cur.L = __ldg(p.L + cur.b);
+            more = seek(p, cur);
+        }
+        int at = more ? slot(cur) : -1;
+        int k = at >= 0 ? __ldg(p.cols + at) : 0;
+        while (more) {
+            Stage nxt = cur;
+            nxt.s0 += S;
+            const bool more_nxt = seek(p, nxt);
+            const int at_nxt = more_nxt ? slot(nxt) : -1;
+            const int k_nxt = at_nxt >= 0 ? __ldg(p.cols + at_nxt) : 0;
+            const int rows = min(S, cur.L - cur.s0) * BM;
+            float* xb = role.acquire();
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+                const int ki = __shfl_sync(0xffffffffu, k, i);
+                if (i < rows)
+                    cp_async16(xb + i * spmm::kColTile, role.x + ki * d_pad);
+            }
+            if (at >= 0)
+                cp_async4(ring.xs(role.q) + R * spmm::kColTile + role.lane,
+                          p.vals + at);
+            role.commit();
+            cur = nxt;
+            more = more_nxt;
+            at = at_nxt;
+            k = k_nxt;
+        }
+        // no copy of this warp is in flight when it exits
+        cp_async_wait_all();
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void consume(const Ring<BM, MIXED, EllStages>& ring,
+                                   Role& role) {
+        constexpr int R = ell_rows(BM);
+        constexpr int S = R / BM;
+        const Params& p = ring.walk.p;
+        for (int g = blockIdx.x; g < p.num_trips; g += gridDim.x) {
+            for (int w = 0; w < p.mw; ++w) {
+                const long long b = static_cast<long long>(g) * p.mw + w;
+                const int L = __ldg(p.L + b);
+                role.begin(true);
+                for (int s0 = 0; s0 < L; s0 += S) {
+                    const int n = min(S, L - s0);
+                    const float* xb = role.acquire();
+                    const float* vs = ring.xs(role.q) + R * spmm::kColTile;
+#pragma unroll
+                    for (int s = 0; s < S; ++s) {
+                        if (s < n) {
+#pragma unroll
+                            for (int i = 0; i < BM; ++i)
+                                role.acc[i] = __fadd_rn(
+                                    role.acc[i],
+                                    __fmul_rn(vs[s * BM + i],
+                                              xb[(s * BM + i)
+                                                 * spmm::kColTile]));
+                        }
+                    }
+                    role.release();
+                }
+                role.end(b, true);
+            }
+        }
+    }
+};
+
+// BM consecutive floats of shared memory into registers, in 16-byte
+// loads where BM % 4 == 0 (src then on a 16-byte boundary), else 8 or 4
+template <int BM>
+__device__ __forceinline__ void load_row(float (&w)[BM], const float* src) {
+    if constexpr (BM % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < BM / 4; ++k) {
+            const float4 q = reinterpret_cast<const float4*>(src)[k];
+            w[4 * k] = q.x;
+            w[4 * k + 1] = q.y;
+            w[4 * k + 2] = q.z;
+            w[4 * k + 3] = q.w;
+        }
+    } else if constexpr (BM == 2) {
+        const float2 q = *reinterpret_cast<const float2*>(src);
+        w[0] = q.x;
+        w[1] = q.y;
+    } else {
+        w[0] = src[0];
+    }
+}
+
+// BlockRows (K10): a BCSR matrix padded to its global kmax, block-row i
+// one MXU descriptor with an implicit table: value panels from i*kmax*
+// bm*bk, block-columns from i*kmax, kmax steps (p.kc holds kmax; the
+// table pointers stay unset).  A stage holds block_steps(bk) = max(1,
+// kStageRows / bk) consecutive steps of one block-row, so a small bk keeps
+// as many X rows in flight a stage as bk = 8: their bk-row X panels, then
+// their value panels.  The producer's lane s loads step s's block-column
+// one stage ahead; every lane copies 16 bytes of each X row and 4-byte
+// pieces of the value panels, each step's (bm, bk) panel stored
+// transposed, (bk, bm), so that a consumer reads the bm values it needs
+// for one X row in bm / 4 16-byte loads (measured on an H100, PERF.md:
+// the consumers' shared-memory loads, not the copies, set the pace on a
+// banded matrix, and this ran every bm and bk tried faster than K2's
+// one-step stages).  The consumers run K2's MXU step on each (t = a·xp
+// over the panel's rows in order, then acc += t), so the sums are K2's,
+// bit for bit.
+__host__ __device__ constexpr int block_steps(int bk) {
+    return bk < kStageRows ? kStageRows / bk : 1;
+}
+
+// a stage's floats: its X rows of one column tile, then its value panels
+// in whole 16-byte units (kernels/spmm_bcsr.py::ring_geometry)
+__host__ __device__ constexpr int block_stage_floats(int bm, int bk) {
+    return block_steps(bk) * bk * spmm::kColTile
+           + (block_steps(bk) * bm * bk + 3) / 4 * 4;
+}
+
+struct BlockRows {
+    __device__ static int slot_entries(int) { return 0; }
+    // what a stage holds beyond the max(bm, bk) X rows gather_kernel
+    // counts (fewer where the stage's rows are fewer than bm)
+    __device__ static int panel_floats(int bm, int bk) {
+        return block_stage_floats(bm, bk)
+               - (bm > bk ? bm : bk) * spmm::kColTile;
+    }
+    static size_t smem(int, int bm, int bk) {
+        return 8u * kBarriers
+               + kXStages * static_cast<size_t>(block_stage_floats(bm, bk))
+                     * 4u;
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void produce(const Ring<BM, MIXED, BlockRows>& ring,
+                                   Role& role) {
+        const Params& p = ring.walk.p;
+        const int bk = p.bk;
+        const int kmax = p.kc;
+        const int S = block_steps(bk);
+        const long long d_pad = p.d_pad;
+        const long long step = static_cast<long long>(BM) * bk;
+        // this lane's block-column of stage (i, s0): step s0 + lane
+        auto column = [&](int i, int s0) {
+            return i < p.num_trips && role.lane < S && s0 + role.lane < kmax
+                       ? __ldg(p.cols + static_cast<long long>(i) * kmax
+                               + s0 + role.lane)
+                       : 0;
+        };
+        int i = blockIdx.x;
+        int s0 = 0;
+        int bc = column(i, s0);
+        while (i < p.num_trips) {
+            int i_nxt = i;
+            int s0_nxt = s0 + S;
+            if (s0_nxt >= kmax) {
+                i_nxt += gridDim.x;
+                s0_nxt = 0;
+            }
+            const int bc_nxt = column(i_nxt, s0_nxt);
+            const int n = min(S, kmax - s0);
+            float* xb = role.acquire();
+            for (int s = 0; s < n; ++s) {
+                const long long row0 =
+                    static_cast<long long>(__shfl_sync(0xffffffffu, bc, s))
+                    * bk;
+                for (int c = 0; c < bk; ++c)
+                    cp_async16(xb + (s * bk + c) * spmm::kColTile,
+                               role.x + (row0 + c) * d_pad);
+            }
+            float* panel = ring.xs(role.q) + S * bk * spmm::kColTile;
+            const float* a =
+                p.vals + (static_cast<long long>(i) * kmax + s0) * step;
+            const int floats = static_cast<int>(n * step);
+            // each step's (bm, bk) panel stored transposed, (bk, bm)
+            const int per = BM * bk;
+            for (int e = role.lane; e < floats; e += 32) {
+                const int s = e / per;
+                const int rem = e - s * per;
+                const int r = rem / bk;
+                const int c = rem - r * bk;
+                cp_async4(panel + s * per + c * BM + r, a + e);
+            }
+            role.commit();
+            i = i_nxt;
+            s0 = s0_nxt;
+            bc = bc_nxt;
+        }
+        // no copy of this warp is in flight when it exits
+        cp_async_wait_all();
+    }
+
+    template <int BM, bool MIXED, class Role>
+    __device__ static void consume(const Ring<BM, MIXED, BlockRows>& ring,
+                                   Role& role) {
+        const Params& p = ring.walk.p;
+        const int bk = p.bk;
+        const int kmax = p.kc;
+        const int S = block_steps(bk);
+        for (int i = blockIdx.x; i < p.num_trips; i += gridDim.x) {
+            role.begin(true);
+            for (int s0 = 0; s0 < kmax; s0 += S) {
+                const int n = min(S, kmax - s0);
+                const float* xb = role.acquire();
+                const float* panel =
+                    ring.xs(role.q) + S * bk * spmm::kColTile;
+                for (int s = 0; s < n; ++s) {
+                    const float* a = panel + s * BM * bk;
+                    const float* xs = xb + s * bk * spmm::kColTile;
+                    float t[BM];
+                    spmm::zero(t);
+                    for (int c = 0; c < bk; ++c) {
+                        const float xv = xs[c * spmm::kColTile];
+                        float w[BM];
+                        load_row<BM>(w, a + c * BM);
+#pragma unroll
+                        for (int r = 0; r < BM; ++r)
+                            t[r] = __fadd_rn(t[r], __fmul_rn(w[r], xv));
+                    }
+#pragma unroll
+                    for (int r = 0; r < BM; ++r)
+                        role.acc[r] = __fadd_rn(role.acc[r], t[r]);
+                }
+                role.release();
+            }
+            role.end(i, true);
+        }
     }
 };
 

@@ -1,8 +1,9 @@
-// Descriptor-trip device code of the resident SpMM kernel K1
-// (spmm_ell_fused.cu) and the pre-fusion BCSR micro-oracle K10
-// (spmm_bcsr.cu), which runs one trip each; K2 and K9
-// (spmm_bcsr_fused.cu, spmm_ell_segment.cu) run on spmm_gather_ring.cuh
-// and take only kColTile, zero, store_rows and the bm dispatch here.
+// Descriptor-trip device code of the one-thread-a-column routes of the
+// resident SpMM kernel K1 (spmm_ell_fused.cu) and the pre-fusion BCSR
+// micro-oracle K10 (spmm_bcsr.cu), which take widths the gather ring does
+// not; their ring routes, K2 and K9 (spmm_bcsr_fused.cu,
+// spmm_ell_segment.cu) run on spmm_gather_ring.cuh and take only
+// kColTile, zero, store_rows and the bm dispatch here.
 //
 // Layout: one CTA per (merged trip, 128-column tile); each thread owns
 // one output column of the tile and keeps one descriptor's bm row

@@ -5,16 +5,31 @@ Replaces the TPU kernel ``src/repro/kernels/spmm_ell_fused.py`` ::
 ``spmm_ell_fused`` (``_kernel``, resident staging) with the hand-written
 CUDA kernel ``csrc/spmm_ell_fused.cu``.  The planner packs every ELL
 segment into one flat slot stream with a per-row-block descriptor table
-(``blk_off``, ``blk_L``); one launch walks it, one CTA per (merged trip,
-128-column tile), and writes workspace rows that the caller maps back
-to output order with one ``inv_perm`` gather.
+(``blk_off``, ``blk_L``); one launch walks it and writes workspace rows
+that the caller maps back to output order with one ``inv_perm`` gather.
 
 What bounds it on an H100: bytes.  Each slot gathers a whole X row, and
 for a large X most of those rows miss the 50 MB L2, so the floor is
-about ``S * d_pad * 4`` bytes over 3.35 TB/s.  The kernel spends one
-thread per output column, so a gathered row is one coalesced read per
-CTA, keeps a descriptor's ``bm`` row accumulators in registers, and
-writes each output row once (the note in the ``.cu`` file has more).
+about ``S * d_pad * 4`` bytes over 3.35 TB/s.  K1 takes one of two
+routes by the width, :func:`ring_route`, both hand-written, chosen
+before the launch:
+
+- planned widths (``d_pad`` a multiple of 128, every width
+  ``compile_spmm`` plans): the warp-specialised gather ring of K2/K3/K4
+  (``csrc/spmm_gather_ring.cuh``) with K1's own descriptor source,
+  stages of :func:`resident_geometry`'s ``rows`` (at least
+  :data:`STAGE_ROWS`) X row segments and their values, copied by a
+  producer warp ahead of four consumer warps; X passes through
+  ``aligned16`` for the 16-byte copies;
+- any other width (a direct call): one thread per output column, so a
+  gathered row is one coalesced read per CTA, in CTAs of
+  :func:`narrow_threads` threads (whole warps of the width up to 256
+  columns, one CTA a trip).
+
+Both keep a descriptor's ``bm`` row accumulators in registers, add the
+slots in order with one rounding for the product and one for the sum,
+and write each output row once, so their results are equal bit for bit
+(the note in the ``.cu`` file has more).
 
 :func:`spmm_ell_fused_plain` is the plain PyTorch version: it walks the
 same descriptor stream in the same per-row order, vectorised over the
@@ -59,14 +74,59 @@ import ctypes
 
 import torch
 
-from ..distributed import check_on_mesh, run_on_chips, sharded_x
+from ..distributed import aligned16, check_on_mesh, run_on_chips, sharded_x
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _STAGED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 
 SUPPORTED_BM = (1, 2, 4, 8, 16)
+# a stage of K1's and K10's gather rings holds at least this many X rows
+# where its steps allow (csrc/spmm_gather_ring.cuh, kStageRows)
+STAGE_ROWS = 8
+
+
+def ring_route(d_pad: int) -> bool:
+    """Whether K1 runs the gather ring at width ``d_pad``: whole
+    128-column tiles, as every planned width is; any other width runs
+    the one-thread-a-column body."""
+    return d_pad > 0 and d_pad % COL_TILE == 0
+
+
+# the widest CTA of K1's one-thread-a-column body
+# (csrc/spmm_ell_fused.cu, kNarrowThreads)
+NARROW_MAX_THREADS = 256
+
+
+def narrow_threads(d_pad: int) -> int:
+    """Threads a CTA of K1's one-thread-a-column body (its route at
+    unplanned widths) takes, one a column: whole warps covering the
+    width up to :data:`NARROW_MAX_THREADS` columns (one CTA a trip),
+    else a 128-column tile."""
+    if d_pad <= NARROW_MAX_THREADS:
+        return -(-d_pad // 32) * 32
+    return COL_TILE
+
+
+def resident_geometry(*, bm: int) -> dict:
+    """K1's ring stage: ``rows`` X row segments (at least
+    :data:`STAGE_ROWS`), ``steps = rows // bm`` consecutive steps of
+    one descriptor."""
+    rows = max(STAGE_ROWS, bm)
+    return dict(rows=rows, steps=rows // bm)
+
+
+def resident_ring_bytes(*, bm: int) -> int:
+    """Dynamic shared memory of one K1 ring CTA: a full and an empty
+    mbarrier for each of the :data:`RING_SLOTS` slots (unused) and
+    :data:`X_STAGES` stages, and the stages, each ``rows`` X row
+    segments of one column tile and their ``rows`` values rounded up to
+    whole 16-byte units (``csrc/spmm_gather_ring.cuh::ell_ring_bytes``
+    computes the same)."""
+    rows = resident_geometry(bm=bm)["rows"]
+    barriers = 2 * (RING_SLOTS + X_STAGES) * MBARRIER_BYTES
+    return barriers + X_STAGES * (rows * COL_TILE + -(-rows // 4) * 4) * 4
 
 
 def check_tables(tables, cols_flat, vals_flat, x, *, bm: int, mw: int):
@@ -154,7 +214,10 @@ def spmm_ell_fused(blk_off, blk_L, cols_flat, vals_flat, x, *,
     mw        : CGCM merge width — descriptors per CTA; divides B
 
     CPU tensors run :func:`spmm_ell_fused_plain`; CUDA tensors launch
-    ``csrc/spmm_ell_fused.cu`` once (counted in ``spmm_ell_fused.launches``).
+    ``csrc/spmm_ell_fused.cu`` once (counted in ``spmm_ell_fused.launches``):
+    the gather ring where :func:`ring_route` says so, with X through
+    ``aligned16``, else the one-thread-a-column body in CTAs of
+    :func:`narrow_threads` threads.
     """
     check_tables({"blk_off": blk_off, "blk_L": blk_L}, cols_flat, vals_flat,
                  x, bm=bm, mw=mw)
@@ -165,14 +228,18 @@ def spmm_ell_fused(blk_off, blk_L, cols_flat, vals_flat, x, *,
     d_pad = x.shape[1]
     y = torch.empty((num_blocks * bm, d_pad), dtype=torch.float32,
                     device=x.device)
-    if num_blocks == 0:
+    if num_blocks == 0 or d_pad == 0:
         return y
+    ring = ring_route(d_pad)
+    if ring:
+        x = aligned16(x)
     lib = _build.load("spmm_ell_fused", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = lib.spmm_ell_fused_launch(
             blk_off.data_ptr(), blk_L.data_ptr(), cols_flat.data_ptr(),
             vals_flat.data_ptr(), x.data_ptr(), y.data_ptr(),
             num_blocks // mw, bm, mw, d_pad,
+            0 if ring else narrow_threads(d_pad),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"spmm_ell_fused launch failed with CUDA "
