@@ -152,7 +152,35 @@ result line):
              the longformer mask over the same mesh, 4 K6 launches, bit-
              identical to the unsharded default forward, timed the same
              way.
-12. report — the launch counts, one JSON line of per-kernel numbers, and
+12. serve  — after the sharded SpMM part, the serving tier at tenant
+             sizes (``launch/serve.py``): four seeded tenants in two
+             d-buckets — arxiv (ogbn-arxiv's 169,343 nodes, 1.17 M
+             edges, d 128), web (power-law, 2^17 rows, 16 a row, d 100),
+             stencil (32-wide band, 2^18 rows, d 64), fem27 (27-wide
+             band, 2^17 rows, d 40) — served by ``SpmmServer(max_batch=
+             4)`` in two rounds (misses, then hits) on the card's
+             defaults (``pallas_bcsr``/``dma``: K4), on ``pallas_ell``
+             (K3) and with ``staging="resident"`` on both backends (K2,
+             K1): one fused launch per two-member chunk (dispatch counts
+             and the kernel's launches), every response bit for bit its
+             tenant's solo artifact and held to a float64 reference at
+             rtol = atol = 1e-4, or, where a row is so long (web's reach
+             10,876 nonzeros) that the order of an fp32 sum alone moves
+             an element further, within that sum's error bound.  The
+             scheduler on manual ticks and on its thread, bit for bit
+             round 2; ``compile_spmm(arxiv, 128, autotune=True)`` with
+             the CUDA-event measure (each candidate's predicted and each
+             finalist's measured ms; the output bit for bit the
+             winner's; a second call a pure hit) and an autotuning
+             server's batch on the folded knobs; CUDA-event times of
+             each bucket's batched forward against its members' solo
+             forwards and of the kernel alone, warm rounds' wall time,
+             and a ``torch.profiler`` window over a round (idle share,
+             the side stream's host-to-device copies and their overlap
+             with kernels); device memory falling on ``cache.clear()``
+             and on eviction at ``JitCache(capacity=2)`` with no
+             ``gc.collect()``.
+13. report — the launch counts, one JSON line of per-kernel numbers, and
              the final ``{"ok": true, ...}`` line.
 
 With ``--ab-parent DIR`` (a parent commit unpacked with ``git
@@ -1869,6 +1897,505 @@ def phase_sharded_attention(a, q, k, v, y0, c0, library_ms: float) -> dict:
                 bound_by=bound_by, library_ms=library_ms)
 
 
+# -- the serving tier: batched multi-tenant SpMM through K1-K4 ---------------
+
+# the serve phase's tenants: (name, random_csr family, rows = columns,
+# density, request width).  arxiv: ogbn-arxiv's 169,343 nodes and
+# 1,166,243 edges (citation-graph GNN inference); web: a power-law graph,
+# 16 edges a row on average; stencil: a 32-wide band (2-D stencil/FEM);
+# fem27: a 27-wide band (3-D 27-point operator).  Widths 128 and 100
+# share the 128 bucket, 64 and 40 the 64 bucket.
+SERVE_TENANTS = (
+    ("arxiv", "uniform", 169_343, 1_166_243 / 169_343 ** 2, 128),
+    ("web", "powerlaw", 2 ** 17, 16 / 2 ** 17, 100),
+    ("stencil", "banded", 2 ** 18, 32 / 2 ** 18, 64),
+    ("fem27", "banded", 2 ** 17, 27 / 2 ** 17, 40),
+)
+# server configurations the serve phase drives: the card's defaults
+# (pallas_bcsr, dma: K4), K3, and the resident kernels K2 and K1
+SERVE_CONFIGS = (("default", {}), ("pallas_ell", dict(backend="pallas_ell")),
+                 ("resident", dict(staging="resident")),
+                 ("pallas_ell/resident", dict(backend="pallas_ell",
+                                              staging="resident")))
+
+
+def serve_requests():
+    """The four tenants' requests: structures and values from
+    ``random_csr`` seeds on the card, host operands from numpy."""
+    from repro_torch.core import random_csr
+    from repro_torch.launch.serve import SpmmRequest
+    rng = np.random.default_rng(24)
+    reqs = []
+    for seed, (name, family, n, density, d) in enumerate(SERVE_TENANTS):
+        t0 = time.perf_counter()
+        a = random_csr(n, n, density=density, family=family, seed=100 + seed)
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        log(f"serve/{name}: {family}, m = n = {n}, nnz = {a.nnz}, request "
+            f"d = {d}; random_csr {time.perf_counter() - t0:.2f} s")
+        reqs.append(SpmmRequest(tenant=name, a=a, x=x))
+    return reqs
+
+
+def table_bytes(artifact) -> int:
+    """Device bytes of an artifact's descriptor tables and permutation."""
+    consts = artifact._consts if hasattr(artifact, "_consts") \
+        else artifact._fused
+    return sum(t.numel() * t.element_size()
+               for t in vars(consts).values() if isinstance(t, torch.Tensor))
+
+
+class _Launches:
+    """Sums the SpMM kernels' launch counts over the driven spans: each
+    ``with`` block adds the counts its span moved."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(SPMM_KERNELS, 0)
+
+    @staticmethod
+    def now() -> dict:
+        from repro_torch import kernels
+        return {name: getattr(kernels, name).launches
+                for name in SPMM_KERNELS}
+
+    def __enter__(self):
+        self.before = self.now()
+        return self
+
+    def __exit__(self, *exc):
+        after = self.now()
+        self.last = {k: after[k] - self.before[k] for k in after}
+        for k, v in self.last.items():
+            self.total[k] += v
+        return False
+
+
+def check_served(req, y: torch.Tensor) -> tuple:
+    """Hold a served output to a float64 reference: each element at
+    rtol = atol = 1e-4, or, in rows so long that the order of an fp32
+    sum alone moves it further, within that sum's error bound
+    ``γ_L · Σ_j |a_ij x_jk|`` (L the row's length, γ_L = L·u / (1 −
+    L·u), u = 2^-24), which any fp32 summation order meets.  Returns the
+    largest error, the elements held to the bound and the largest error
+    over bound among them."""
+    a = req.a
+    rows = torch.from_numpy(np.repeat(np.arange(a.m), a.row_lengths)).cuda()
+    cols = torch.from_numpy(a.col_indices.astype(np.int64)).cuda()
+    x = torch.from_numpy(req.x).cuda().double()
+    v = a.vals.double()
+    ref = torch.zeros((a.m, x.shape[1]), dtype=torch.float64,
+                      device=x.device).index_add_(0, rows, v[:, None] * x[cols])
+    mass = torch.zeros_like(ref).index_add_(0, rows,
+                                            v.abs()[:, None] * x[cols].abs())
+    u = 2.0 ** -24
+    L = torch.from_numpy(a.row_lengths.astype(np.float64)).cuda()[:, None]
+    bound = L * u / (1 - L * u) * mass
+    err = (y.cuda().double() - ref).abs()
+    plain = err <= 1e-4 + 1e-4 * ref.abs()
+    outside = ~plain
+    assert bool((err[outside] <= bound[outside]).all()), (
+        req.tenant, err.max().item())
+    ratio = (err[outside] / bound[outside]).max().item() \
+        if bool(outside.any()) else 0.0
+    return err.max().item(), int(outside.sum().item()), ratio
+
+
+def check_round(server, reqs, resps, label: str, *, hits: bool,
+                launched: dict) -> None:
+    """One served round: every response from one fused launch of a
+    two-member chunk, hit or miss as expected, held to a float64
+    reference (``check_served``) and bit for bit its tenant's solo
+    artifact."""
+    from repro_torch.launch.serve import d_bucket
+    from repro_torch.kernels import ops
+    name, _, _ = kernel_pair(server.backend, server.staging)
+    dispatch = "bcsr_fused" if server.backend == "pallas_bcsr" \
+        else "ell_fused"
+    dispatched = ops.DISPATCH_COUNTS[dispatch]
+    assert dispatched == 2, dict(ops.DISPATCH_COUNTS)
+    assert ops.DISPATCH_COUNTS[dispatch + "_dma"] == 2 * (
+        server.staging == "dma"), dict(ops.DISPATCH_COUNTS)
+    assert launched == {k: 2 * (k == name) for k in SPMM_KERNELS}, launched
+    errs = []
+    for req, resp in zip(reqs, resps):
+        assert resp.tenant == req.tenant and resp.batch_size == 2, resp
+        assert resp.cache_hit == hits, (label, req.tenant, resp.cache_hit)
+        d = req.x.shape[1]
+        y = torch.from_numpy(resp.y)
+        assert y.shape == (req.a.m, d) and bool(torch.isfinite(y).all())
+        x = torch.from_numpy(req.x).cuda()
+        errs.append((req.tenant,) + check_served(req, y))
+        b = d_bucket(d)
+        solo = server.warmup(req.a, d)
+        x_pad = torch.nn.functional.pad(x, (0, b - d))
+        with torch.no_grad():
+            y_solo = solo(req.a.vals, x_pad)[:, :d].cpu()
+        assert torch.equal(y, y_solo), (label, req.tenant)
+    log(f"serve/{label}: {server.backend}/{server.staging}, "
+        f"{'hits' if hits else 'misses'}: 2 chunks, {dispatched} fused "
+        f"dispatches, {name} launches {launched[name]}; every response "
+        f"is bit-identical to its tenant's solo artifact and matches the "
+        f"float64 reference (rtol = atol = 1e-4, else the fp32 summation "
+        f"bound): " + "; ".join(
+            f"{t} max |y - ref| {e:.3g}, {n} elements past 1e-4, "
+            f"{r:.3f} of their bound" for t, e, n, r in errs))
+
+
+def _union(spans) -> float:
+    """Length of the union of ``(start, end)`` spans."""
+    total, reach = 0.0, None
+    for lo, hi in sorted(spans):
+        lo = lo if reach is None else max(lo, reach)
+        if hi > lo:
+            total += hi - lo
+            reach = hi
+    return total
+
+
+def _overlap(spans, others) -> float:
+    """Length of ``spans``' union that lies inside ``others``' union."""
+    return sum(_union([(max(a, c), min(b, d)) for c, d in others
+                       if min(b, d) > max(a, c)]) for a, b in spans)
+
+
+def serve_profile(server, reqs) -> None:
+    """One warm served round, two ways.  CUDA events: the stage's
+    transfers on its side stream (events recorded on that stream around
+    each item's pinning and copies) and the fused launches on the
+    consumer's stream, and how much of the transfers' time overlaps a
+    launch.  ``torch.profiler`` over the same round: the window, device
+    busy and idle share, and the copies, copies back and kernels it
+    recorded, with their streams."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    name, _, _ = kernel_pair(server.backend, server.staging)
+    to_device, op = pipeline.DeviceStage._to_device, getattr(ops, name)
+    copies, launched = [], []
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def timed_copy(stage, item):
+        start, end = event(), event()
+        start.record(stage._stream)
+        staged = to_device(stage, item)
+        end.record(stage._stream)
+        copies.append((start, end))
+        return staged
+
+    def timed_launch(*args, **kw):
+        start, end = event(), event()
+        start.record()
+        out = op(*args, **kw)
+        end.record()
+        launched.append((start, end))
+        return out
+
+    origin = event()
+    pipeline.DeviceStage._to_device = timed_copy
+    setattr(ops, name, timed_launch)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            origin.record()
+            server.serve(reqs)
+            torch.cuda.synchronize()
+    finally:
+        pipeline.DeviceStage._to_device = to_device
+        setattr(ops, name, op)
+    copy_spans = [(origin.elapsed_time(a), origin.elapsed_time(b))
+                  for a, b in copies]
+    launch_spans = [(origin.elapsed_time(a), origin.elapsed_time(b))
+                    for a, b in launched]
+    log(f"serve/stage: one warm round ({server.backend}/{server.staging}), "
+        f"CUDA events: {len(copies)} staged items' transfers (pinning and "
+        f"the copy on the side stream) in {_union(copy_spans):.4f} ms (spans "
+        + ", ".join(f"{a:.3f}-{b:.3f}" for a, b in copy_spans)
+        + f" ms from the round's start), {len(launched)} {name} launches in "
+        f"{_union(launch_spans):.4f} ms ("
+        + ", ".join(f"{a:.3f}-{b:.3f}" for a, b in launch_spans)
+        + f"); {_overlap(copy_spans, launch_spans):.4f} ms of the "
+        f"transfers overlap a launch")
+
+    events = prof.events()
+    device = [e for e in events
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.time_range.end > e.time_range.start]
+    if not device:
+        log("serve/profile: torch.profiler recorded no device time over a "
+            "served round")
+        return
+
+    def spans(evs):
+        return [(e.time_range.start / 1e3, e.time_range.end / 1e3)
+                for e in evs]
+
+    def streams(evs):
+        return sorted({getattr(e, "device_resource_id", -1) for e in evs})
+
+    groups = {"host-to-device copies": [e for e in device if "HtoD" in e.name],
+              "device-to-host copies": [e for e in device if "DtoH" in e.name],
+              "kernels": [e for e in device if "Memcpy" not in e.name
+                          and "Memset" not in e.name]}
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) / 1e3
+    busy = _union(spans(device))
+    # a profiler session after the main phase's has been seen to keep
+    # only some of a round's device events: say so rather than trust
+    # its busy time
+    seen = sum("gather_kernel" in e.name       # K1-K4's CTA template
+               for e in groups["kernels"])
+    note = ("" if seen >= len(launched) else
+            f" (it recorded {seen} of the {len(launched)} {name} launches "
+            f"the CUDA events saw: its busy time and idle share are "
+            f"incomplete)")
+    log(f"serve/profile: the same round under torch.profiler{note}: window "
+        f"{window:.4f} ms, device busy {busy:.4f} ms, idle share "
+        f"{100 * (1 - busy / window):.1f} %; "
+        + "; ".join(f"{label} {len(evs)}, {_union(spans(evs)):.4f} ms on "
+                    f"streams {streams(evs)}" for label, evs in groups.items())
+        + f"; host-to-device copies overlapping a kernel "
+        f"{_overlap(spans(groups['host-to-device copies']), spans(groups['kernels'])):.4f} ms")
+
+
+def serve_times(server, reqs) -> None:
+    """CUDA events: each bucket's batched forward against the sum of its
+    members' solo forwards, and the fused kernel alone on the batch; one
+    served round's wall time."""
+    from repro_torch.core import compile_batched_spmm
+    from repro_torch.launch.serve import d_bucket
+    name, kernel, _ = kernel_pair(server.backend, server.staging)
+    for b in sorted({d_bucket(r.x.shape[1]) for r in reqs}):
+        members = [r for r in reqs if d_bucket(r.x.shape[1]) == b]
+        c = compile_batched_spmm([r.a for r in members], b,
+                                 backend=server.backend,
+                                 staging=server.staging, cache=server.cache)
+        x = torch.from_numpy(c.stack_inputs([r.x for r in members])).cuda()
+        vals = torch.cat([r.a.vals for r in members])
+        with torch.no_grad():
+            batched_ms = time_ms(lambda: c.forward(vals, x))
+            operands, knobs = c.fused_operands(vals, x)
+            fw = c._consts
+            if server.staging == "dma":
+                knobs.update(span=fw.max_span, cspan=fw.max_cspan)
+            kernel_ms = time_ms(lambda: kernel(*operands, **knobs))
+            solo_ms, solo_kernel_ms = [], []
+            for r in members:
+                s = server.warmup(r.a, r.x.shape[1])
+                xs = torch.nn.functional.pad(torch.from_numpy(r.x).cuda(),
+                                             (0, b - r.x.shape[1]))
+                solo_ms.append(time_ms(lambda: s(r.a.vals, xs)))
+                ops_s, knobs_s = s.fused_operands(r.a.vals, xs)
+                if server.staging == "dma":
+                    knobs_s.update(windows(s))
+                solo_kernel_ms.append(time_ms(lambda: kernel(*ops_s,
+                                                             **knobs_s)))
+                del ops_s
+        log(f"serve/bucket {b} ({'+'.join(r.tenant for r in members)}, "
+            f"{server.backend}/{server.staging}): batched forward "
+            f"{batched_ms:.4f} ms against the members' solo forwards "
+            f"{' + '.join(f'{t:.4f}' for t in solo_ms)} = "
+            f"{sum(solo_ms):.4f} ms; {name} alone on the batch "
+            f"{kernel_ms:.4f} ms against "
+            f"{' + '.join(f'{t:.4f}' for t in solo_kernel_ms)} = "
+            f"{sum(solo_kernel_ms):.4f} ms on the members alone "
+            f"(B={fw.num_blocks}, mw={fw.merge_width}, max_span "
+            f"{fw.max_span}, stacked X {tuple(x.shape)})")
+        del c, x, operands
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        server.serve(reqs)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"serve/round wall: {', '.join(f'{w:.1f}' for w in walls)} ms "
+        f"(3 warm rounds of {len(reqs)} requests, host operands in, host "
+        f"outputs back)")
+
+
+def serve_autotune(reqs, launches: _Launches) -> None:
+    """``compile_spmm(arxiv, 128, autotune=True)`` with the default
+    CUDA-event measure: every candidate's predicted ms and the
+    finalists' measured ms; the output ``torch.equal`` to
+    ``compile_spmm`` of the winner; a second call a pure hit.  Then an
+    autotuning server serves one batch with the knobs
+    ``resolve_batch_config`` folds from its members' winners (the 64
+    bucket: fem27 and arxiv's graph at width 40)."""
+    from repro_torch.core import JitCache, compile_spmm
+    from repro_torch.core.autotune import (default_candidates,
+                                           lookup_tune_result,
+                                           resolve_batch_config)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import SpmmRequest, SpmmServer
+    arxiv = reqs[0]
+    a = arxiv.a
+    cache = JitCache()
+    ops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    with launches:
+        c = compile_spmm(a, 128, autotune=True, cache=cache)
+    wall = time.perf_counter() - t0
+    res = lookup_tune_result(a, 128, backend=c.backend, device=c.device,
+                             candidates=default_candidates(staging=c.staging),
+                             cache=cache)
+    assert res is not None and c.strategy == res.config.strategy
+    for cfg, pred in sorted(res.predicted_s.items(), key=lambda kv: kv[1]):
+        meas = res.measured_s.get(cfg)
+        log(f"serve/autotune arxiv: {cfg.strategy} merge_threshold "
+            f"{cfg.merge_threshold} {cfg.staging}: predicted "
+            f"{pred * 1e3:.4f} ms"
+            + ("" if meas is None else f", measured {meas * 1e3:.4f} ms")
+            + (" (winner)" if cfg == res.config else ""))
+    log(f"serve/autotune arxiv: search {res.tune_seconds:.2f} s "
+        f"(BUILD_SECONDS tune {ops.BUILD_SECONDS['tune']:.2f} s, compile "
+        f"{wall:.2f} s wall), launches {launches.last}")
+    x = torch.from_numpy(arxiv.x).cuda()
+    winner = compile_spmm(a, 128, cache=JitCache(),
+                          **res.config.compile_kwargs())
+    with torch.no_grad():
+        assert torch.equal(c(a.vals, x), winner(a.vals, x))
+    del winner
+    misses = cache.stats()["misses"]
+    assert compile_spmm(a, 128, autotune=True, cache=cache) is c
+    assert cache.stats()["misses"] == misses
+    log("serve/autotune arxiv: output bit-identical to compile_spmm of the "
+        "winner; the second autotune compile is a pure cache hit")
+    # the 64 bucket, fem27 and arxiv's graph at width 40: web's search
+    # would build row_split's ELL padded to its 10,876-long rows, a
+    # (131072 x 10876) int64 slot array, 10.6 GiB of host memory and
+    # minutes of planning for one candidate; stencil's (8.4 M nonzeros)
+    # adds tens of seconds
+    server = SpmmServer(max_batch=4, autotune=True, cache=cache)
+    members = [reqs[3], SpmmRequest("arxiv", a, arxiv.x[:, :40])]
+    tune0 = ops.BUILD_SECONDS["tune"]
+    t0 = time.perf_counter()
+    with launches:
+        resps = server.serve(members)
+    wall = time.perf_counter() - t0
+    results = [lookup_tune_result(r.a, 64, backend=server.backend,
+                                  device=server.device,
+                                  candidates=server._tune_candidates,
+                                  cache=cache) for r in members]
+    cfg = resolve_batch_config(results, server._fallback_config)
+    (key,) = [k for k in cache._entries if k[0] == "spmm_batch"]
+    batched = cache.peek(key)
+    assert (batched.strategy, batched.staging, batched.bm, batched.bk) == (
+        cfg.strategy, cfg.staging, cfg.bm, cfg.bk), (batched.strategy, cfg)
+    errs = []
+    for r, resp in zip(members, resps):
+        assert resp.batch_size == 2
+        errs.append((r.tenant,) + check_served(r, torch.from_numpy(resp.y)))
+    log(f"serve/autotune server: fem27+arxiv (d 40) as one batch in "
+        f"{wall:.2f} s wall (their searches {ops.BUILD_SECONDS['tune'] - tune0:.2f} s) "
+        f"with the folded knobs {cfg} (winners: "
+        f"{', '.join(f'{r.tenant} {res.config.strategy}/{res.config.merge_threshold}' for r, res in zip(members, results))}), "
+        f"each response held to the float64 reference: " + "; ".join(
+            f"{t} max |y - ref| {e:.3g}, {n} elements past 1e-4, "
+            f"{q:.3f} of their bound" for t, e, n, q in errs)
+        + f"; launches {launches.last}")
+
+
+def serve_memory(reqs, caches) -> None:
+    """Device memory falls with no ``gc.collect()``: on ``cache.clear()``
+    of the caches the phase filled, by at least their artifacts' tables,
+    and on eviction from ``JitCache(capacity=2)``."""
+    from repro_torch.core import JitCache
+    from repro_torch.launch.serve import SpmmServer
+    torch.cuda.synchronize()
+    for cache in caches:
+        tables = sum(table_bytes(e.value) for e in cache._entries.values()
+                     if hasattr(e.value, "_consts")
+                     or getattr(e.value, "_fused", None) is not None)
+        before = torch.cuda.memory_allocated()
+        cache.clear()
+        after = torch.cuda.memory_allocated()
+        assert before - after >= tables, (before, after, tables)
+        log(f"serve/memory: cache.clear() {before / 2**30:.3f} -> "
+            f"{after / 2**30:.3f} GiB allocated (fell "
+            f"{(before - after) / 2**30:.3f} GiB; the artifacts' tables "
+            f"{tables / 2**30:.3f} GiB), no gc.collect()")
+    cache = JitCache(capacity=2)
+    server = SpmmServer(max_batch=1, cache=cache)
+    from repro_torch.launch.serve import SpmmRequest
+    fem27, arxiv = reqs[3], reqs[0]
+    # arxiv's structure again at width 40: a third artifact, 64 bucket
+    arxiv40 = SpmmRequest("arxiv", arxiv.a, arxiv.x[:, :40])
+    server.serve([fem27])
+    server.serve([arxiv])            # fem27 is now least recent
+    evicted = table_bytes(cache.peek(next(iter(cache._entries))))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    server.serve([arxiv40])          # evicts fem27's artifact
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    added = table_bytes(server.warmup(arxiv.a, 40))
+    assert cache.stats()["evictions"] == 1
+    assert after <= before - evicted + added + 2 ** 20, (
+        before, after, evicted, added)
+    assert after < before
+    log(f"serve/memory: eviction at JitCache(capacity=2) {before / 2**30:.3f} "
+        f"-> {after / 2**30:.3f} GiB allocated (fem27's tables "
+        f"{evicted / 2**30:.3f} GiB out, arxiv's at d 40 "
+        f"{added / 2**30:.3f} GiB in), no gc.collect()")
+
+
+def phase_serve() -> dict:
+    """The serving tier at tenant sizes (see the module docstring)."""
+    from repro_torch.core import JitCache
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import SpmmScheduler, SpmmServer
+    t_phase = time.perf_counter()
+    reqs = serve_requests()
+    launches = _Launches()
+    caches = []
+    direct = None
+    for label, kw in SERVE_CONFIGS:
+        server = SpmmServer(max_batch=4, cache=JitCache(), **kw)
+        caches.append(server.cache)
+        if label == "default":
+            assert (server.backend, server.staging) == ("pallas_bcsr", "dma")
+        for rnd in (1, 2):
+            ops.reset_dispatch_counts()
+            t0 = time.perf_counter()
+            with launches:
+                resps = server.serve(reqs)
+            wall = time.perf_counter() - t0
+            log(f"serve/{label}: round {rnd} {wall:.2f} s wall "
+                f"(plan {ops.BUILD_SECONDS['plan']:.2f} s, pack "
+                f"{ops.BUILD_SECONDS['pack']:.2f} s)")
+            check_round(server, reqs, resps, f"{label}/round {rnd}",
+                        hits=rnd == 2, launched=launches.last)
+        if label != "default":
+            continue
+        direct = resps
+        # the scheduler, on manual ticks and on its thread: bit for bit
+        # the direct round
+        for executor in (None, "thread"):
+            with launches:
+                sched = SpmmScheduler(server, max_queue_per_tenant=8,
+                                      executor=executor)
+                futures = [sched.submit(r) for r in reqs]
+                sched.close(drain=True)
+            for req, fut, want in zip(reqs, futures, direct):
+                got = fut.result(timeout=60)
+                assert not fut.rejected, got
+                assert np.array_equal(got.y, want.y), (executor, req.tenant)
+            cb = sched.stats()
+            log(f"serve/scheduler ({executor or 'manual ticks'}): "
+                f"{cb['dispatched']} dispatched in {cb['ticks']} ticks, "
+                f"{cb['rejected']} rejected; outputs bit-identical to "
+                f"round 2; launches {launches.last}")
+        serve_times(server, reqs)
+        serve_profile(server, reqs)
+    serve_autotune(reqs, launches)
+    serve_memory(reqs, caches)
+    del caches, direct
+    log(f"serve: launches {launches.total}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches.total
+
+
 # -- the sparse-attention sandwich: K5 / K6 -----------------------------------
 
 def weighted_mask(m: int, n: int, density: float, seed: int):
@@ -2885,15 +3412,23 @@ def main() -> int:
         return ab_main(args)
     from repro_torch.core import JitCache
     t_start = time.perf_counter()
+
+    def done(name: str) -> None:
+        log(f"{name}: done {time.perf_counter() - t_start:.1f} s into the run")
+
     phase_device()
     phase_build()
     phase_kernels()
+    done("kernels")
     instances = make_instances()
     cache = JitCache()
     results, compiled = phase_main(instances, cache)
+    done("main")
     train = phase_train(instances["uniform"][0], cache)
+    done("train")
     grad = phase_grad(compiled[("uniform", "auto", None)],
                       *instances["uniform"], cache)
+    done("grad")
     t_phase = time.perf_counter()
     oracles = phase_oracles(instances, compiled, grad)
     # K7's launches: the oracles path's and the backward's dvals
@@ -2903,15 +3438,20 @@ def main() -> int:
     sharded = phase_sharded(instances, compiled, grad, cache)
     log(f"sharded: SpMM part {time.perf_counter() - t_phase:.1f} s")
     del grad
-    # the artifacts and their cache reference each other: collect the
-    # cycles so the SpMM phases' device tables are freed here
+    # an artifact holds its cache weakly, so dropping the cache frees the
+    # SpMM phases' device tables at once, with no gc.collect()
     del instances, compiled, cache
-    gc.collect()
     torch.cuda.empty_cache()
     log(f"memory allocated after the SpMM phases: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    # the serving tier; its K1-K4 launches join the main path's counts
+    for name, n in phase_serve().items():
+        results[name]["launches"] += n
+    done("serve")
     phase_attn_kernels()
+    done("attention kernels")
     attn, attn_case = phase_attention()
+    done("attention")
     t_phase = time.perf_counter()
     sharded["attn_fused_sharded"] = phase_sharded_attention(*attn_case)
     del attn_case
@@ -2919,6 +3459,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"sharded: attention part {time.perf_counter() - t_phase:.1f} s")
     sattn = phase_sattn()
+    done("sattn")
     # K5/K6 launches: the attention op path's plus the layer's forward
     for name, row in attn.items():
         row["launches"] += sattn["launches"] if name == "attn_fused_staged" \

@@ -1,7 +1,7 @@
 # The paper's primary contribution, JIT-specialized SpMM, and the fused
 # sparse-attention sandwich on the same plan, on one device or sharded
-# over a chip mesh, ported to PyTorch + CUDA (the reference is
-# src/repro/core/).
+# over a chip mesh, with its autotuner and the serving tier's batched
+# artifact, ported to PyTorch + CUDA (the reference is src/repro/core/).
 from .csr import BCSRMatrix, CSRMatrix, from_coo, random_csr
 from .ccm import ccm_register_decomposition, plan_d_tiles, DTiling
 from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
@@ -19,10 +19,13 @@ from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
                    PLAN_STAGES, MAX_MERGE_WIDTH, MXU_TAG, VPU_TAG)
 from .jit_cache import (GLOBAL_CACHE, JitCache, clear_global_cache,
                         mesh_fingerprint)
-from .spmm import (ChipMesh, CompiledSparseAttention, CompiledSpmm,
-                   chip_mesh, compile_sparse_attention, compile_spmm,
+from .spmm import (ChipMesh, CompiledBatchedSpmm, CompiledSparseAttention,
+                   CompiledSpmm, chip_mesh, compile_batched_spmm,
+                   compile_sparse_attention, compile_spmm,
                    resolve_chip_mesh, sparse_attention, spmm, BACKENDS,
                    FUSED_BACKENDS, X_SHARDING_MODES)
+from .autotune import (TuneConfig, TuneResult, autotune_spmm,
+                       autotune_spmm_with_result, default_candidates)
 
 __all__ = [
     "BCSRMatrix", "CSRMatrix", "from_coo", "random_csr",
@@ -43,5 +46,7 @@ __all__ = [
     "CompiledSpmm", "compile_spmm", "spmm", "BACKENDS", "FUSED_BACKENDS",
     "X_SHARDING_MODES", "ChipMesh", "chip_mesh", "resolve_chip_mesh",
     "CompiledSparseAttention", "compile_sparse_attention",
-    "sparse_attention",
+    "sparse_attention", "CompiledBatchedSpmm", "compile_batched_spmm",
+    "TuneConfig", "TuneResult", "autotune_spmm",
+    "autotune_spmm_with_result", "default_candidates",
 ]

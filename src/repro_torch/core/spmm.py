@@ -53,13 +53,23 @@ launches (``distributed/collectives.py``); ``"auto"`` resolves to
 ``"replicated"`` where the chips share one (the CPU's chips, or one
 card's), where owning X panels saves no memory.  A mesh may repeat a device (``ChipMesh(("cuda:0",) * 4)``),
 and the sharded output equals the unsharded one bit for bit.  Sparse
-attention shards the same way with K/V replicated.  Autotuning is still
-to come.
+attention shards the same way with K/V replicated.
+
+``compile_spmm(..., autotune=True)`` searches the plan knobs per
+instance (``core/autotune.py``).  ``compile_batched_spmm`` stacks R
+tenants' structures into ONE fused launch for the serving tier
+(``launch/serve.py``), bit for bit each tenant's solo forward.
+
+An artifact holds its ``JitCache`` through a weak reference (it needs it
+only to cache its transposed artifact), so an artifact the cache drops —
+cleared or evicted — frees its device tables as soon as the caller lets
+go of it, without waiting for the cyclic garbage collector.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -68,8 +78,9 @@ import torch
 from . import ccm
 from .csr import CSRMatrix
 from .jit_cache import GLOBAL_CACHE, JitCache, mesh_fingerprint
-from .plan import (SPARSE_ATTN_EINSUM, SPARSE_ATTN_MIXED_EINSUM, MixedPlan,
-                   ShardedFusedWorkspace, SpmmPlan, build_einsum_workspace,
+from .plan import (SPARSE_ATTN_EINSUM, SPARSE_ATTN_MIXED_EINSUM,
+                   BatchedFusedWorkspace, MixedPlan, ShardedFusedWorkspace,
+                   SpmmPlan, build_batched_workspace, build_einsum_workspace,
                    build_fused_workspace, build_mixed_plan, build_plan,
                    build_sharded_workspace, choose_merge_width,
                    sharded_workspace_row_maps, workspace_row_map)
@@ -85,9 +96,10 @@ from ..kernels.ref import spmm_coo_ref, spmm_dense_ref
 from ..kernels.sddmm import sddmm
 
 __all__ = ["BACKENDS", "FUSED_BACKENDS", "X_SHARDING_MODES", "ChipMesh",
-           "CompiledSparseAttention", "CompiledSpmm", "PlanVerificationError",
-           "chip_mesh", "compile_sparse_attention", "compile_spmm",
-           "resolve_chip_mesh", "sparse_attention", "spmm"]
+           "CompiledBatchedSpmm", "CompiledSparseAttention", "CompiledSpmm",
+           "PlanVerificationError", "chip_mesh", "compile_batched_spmm",
+           "compile_sparse_attention", "compile_spmm", "resolve_chip_mesh",
+           "sparse_attention", "spmm"]
 
 # bound on the (nonzeros x d) products one SDDMM chunk holds at a time:
 # 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]; the
@@ -344,7 +356,10 @@ class CompiledSpmm:
                                             self.device)
         self.d = d
         self.shape = a.shape
-        self.cache = cache
+        # weak: the cache holds this artifact, and a strong reference
+        # back would keep a cleared or evicted artifact's device tables
+        # alive until the cyclic garbage collector runs
+        self._cache_ref = weakref.ref(cache)
         # the structure, for the backward's transposed artifact and SDDMM
         self._fingerprint = a.fingerprint
         self._row_ptr = a.row_ptr
@@ -588,7 +603,10 @@ class CompiledSpmm:
                          dy: torch.Tensor) -> torch.Tensor:
         """dX = Aᵀ·dY through the transposed artifact: built once, cached
         in this artifact's ``JitCache`` with every knob of the forward
-        (the staging mode included), and fed ``vals[t_order]``."""
+        (the staging mode included), and fed ``vals[t_order]``.  When
+        that cache is gone (an artifact compiled into a temporary
+        ``JitCache()``), the transposed artifact is built for this one
+        and held by it alone."""
         if self._transpose is None:
             a = CSRMatrix(self.shape, self._row_ptr, self._col_indices,
                           torch.zeros(self._col_indices.shape[0],
@@ -599,14 +617,20 @@ class CompiledSpmm:
                    self.device, self.staging, self.x_sharding,
                    self.merge_threshold, self.validate,
                    mesh_fingerprint(self.mesh))
-            self._transpose = self.cache.get_or_build(
-                key, lambda: CompiledSpmm(
+            cache = self._cache_ref()
+
+            def build():
+                return CompiledSpmm(
                     t_struct, self.d, strategy=self.strategy,
                     backend=self.backend, device=self.device, bm=self.bm,
                     bk=self.bk, mxu_gain=self.mxu_gain, staging=self.staging,
                     merge_threshold=self.merge_threshold,
                     validate=self.validate, mesh=self.mesh,
-                    x_sharding=self.x_sharding, cache=self.cache))
+                    x_sharding=self.x_sharding,
+                    cache=JitCache() if cache is None else cache)
+
+            self._transpose = (build() if cache is None
+                               else cache.get_or_build(key, build))
             self._t_order = torch.from_numpy(order).to(self.device)
         return self._transpose._forward(vals[self._t_order], dy)
 
@@ -622,6 +646,8 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
                  mesh: Optional[ChipMesh] = None,
                  n_chips: Optional[int] = None,
                  x_sharding: Optional[str] = None,
+                 autotune: bool = False, measure=None, candidates=None,
+                 top_k: int = 3, cache_priority: float = 0.0,
                  cache: JitCache = GLOBAL_CACHE) -> CompiledSpmm:
     """Build (or fetch) the structure-specialized SpMM artifact.
 
@@ -649,7 +675,25 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
     ``"rows"``, owned by the chips in bk-row panels and fetched by the
     exact-panel exchange; ``"auto"``/``None`` is ``"rows"`` on a mesh
     that spans more than one device, else ``"replicated"``.  The resolved
-    mesh and ``x_sharding`` join the cache key."""
+    mesh and ``x_sharding`` join the cache key.
+
+    ``autotune=True`` instead searches strategy × merge × staging per
+    instance (``core.autotune``, memoized in the same cache): the
+    explicit knobs then serve as the search's fallback, and ``measure``
+    / ``candidates`` / ``top_k`` pass through to the search (tests inject
+    a fake timer).  ``cache_priority`` is the artifact's SLA eviction
+    score (DESIGN.md §14.4): the serving tier maps a tenant's deadline
+    hint onto it, so a capacity-bounded cache sheds cold tenants'
+    artifacts first."""
+    if autotune:
+        from .autotune import autotune_spmm
+        return autotune_spmm(a, d, backend=backend, bm=bm, bk=bk,
+                             mxu_gain=mxu_gain, device=device, mesh=mesh,
+                             n_chips=n_chips, staging=staging,
+                             x_sharding=x_sharding, validate=validate,
+                             measure=measure, candidates=candidates,
+                             top_k=top_k, cache_priority=cache_priority,
+                             cache=cache)
     device = resolve_device(device)
     backend = _resolve_backend(
         backend, device, sharded=mesh is not None or n_chips is not None)
@@ -667,7 +711,217 @@ def compile_spmm(a: CSRMatrix, d: int, *, strategy: str = "nnz_split",
                                   mxu_gain=mxu_gain, staging=staging,
                                   merge_threshold=merge_threshold,
                                   validate=validate, mesh=mesh,
-                                  x_sharding=x_sharding, cache=cache))
+                                  x_sharding=x_sharding, cache=cache),
+        priority=cache_priority)
+
+
+class CompiledBatchedSpmm:
+    """Request-axis batched artifact for the serving tier (DESIGN.md
+    §12; port of the reference's class of the same name): R
+    structure-specialized instances stacked block-diagonally
+    (:func:`build_batched_workspace`) into ONE fused launch of the
+    ordinary single-device kernels — K1/K3 on ``pallas_ell``, K2/K4 on
+    ``pallas_bcsr`` — and one ``inv_perm`` gather.
+
+    Bit-identical to dispatching each request alone with the same knobs:
+    slot padding, d-bucket padding, the uniform staged windows and the
+    common CGCM width (the minimum of the members') all leave each
+    lane's accumulation order untouched.  Forward-only: the endpoint
+    never differentiates through a served batch.  It holds no reference
+    to its cache.
+    """
+
+    def __init__(self, structures, d: int, *,
+                 strategy: str = "nnz_split", backend: str = "auto",
+                 device: Optional[str] = None, bm: int = 8, bk: int = 8,
+                 mxu_gain: float = 4.0, staging: Optional[str] = None,
+                 merge_threshold=0, validate: Optional[str] = None):
+        self.device = resolve_device(device)
+        # sharded=True resolution: batching stacks descriptor tables, so
+        # "auto" must land on a fused backend on the CPU too
+        self.backend = _resolve_backend(backend, self.device, sharded=True)
+        if self.backend not in FUSED_BACKENDS:
+            raise ValueError(
+                f"batched dispatch stacks descriptor tables — a fused "
+                f"backend is required ({'/'.join(FUSED_BACKENDS)}), "
+                f"got {self.backend!r}")
+        self.strategy = strategy
+        self.bm = bm
+        self.bk = bk
+        self.mxu_gain = mxu_gain
+        # scalar = one CGCM threshold for every member; a sequence
+        # carries each member's own tuned threshold into the common-
+        # width fold (DESIGN.md §14.3)
+        self.merge_threshold = _normalize_batch_merge_threshold(
+            merge_threshold, len(structures))
+        self.validate = resolve_validate(validate, self.device)
+        self.staging = _resolve_staging_for(self.backend, staging,
+                                            self.device)
+        self.d = int(d)
+        self.shapes = [tuple(int(v) for v in a.shape) for a in structures]
+        self.d_tiling = ccm.plan_d_tiles(d, rows_in_flight=bm)
+        bw: BatchedFusedWorkspace = build_batched_workspace(
+            [(a.row_ptr, a.col_indices, a.shape) for a in structures],
+            d, strategy=strategy, row_block=bm, backend=self.backend,
+            bk=bk, mxu_gain=mxu_gain,
+            merge_threshold=self.merge_threshold,
+            fingerprint="+".join(a.fingerprint[:8] for a in structures))
+        self.batched_workspace = bw
+        _verify_workspace_timed(
+            bw, level=self.validate,
+            context=f"compile_batched_spmm[{self.backend}]")
+
+        def dev(arr: np.ndarray, dtype=torch.int32) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=self.device, dtype=dtype)
+
+        self._consts = _FusedConsts(
+            blk_tag=dev(bw.blk_tag), blk_off=dev(bw.blk_off),
+            blk_coff=dev(bw.blk_coff), blk_L=dev(bw.blk_L),
+            cols_flat=dev(bw.cols_flat),
+            gather_flat=dev(bw.gather_flat, torch.int64),
+            inv_perm=dev(bw.inv_perm, torch.int64),
+            num_blocks=bw.num_blocks, merge_width=bw.merge_width,
+            max_span=bw.max_span, max_cspan=bw.max_cspan)
+        record_build_seconds("plan",
+                             sum(p.plan_seconds for p in bw.request_plans))
+        record_build_seconds("pack", bw.pack_seconds)
+        self._row_splits = [int(v) for v in bw.row_splits]
+
+    @property
+    def n_requests(self) -> int:
+        return len(self.shapes)
+
+    def stack_inputs(self, xs) -> np.ndarray:
+        """Host-side bucket padding: per-request ``(n_r, d_r <= d)``
+        operands -> ONE zero-filled ``(R * x_rows_pad, d)`` float32
+        host array (request r's rows at ``[r * x_rows_pad, ...)``)."""
+        bw = self.batched_workspace
+        out = np.zeros((bw.n_requests * bw.x_rows_pad, self.d), np.float32)
+        for r, x in enumerate(xs):
+            x = np.asarray(x, np.float32)
+            out[r * bw.x_rows_pad:r * bw.x_rows_pad + x.shape[0],
+                :x.shape[1]] = x
+        return out
+
+    def fused_operands(self, vals: torch.Tensor, x: torch.Tensor):
+        """The fused kernel's arguments for one forward over the whole
+        batch (positional, in the kernel's order) and its static knobs:
+        the stacked tables, the gathered slot values of the concatenated
+        ``vals`` and the stacked X, padded to the lane tile and passed
+        through ``aligned16``."""
+        fw = self._consts
+        vals_ext = torch.cat([vals.float(),
+                              vals.new_zeros(1, dtype=torch.float32)])
+        vals_flat = vals_ext[fw.gather_flat]
+        x_pad = aligned16(ccm.pad_cols(x.float(),
+                                       self.d_tiling.d_pad).contiguous())
+        if self.backend == "pallas_ell":
+            return ((fw.blk_off, fw.blk_L, fw.cols_flat, vals_flat, x_pad),
+                    dict(bm=self.bm, mw=fw.merge_width))
+        return ((fw.blk_tag, fw.blk_off, fw.blk_coff, fw.blk_L,
+                 fw.cols_flat, vals_flat, x_pad),
+                dict(bm=self.bm, bk=self.bk, mw=fw.merge_width))
+
+    def forward(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``vals``: every member's values concatenated in request order;
+        ``x``: the stacked operand of :meth:`stack_inputs`, on the
+        artifact's device.  One fused launch, then one ``inv_perm``
+        gather that un-interleaves every request: the (sum m_r, d)
+        output, request r's rows at ``row_splits[r]``."""
+        bw, fw = self.batched_workspace, self._consts
+        if tuple(x.shape) != (bw.n_requests * bw.x_rows_pad, self.d):
+            raise ValueError(
+                f"x must be the stacked ({bw.n_requests * bw.x_rows_pad}, "
+                f"{self.d}) operand, got {tuple(x.shape)}")
+        if tuple(vals.shape) != (bw.nnz,):
+            raise ValueError(f"vals must hold the batch's {bw.nnz} values, "
+                             f"got {tuple(vals.shape)}")
+        for name, t in (("vals", vals), ("x", x)):
+            if torch.device(self.device) != t.device:
+                raise ValueError(f"{name} is on {t.device}, but this "
+                                 f"artifact was compiled for {self.device}")
+        if fw.num_blocks == 0:
+            return torch.zeros((self._row_splits[-1], self.d),
+                               dtype=torch.float32, device=x.device)
+        operands, knobs = self.fused_operands(vals, x)
+        op = (spmm_ell_fused_op if self.backend == "pallas_ell"
+              else spmm_bcsr_fused_op)
+        y_ws = op(*operands, **knobs, staging=self.staging,
+                  span=fw.max_span, cspan=fw.max_cspan)
+        return y_ws[fw.inv_perm, :self.d]
+
+    def __call__(self, vals, xs):
+        """``vals``: per-request value vectors (concatenated on the
+        device with ``torch.cat``) or one pre-concatenated tensor;
+        ``xs``: per-request host operands or the pre-stacked operand
+        (host array or tensor).  Returns per-request ``(m_r, d)``
+        outputs in request order."""
+        if isinstance(vals, (list, tuple)):
+            vals = torch.cat([torch.as_tensor(v, dtype=torch.float32,
+                                              device=self.device).reshape(-1)
+                              for v in vals])
+        if isinstance(xs, (list, tuple)):
+            xs = self.stack_inputs(xs)
+        if isinstance(xs, np.ndarray):
+            xs = torch.from_numpy(xs).to(self.device)
+        with torch.no_grad():
+            y = self.forward(vals, xs)
+        rs = self._row_splits
+        return [y[rs[r]:rs[r + 1]] for r in range(self.n_requests)]
+
+
+def _normalize_batch_merge_threshold(merge_threshold, n_requests: int):
+    """Scalar -> int; per-member sequence -> tuple of ints, collapsed
+    back to the scalar when every member agrees so a uniform tuple and
+    the plain scalar share one cache key (and one artifact)."""
+    if np.ndim(merge_threshold) == 0:
+        return int(merge_threshold)
+    ts = tuple(int(t) for t in merge_threshold)
+    if len(ts) != n_requests:
+        raise ValueError(
+            f"per-request merge_threshold needs {n_requests} entries, "
+            f"got {len(ts)}")
+    if len(set(ts)) == 1:
+        return ts[0]
+    return ts
+
+
+def compile_batched_spmm(structures, d: int, *,
+                         strategy: str = "nnz_split",
+                         backend: str = "auto",
+                         device: Optional[str] = None, bm: int = 8,
+                         bk: int = 8, mxu_gain: float = 4.0,
+                         staging: Optional[str] = None,
+                         merge_threshold=0,
+                         validate: Optional[str] = None,
+                         cache_priority: float = 0.0,
+                         cache: JitCache = GLOBAL_CACHE
+                         ) -> CompiledBatchedSpmm:
+    """Build (or fetch) the batched multi-tenant artifact (DESIGN.md
+    §12): the cache key is the ORDERED tuple of member fingerprints plus
+    every knob a solo key carries, ``device`` in the place of the
+    reference's ``interpret`` — so an endpoint that sees the same batch
+    composition twice plans and packs once.  ``merge_threshold`` may be
+    one scalar or a per-member sequence (DESIGN.md §14.3);
+    ``cache_priority`` is the artifact's SLA eviction score (§14.4)."""
+    structures = tuple(structures)
+    device = resolve_device(device)
+    backend = _resolve_backend(backend, device, sharded=True)
+    staging = _resolve_staging_for(backend, staging, device)
+    merge_threshold = _normalize_batch_merge_threshold(
+        merge_threshold, len(structures))
+    validate = resolve_validate(validate, device)
+    key = ("spmm_batch", tuple(a.fingerprint for a in structures), d,
+           strategy, backend, bm, bk, mxu_gain, device, staging,
+           merge_threshold, validate)
+    return cache.get_or_build(
+        key, lambda: CompiledBatchedSpmm(
+            structures, d, strategy=strategy, backend=backend,
+            device=device, bm=bm, bk=bk, mxu_gain=mxu_gain,
+            staging=staging, merge_threshold=merge_threshold,
+            validate=validate),
+        priority=cache_priority)
 
 
 def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",
@@ -675,7 +929,8 @@ def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",
          bk: int = 8, mxu_gain: float = 4.0, staging: Optional[str] = None,
          merge_threshold: int = 0, validate: Optional[str] = None,
          mesh: Optional[ChipMesh] = None, n_chips: Optional[int] = None,
-         x_sharding: Optional[str] = None,
+         x_sharding: Optional[str] = None, autotune: bool = False,
+         measure=None, candidates=None, top_k: int = 3,
          cache: JitCache = GLOBAL_CACHE) -> torch.Tensor:
     """Y = A·X, specialized to A's structure and x's column count."""
     compiled = compile_spmm(a, x.shape[1], strategy=strategy,
@@ -683,7 +938,9 @@ def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",
                             mxu_gain=mxu_gain, staging=staging,
                             merge_threshold=merge_threshold,
                             validate=validate, mesh=mesh, n_chips=n_chips,
-                            x_sharding=x_sharding, cache=cache)
+                            x_sharding=x_sharding, autotune=autotune,
+                            measure=measure, candidates=candidates,
+                            top_k=top_k, cache=cache)
     return compiled(a.vals, x)
 
 

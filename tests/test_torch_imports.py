@@ -57,7 +57,11 @@ def test_every_slice_module_is_covered():
                  "repro_torch.kernels.sddmm", "repro_torch.kernels.spmm_csr",
                  "repro_torch.kernels.spmm_bcsr", "repro_torch.distributed",
                  "repro_torch.distributed.sharding",
-                 "repro_torch.distributed.collectives"):
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.core.autotune", "repro_torch.analysis.roofline",
+                 "repro_torch.analysis.memmodel", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.launch",
+                 "repro_torch.launch.serve"):
         assert name in modules, name
     for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
                 "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu",

@@ -179,10 +179,11 @@ def test_operands_on_another_device_are_refused():
 def test_knobs_of_later_slices_are_not_accepted():
     import inspect
     params = inspect.signature(spmm_mod.compile_spmm).parameters
-    # autotuning is a later slice; the reference's interpret knob is the
-    # port's device
-    for knob in ("autotune", "measure", "candidates", "top_k", "interpret"):
-        assert knob not in params, knob
-    # the sharded slice's knobs are in
-    for knob in ("mesh", "n_chips", "x_sharding"):
+    # the reference's interpret knob is the port's device
+    assert "interpret" not in params
+    assert "device" in params
+    # the sharded slice's knobs are in, and the serving slice's
+    # (autotuning and the SLA eviction priority)
+    for knob in ("mesh", "n_chips", "x_sharding", "autotune", "measure",
+                 "candidates", "top_k", "cache_priority"):
         assert knob in params, knob
