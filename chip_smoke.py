@@ -27,12 +27,14 @@ result line):
 3. kernels — each kernel against its plain PyTorch version on the card
              (rtol = atol = 1e-5; K1 and K2 also ``torch.equal``), and
              each staged kernel against its resident twin
-             (``torch.equal``: K3 = K1, K4 = K2): every
-             strategy x merge_threshold {0, 16} x d {16, 100, 128, 640},
-             on a mixed VPU/MXU fixture, one with empty rows and an empty
-             matrix, also with a 64-entry staging slot; plus a hub row
-             and a dense 8-row block-row whose windows exceed the slot
-             (and shared memory), which must take the chunked walk.  Then
+             (``torch.equal``: K3 = K1, K4 = K2): every strategy x
+             merge_threshold {0, 16} once, the widths d {16, 100, 128,
+             640} and row blocks in turn beside them (a covering subset
+             of their product), on a mixed VPU/MXU fixture, one with
+             empty rows and an empty matrix, also with a 64-entry
+             staging slot; plus, one configuration a backend, a hub
+             row and a dense 8-row block-row whose windows exceed the
+             slot (and shared memory), which must take the chunked walk.  Then
              K1 called directly at d_pad 47, 128 and 200 (both routes)
              at every bm, merged and not, bit for bit its plain version
              and K3.
@@ -128,7 +130,34 @@ result line):
              Q/K/V projections, RoPE and the rest (each forward must make
              16, 1 and 2 such calls), and K6 alone on one head's
              operands gives its time a launch at S = 4096.
-11. sharded — K8, the sharded path, on a mesh of 4 chips over the one
+11. model  — the decoder stack (``models/``) on the card, seeded
+             weights, checked at float32 and timed at float32 and at the
+             configs' bfloat16, beside the card's name and power limit.
+             (m1) longformer-1.4b at full width and depth (24 sattn
+             layers, d_model 2048, 16 heads, vocab 50265, 1.8 B
+             parameters): ``Model.loss_fn`` on batch 1 at S = 4096 makes
+             exactly 384 K6 launches (counted) and no plain version runs;
+             the loss is finite and near ln 50265; the logits are held to
+             the same weights composed from the layer functions with the
+             sattn layer on ``backend="ref"`` (rtol = atol = 1e-4); the
+             forward and its 384 K6 calls timed by CUDA events.  (m2)
+             ``generate`` on those weights, batch 4, prompt 1024, 32 new
+             tokens: every token the decode loop's argmax, prefill's
+             logits and each decode step's held to ``forward_train``'s
+             (K6) on the generated sequence at 2e-3; prefill, a decode
+             step and tokens/s timed.  (m3) mixtral-8x7b at full width,
+             2 of 32 layers: on the first MoE layer's normed input (S =
+             4096, C = 1280) ``dispatch`` is bit for bit Sᵀ·tokens
+             through ``compile_spmm`` (K4 at d = 4096), ``combine``
+             matches S·expert_out at 1e-5 and ``moe_apply_concrete(
+             backend="auto")`` the gather path at rtol 1e-4, atol 1e-5
+             (4 K4 launches, counted); K4 timed there beside its bound and
+             ``torch.sparse.mm``; then ``loss_fn`` (finite) and
+             ``generate`` (batch 4, prompt 512, 32 tokens) timed.  (m4)
+             every ported architecture at ``reduced()``: the same weights
+             on the card and the CPU give logits within 1e-4, and a
+             greedy ``generate`` of 8 tokens runs on the card.
+12. sharded — K8, the sharded path, on a mesh of 4 chips over the one
              card (``ChipMesh(("cuda:0",) * 4)``), in two parts.  After
              ``oracles``, while the SpMM artifacts live: the three sharded
              wrappers against their plain versions (rtol = atol = 1e-5)
@@ -152,7 +181,7 @@ result line):
              the longformer mask over the same mesh, 4 K6 launches, bit-
              identical to the unsharded default forward, timed the same
              way.
-12. serve  — after the sharded SpMM part, the serving tier at tenant
+13. serve  — after the sharded SpMM part, the serving tier at tenant
              sizes (``launch/serve.py``): four seeded tenants in two
              d-buckets — arxiv (ogbn-arxiv's 169,343 nodes, 1.17 M
              edges, d 128), web (power-law, 2^17 rows, 16 a row, d 100),
@@ -180,7 +209,7 @@ result line):
              with kernels); device memory falling on ``cache.clear()``
              and on eviction at ``JitCache(capacity=2)`` with no
              ``gc.collect()``.
-13. report — the launch counts, one JSON line of per-kernel numbers, and
+14. report — the launch counts, one JSON line of per-kernel numbers, and
              the final ``{"ok": true, ...}`` line.
 
 With ``--ab-parent DIR`` (a parent commit unpacked with ``git
@@ -323,16 +352,20 @@ def mixed_dense(seed: int, m: int = 48, n: int = 64) -> np.ndarray:
     return dense
 
 
+def card_line() -> str:
+    """nvidia-smi's own line for the card: its name and power limit."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
 def phase_device() -> None:
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs a Hopper card (9, 0), "
                          f"got {cap}")
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    log(smi)    # nvidia-smi's own line: the card's name, its power limit
+    log(card_line())    # the card's name, its power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device count {torch.cuda.device_count()}")
     # the GCN's dense products run in full fp32, as the reference's do;
@@ -480,7 +513,7 @@ def windows(c) -> dict:
 
 def phase_kernels() -> None:
     from repro_torch.core import CSRMatrix, JitCache, compile_spmm, random_csr
-    from repro_torch.core.plan import MXU_TAG, STRATEGIES
+    from repro_torch.core.plan import MXU_TAG
     from repro_torch.kernels.spmm_ell_fused import staged_walk, staging_geometry
     small = (16, 100, 128, 640)
     # name -> (instance, d values, staging slot caps, row blocks); at
@@ -508,14 +541,15 @@ def phase_kernels() -> None:
     seen = dict(merged=False, mxu=False, pad_blocks=False,
                 chunked_vpu=False, chunked_mxu=False, unaligned=False)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    t_sweep = time.perf_counter()
     for (fname, (a, ds, caps, bms)), backend in itertools.product(
             fixtures.items(), ("pallas_ell", "pallas_bcsr")):
         name, kernel, plain = kernel_pair(backend, "resident")
         sname, staged, splain = kernel_pair(backend, "dma")
         worst = worst_staged = 0.0
         configs = 0
-        for strategy, mt, d, bm in itertools.product(STRATEGIES, (0, 16), ds,
-                                                     bms):
+        for strategy, mt, d, bm in covering(fname, backend,
+                                            fixtures[fname]):
             c = compile_spmm(a, d, strategy=strategy, backend=backend,
                              merge_threshold=mt, staging="resident", bm=bm,
                              validate="full", cache=JitCache())
@@ -571,7 +605,41 @@ def phase_kernels() -> None:
     if missing:
         raise SystemExit(f"chip_smoke: kernel fixtures never reached "
                          f"{missing}")
+    log(f"kernels: fixture sweep {time.perf_counter() - t_sweep:.1f} s")
+    t_routes = time.perf_counter()
     k1_routes()
+    log(f"kernels: K1 routes {time.perf_counter() - t_routes:.1f} s")
+
+
+# the long-row fixtures' one configuration per backend (strategy,
+# merge_threshold, d): each fixture takes both widths and its two
+# backends two strategies; the 8192-entry slot runs at d = 128 on each
+LONG_ROW_CASES = {
+    ("hub_row", "pallas_ell"): ("row_split", 0, 128),
+    ("hub_row", "pallas_bcsr"): ("nnz_split", 16, 640),
+    ("mxu_block_row", "pallas_ell"): ("merge_split", 16, 640),
+    ("mxu_block_row", "pallas_bcsr"): ("row_split", 0, 128),
+}
+
+
+def covering(fname: str, backend: str, fixture) -> list:
+    """The fixture sweep's configurations, a covering subset of the full
+    product (strategies x merge_threshold {0, 16} x widths x row blocks,
+    240 configurations over the fixtures and backends, each bit for bit
+    in earlier runs), which keeps the phase's time for the model phase.
+    On the short-row fixtures every strategy x threshold pair once, the
+    widths and row blocks in turn beside them, so each strategy meets
+    every row block and both thresholds and each width comes up.  The
+    long-row fixtures, whose 8000-entry windows make a configuration
+    cost seconds (the plain versions' chunked walks), take one each
+    (:data:`LONG_ROW_CASES`)."""
+    from repro_torch.core.plan import STRATEGIES
+    _, ds, _, bms = fixture
+    if (fname, backend) in LONG_ROW_CASES:
+        return [LONG_ROW_CASES[fname, backend] + (bms[0],)]
+    pairs = itertools.product(STRATEGIES, (0, 16))
+    return [(strategy, mt, ds[i % len(ds)], bms[i % len(bms)])
+            for i, (strategy, mt) in enumerate(pairs)]
 
 
 def k1_routes() -> None:
@@ -2943,6 +3011,556 @@ def split_layer_forward(fwd, heads: int, reps: int = 5) -> float:
     return launch_ms
 
 
+# -- the decoder stack (phase 11, ``model``) --------------------------------
+
+# (m1) longformer-1.4b at full width and depth: the forward's batch and
+# sequence; (m2) generate(): batch, prompt and new tokens; (m3)
+# mixtral-8x7b cut to MIXTRAL_LAYERS of 32 layers: the forward's sequence,
+# and generate's batch, prompt and new tokens; (m4) new tokens of each
+# reduced architecture's greedy generate on the card
+MODEL_SEQ, MODEL_BATCH = 4096, 1
+GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 4, 1024, 32
+MIXTRAL_LAYERS, MOE_SEQ = 2, 4096
+MOE_GEN_BATCH, MOE_GEN_PROMPT = 4, 512
+# a prompt longer than mixtral's 4096-slot window ring and not a multiple
+# of it, then decode steps that each evict the position leaving the
+# window; prompt and prompt + tokens - 1 (the forward it is held to) are
+# multiples of the attention's 512-query chunks, as gqa_attention needs
+MOE_WRAP_PROMPT, MOE_WRAP_TOKENS = 4608, 513
+REDUCED_GEN = 8
+# logits of the 24-layer fp32 stack against the same weights composed
+# from the layer functions with the sattn layer on the ref backend: each
+# layer's K6 output differs from ref only by its fp32 sum order (1.0e-06
+# on unit-scale inputs, the sattn phase), and the residual stream carries
+# those differences through 24 layers.  Measured on the H100: max |diff|
+# 5.29e-05 to 5.64e-05 with |max| logit 5.59, so the atol term alone
+# leaves under 2x headroom and rtol·|ref| adds up to 5.6e-04 on the
+# largest logits; the bar holds a sum-order difference, not more
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)   # tests/test_models.py's bar
+
+
+def model_config(name: str, **cut):
+    """A registered configuration with the run's cuts (``dtype``,
+    ``num_layers``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), **cut)
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for v in tree.values()
+            for leaf in (tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def gib(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) \
+        / 2 ** 30
+
+
+def ref_composition(cfg, params, tokens):
+    """forward_train's logits composed from the layer functions, the
+    sattn layer on the ``ref`` backend: an independent path to the same
+    weights' logits."""
+    from repro_torch.models import layers
+    from repro_torch.models.sparse_attention import (
+        sparse_self_attention_layer)
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    positions = torch.arange(S, device="cuda")[None].expand(B, S)
+    slot = params["period"]["slot0"]
+    for i in range(cfg.num_layers):
+        attn = {k: v[i] for k, v in slot["sattn"].items()}
+        ffn = {k: v[i] for k, v in slot["ffn_dense"].items()}
+        x = sparse_self_attention_layer(
+            attn, x, positions=positions, head_dim=cfg.head_dim,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            window=cfg.sparse_attn_window,
+            num_global=cfg.sparse_attn_global, rope_theta=cfg.rope_theta,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, backend="ref")
+        x = layers.swiglu_mlp(ffn, x, norm_eps=cfg.norm_eps)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"]).float()
+
+
+def forward_split(forward, calls: int, reps: int = 3) -> tuple:
+    """Medians over ``reps`` forwards (after one warm-up) of the whole
+    forward and of its K6 wrapper calls, by CUDA events around each;
+    each forward must make exactly ``calls`` of them."""
+    target = ("repro_torch.kernels.ops", "attn_fused_staged")
+    rows = []
+    for _ in range(reps + 1):
+        with _Spans(target) as spans:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            forward()
+            end.record()
+            torch.cuda.synchronize()
+        assert len(spans.spans[target]) == calls, len(spans.spans[target])
+        rows.append((start.elapsed_time(end), spans.ms(target)))
+    fwd = statistics.median(r[0] for r in rows[1:])
+    k6 = statistics.median(r[1] for r in rows[1:])
+    return fwd, k6
+
+
+def generate_times(model, params, prompts, gen: int, reps: int = 3) -> dict:
+    """CUDA-event medians of ``prefill`` alone and of a whole greedy
+    ``generate`` (after a warm-up of each): the decode steps' ms a token
+    is their difference over the ``gen - 1`` steps; then one decode step
+    under ``torch.profiler`` (``profile_decode``)."""
+    from repro_torch.launch.serve import generate
+    B, S = prompts.shape
+    cache_len = S + gen + 1
+    with torch.no_grad():
+        pre = time_ms(lambda: model.prefill(params, prompts, cache_len),
+                      reps=reps)
+        total = time_ms(lambda: generate(model, params, prompts,
+                                         gen_len=gen, cache_len=cache_len),
+                        reps=reps)
+    step = (total - pre) / (gen - 1)
+    return dict(prefill_ms=pre, generate_ms=total, ms_per_token=step,
+                tokens_per_s=B * gen / (total / 1e3),
+                profile=profile_decode(model, params, prompts))
+
+
+def profile_decode(model, params, prompts) -> str:
+    """One warm decode step under ``torch.profiler``: the kernel launches
+    the host makes (its ``cudaLaunchKernel`` calls), the kernels the
+    device ran and their time, and the device's idle share of the step's
+    window (first to last event recorded, host or device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, S = prompts.shape
+    last = prompts[:, -1:]
+    with torch.no_grad():
+        _, caches = model.prefill(params, prompts, S + 3)
+        model.decode_step(params, last, caches, S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, last, caches, S + 1)
+            torch.cuda.synchronize()
+    del caches
+    events = prof.events()
+    calls = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                for e in events)
+    device = [(e.time_range.start / 1e3, e.time_range.end / 1e3, e.name)
+              for e in events
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not device:
+        return (f"decode step under torch.profiler: {calls} launch calls by "
+                f"the host, no device time recorded (idle share not "
+                f"measured)")
+    kernels = [(a, b) for a, b, name in device
+               if "Memcpy" not in name and "Memset" not in name]
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) / 1e3
+    busy = _union([(a, b) for a, b, _ in device])
+    note = ("" if len(kernels) >= calls else
+            f" (it recorded {len(kernels)} kernels for {calls} launch "
+            f"calls: its busy time and idle share are incomplete)")
+    return (f"decode step under torch.profiler{note}: {calls} launch calls "
+            f"by the host, {len(kernels)} kernels on the device "
+            f"({_union(kernels):.4f} ms), window {window:.4f} ms, device "
+            f"busy {busy:.4f} ms, idle share {100 * (1 - busy / window):.1f}"
+            f" %")
+
+
+def model_longformer() -> int:
+    """(m1) longformer-1.4b at full width and depth through
+    ``Model.loss_fn`` (384 K6 launches, counted), held to the ref
+    composition, timed at fp32 and bf16; (m2) ``generate`` on its
+    weights, prefill and each decode step held to ``forward_train``.
+    Returns the counted forward's K6 launches."""
+    from repro_torch import kernels
+    from repro_torch.convert import model_params_to
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, transformer
+
+    cfg = model_config("longformer-1.4b", dtype="float32")
+    B, S, H = MODEL_BATCH, MODEL_SEQ, cfg.num_heads
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"model/longformer-1.4b: {cfg.num_layers} sattn layers, d_model "
+        f"{cfg.d_model}, {H} heads, vocab {cfg.vocab_size}: {n_params} "
+        f"parameters, {gib(params):.3f} GiB at fp32, init "
+        f"{time.perf_counter() - t0:.2f} s; card {card_line()}")
+    tok = torch.randint(2, cfg.vocab_size, (B, S + 1), device="cuda",
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    launches = cfg.num_layers * B * H
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.loss_fn(params, batch)          # the mask, plan and artifact
+        torch.cuda.synchronize()
+        log(f"model/longformer-1.4b: first loss_fn (mask + plan) "
+            f"{time.perf_counter() - t0:.2f} s")
+        # the main path, counted: zeroed just before, read just after
+        for name in ATTN_KERNELS:
+            getattr(kernels, name).launches = 0
+        ops.reset_dispatch_counts()
+        with _PlainCalls(("repro_torch.kernels.attn_fused",
+                          "_Carry")) as plain:
+            loss, parts = model.loss_fn(params, batch)
+            torch.cuda.synchronize()
+        counted = {n: getattr(kernels, n).launches for n in ATTN_KERNELS}
+        assert counted == {"attn_fused": 0,
+                           "attn_fused_staged": launches}, counted
+        assert ops.DISPATCH_COUNTS["attn_fused_dma"] == launches
+        assert plain.calls == 0, plain.calls
+        # at init the logits are near-normal with std 0.02·sqrt(d_model)
+        # (0.9 here), which puts the loss about 0.4 over ln V
+        loss = float(loss)
+        assert np.isfinite(loss) and abs(loss - np.log(cfg.vocab_size)) \
+            < 1.0, loss
+        logits, _ = transformer.forward_train(cfg, params, batch["tokens"])
+        ref = ref_composition(cfg, params, batch["tokens"])
+        diff = (logits - ref).abs().max().item()
+        torch.testing.assert_close(logits, ref, **MODEL_TOL)
+        log(f"model/longformer-1.4b: loss_fn at init {loss:.4f} (ln V = "
+            f"{np.log(cfg.vocab_size):.4f}), {counted['attn_fused_staged']} "
+            f"attn_fused_staged launches a forward ({cfg.num_layers} layers "
+            f"x batch {B} x {H} heads), no plain version; logits (|max| "
+            f"{logits.abs().max().item():.3f}) max |diff| {diff:.3g} vs the "
+            f"layer functions with sattn on ref (rtol = atol = "
+            f"{MODEL_TOL['rtol']:g})")
+        del logits, ref
+        for label, p in (("fp32", params),
+                         ("bf16", model_params_to(params,
+                                                  dtype=torch.bfloat16))):
+            bcfg = cfg if label == "fp32" else model_config(
+                "longformer-1.4b")
+            fwd, k6 = forward_split(
+                lambda: transformer.forward_train(bcfg, p, batch["tokens"]),
+                launches)
+            log(f"model/longformer-1.4b {label}: forward_train {fwd:.4f} ms "
+                f"(CUDA events, median of 3), of which {launches} "
+                f"attn_fused_staged calls {k6:.4f} ms ({100 * k6 / fwd:.1f} "
+                f"%); card {card_line()}")
+            del p
+    torch.cuda.empty_cache()
+    model_generate(cfg, model, params, gen)
+    return counted["attn_fused_staged"]
+
+
+def decode_consistency(cfg, model, params, prompts, T: int) -> tuple:
+    """Greedy ``generate`` of ``T`` tokens after ``prompts``: its tokens
+    equal to a prefill + decode loop's, prefill's logits held to
+    ``forward_train``'s on the prompt and each decode step's to
+    ``forward_train``'s on the generated sequence at 2e-3.  Returns the
+    two max |diff| and the caches after the last decode step."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+    B, S = prompts.shape
+    cache_len = S + T + 1
+    with torch.no_grad():
+        out = generate(model, params, prompts, gen_len=T,
+                       cache_len=cache_len)
+        assert out.shape == (B, S + T), out.shape
+        pre, caches = model.prefill(params, prompts, cache_len)
+        full, _ = transformer.forward_train(cfg, params, out[:, :-1])
+        d_pre = (pre - full[:, :S]).abs().max().item()
+        torch.testing.assert_close(pre, full[:, :S], **DECODE_TOL)
+        del pre
+        last = torch.argmax(full[:, S - 1:S], dim=-1)
+        assert torch.equal(last, out[:, S:S + 1])
+        d_dec = 0.0
+        for pos in range(S, S + T - 1):
+            logits, caches = model.decode_step(params, out[:, pos:pos + 1],
+                                               caches, pos)
+            d_dec = max(d_dec, (logits - full[:, pos:pos + 1]).abs().max()
+                        .item())
+            torch.testing.assert_close(logits, full[:, pos:pos + 1],
+                                       **DECODE_TOL)
+            assert torch.equal(torch.argmax(logits, dim=-1),
+                               out[:, pos + 1:pos + 2]), pos
+    return d_pre, d_dec, caches
+
+
+def model_generate(cfg, model, params, gen) -> None:
+    """(m2) greedy ``generate`` on longformer-1.4b's weights held to
+    ``forward_train`` (``decode_consistency``: the dense masked fallback
+    against K6), then timed at fp32 and bf16."""
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model
+    B, S, T = GEN_BATCH, GEN_PROMPT, GEN_TOKENS
+    cache_len = S + T + 1
+    prompts = torch.randint(2, cfg.vocab_size, (B, S), device="cuda",
+                            generator=gen)
+    d_pre, d_dec, _ = decode_consistency(cfg, model, params, prompts, T)
+    log(f"model/generate longformer-1.4b: batch {B}, prompt {S}, {T} new "
+        f"tokens, cache_len {cache_len}: prefill logits max |diff| "
+        f"{d_pre:.3g} and {T - 1} decode steps' max |diff| {d_dec:.3g} vs "
+        f"forward_train (K6) on the generated sequence (rtol = atol = "
+        f"2e-3); every generated token the decode loop's argmax")
+    for label, p, pcfg in (
+            ("fp32", params, cfg),
+            ("bf16", model_params_to(params, dtype=torch.bfloat16),
+             model_config("longformer-1.4b"))):
+        t = generate_times(Model(pcfg), p, prompts, T)
+        log(f"model/generate longformer-1.4b {label}: prefill "
+            f"{t['prefill_ms']:.4f} ms, generate {t['generate_ms']:.4f} ms, "
+            f"{t['ms_per_token']:.4f} ms a decode step (batch {B}), "
+            f"{t['tokens_per_s']:.1f} tokens/s (CUDA events, medians of "
+            f"3); {t['profile']}; card {card_line()}")
+        del p
+    torch.cuda.empty_cache()
+
+
+def model_ring_wrap(cfg, params, gen) -> None:
+    """(m3) mixtral's sliding-window ring past its wrap: a prompt of
+    MOE_WRAP_PROMPT tokens (over the 4096-slot ring, not a multiple of
+    it) and MOE_WRAP_TOKENS greedy tokens (each decode step evicts one
+    position), held to ``forward_train``
+    (``decode_consistency``), whose window masks every position more
+    than 4095 back; the ring must then hold each of the last 4096
+    positions p in slot p % 4096.  Capacity is raised to C = T tokens
+    (capacity_factor E / top_k) so that no assignment is dropped in
+    either path: at 1.25 the full forward drops assignments that a
+    one-token decode step keeps, and the two would differ by routing."""
+    import dataclasses
+    from repro_torch.models import Model, transformer
+    wcfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                               / cfg.top_k)
+    S, T = MOE_WRAP_PROMPT, MOE_WRAP_TOKENS
+    ring = transformer.attn_cache_len(wcfg, S + T + 1)
+    assert ring == cfg.sliding_window < S and S % ring, (ring, S)
+    prompts = torch.randint(2, cfg.vocab_size, (1, S), device="cuda",
+                            generator=gen)
+    d_pre, d_dec, caches = decode_consistency(wcfg, Model(wcfg), params,
+                                              prompts, T)
+    last = S + T - 2                        # the last decoded position
+    want = torch.empty(ring, dtype=torch.int32, device="cuda")
+    held = torch.arange(last - ring + 1, last + 1, dtype=torch.int32,
+                        device="cuda")
+    want[held.long() % ring] = held
+    for slot, cache in caches.items():
+        assert torch.equal(cache["kpos"], want.expand_as(cache["kpos"])), \
+            slot
+    del caches
+    log(f"model/generate mixtral-8x7b ring wrap: batch 1, prompt {S} into "
+        f"the {ring}-slot window ring ({S} % {ring} = {S % ring}), {T} new "
+        f"tokens, capacity factor {wcfg.capacity_factor:g} (no drops): "
+        f"prefill logits max |diff| {d_pre:.3g} and {T - 1} decode steps' "
+        f"max |diff| {d_dec:.3g} vs forward_train on the generated sequence "
+        f"(rtol = atol = 2e-3); the ring holds positions {last - ring + 1}"
+        f"-{last}, each p in slot p % {ring}")
+    torch.cuda.empty_cache()
+
+
+def model_mixtral() -> int:
+    """(m3) mixtral-8x7b at full width, 2 of 32 layers, fp32: on the first
+    MoE layer's normed input (batch 1, S = 4096, C = 1280), dispatch
+    bit for bit Sᵀ·tokens through ``compile_spmm`` (K4 at d = 4096),
+    combine at 1e-5 against S·expert_out, ``moe_apply_concrete`` on
+    ``backend="auto"`` against the gather path at the reference's bar;
+    K4 timed there; then ``loss_fn``, ``generate`` and the window ring
+    past its wrap (``model_ring_wrap``).  Returns K4's counted
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.core import JitCache, compile_spmm
+    from repro_torch.convert import model_params_to
+    from repro_torch.core import moe_spmm as ms
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model, layers
+    from repro_torch.models.moe import moe_capacity
+
+    cfg = model_config("mixtral-8x7b", num_layers=MIXTRAL_LAYERS,
+                       dtype="float32")
+    E, k, D = cfg.num_experts, cfg.top_k, cfg.d_model
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    log(f"model/mixtral-8x7b: {cfg.num_layers} of 32 layers, d_model {D}, "
+        f"{E} experts top-{k}, d_ff {cfg.d_ff}, window "
+        f"{cfg.sliding_window}: {sum(t.numel() for t in tree_leaves(params))}"
+        f" parameters, {gib(params):.3f} GiB at fp32, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    S = MOE_SEQ
+    tok = torch.randint(2, cfg.vocab_size, (1, S + 1), device="cuda",
+                        generator=gen)
+    cache = JitCache()
+    with torch.no_grad():
+        p0 = {n: {k_: v[0] for k_, v in d.items()} for n, d in
+              params["period"]["slot0"].items()}
+        x = params["embed"][tok[:, :-1]]
+        positions = torch.arange(S, device="cuda")[None]
+        x = layers.self_attention_layer(
+            p0["attn"], x, positions=positions, head_dim=cfg.head_dim,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+        moe_p = p0["ffn_moe"]
+        h = layers.rms_norm(x[0], moe_p["ln"], cfg.norm_eps)     # (T, D)
+        del x
+        logits = h @ moe_p["router"]
+        C = moe_capacity(S, k, E, cfg.capacity_factor)
+        gates, eids, slots = ms.topk_routing(logits, k, C)
+        xe = ms.dispatch(h, eids, slots, E, C)
+        s_csr = ms.routing_to_csr(gates, eids, slots, E, C)
+        s_ones = type(s_csr)(s_csr.shape, s_csr.row_ptr, s_csr.col_indices,
+                             torch.ones(s_csr.nnz, device="cuda"))
+        st, _ = s_ones.transpose_structure()
+        c_t = compile_spmm(st, D, cache=cache)
+        c_s = compile_spmm(s_csr, D, cache=cache)
+        assert (c_t.backend, c_t.staging) == ("pallas_bcsr", "dma")
+        w = {n: moe_p[n] for n in ("w_gate", "w_up", "w_down")}
+        oe = (torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xe,
+                                                    w["w_gate"]))
+              * torch.einsum("ecd,edf->ecf", xe, w["w_up"]))
+        oe = torch.einsum("ecf,efd->ecd", oe, w["w_down"])
+        combined = ms.combine(oe, gates, eids, slots)
+        gather = ms.combine(torch.einsum(
+            "ecf,efd->ecd", torch.nn.functional.silu(torch.einsum(
+                "ecd,edf->ecf", xe, w["w_up"])), w["w_down"]),
+            gates, eids, slots)
+        # the concrete-routing path, counted: zeroed just before, read
+        # just after
+        for name in SPMM_KERNELS:
+            getattr(kernels, name).launches = 0
+        xe_k = c_t(st.vals, h)
+        y_k = c_s(s_csr.vals, oe.reshape(E * C, D))
+        y_c = ms.moe_apply_concrete(h, logits, w["w_up"], w["w_down"],
+                                    top_k=k, capacity=C, backend="auto",
+                                    cache=cache)
+        torch.cuda.synchronize()
+        counted = {n: getattr(kernels, n).launches for n in SPMM_KERNELS}
+        assert counted == {"spmm_ell_fused": 0, "spmm_bcsr_fused": 0,
+                           "spmm_ell_fused_staged": 0,
+                           "spmm_bcsr_fused_staged": 4}, counted
+        kept = int((slots < C).sum())
+        assert torch.equal(xe_k.reshape(E, C, D), xe), \
+            "dispatch differs from Sᵀ·tokens"
+        torch.testing.assert_close(y_k, combined, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(y_c, gather, rtol=1e-4, atol=1e-5)
+        log(f"model/mixtral-8x7b MoE layer 0: T = {S}, C = {C}, S "
+            f"{s_csr.shape[0]} x {s_csr.shape[1]} with {s_csr.nnz} gates "
+            f"({S * k - kept} of {S * k} assignments dropped at capacity); "
+            f"dispatch bit-identical to Sᵀ·tokens through compile_spmm "
+            f"(pallas_bcsr/dma, d = {D}); combine max |diff| "
+            f"{(y_k - combined).abs().max().item():.3g} vs S·expert_out "
+            f"(rtol = atol = 1e-5); moe_apply_concrete(backend=\"auto\") max "
+            f"|diff| {(y_c - gather).abs().max().item():.3g} vs the gather "
+            f"path (rtol 1e-4, atol 1e-5); spmm_bcsr_fused_staged "
+            f"{counted['spmm_bcsr_fused_staged']} launches")
+        row = measure(c_t, st, h, "moe/dispatch Sᵀ·tokens")
+        measure(c_s, s_csr, oe.reshape(E * C, D), "moe/combine S·expert_out")
+        del xe, xe_k, oe, y_k, y_c, combined, gather, h, logits
+    del c_t, c_s, cache
+    torch.cuda.empty_cache()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    with torch.no_grad():
+        loss, parts = model.loss_fn(params, batch)
+        loss = float(loss)
+        assert np.isfinite(loss), loss
+        for label, p, pcfg in (
+                ("fp32", params, cfg),
+                ("bf16", model_params_to(params, dtype=torch.bfloat16),
+                 model_config("mixtral-8x7b", num_layers=MIXTRAL_LAYERS))):
+            fwd = time_ms(lambda: Model(pcfg).loss_fn(p, batch), reps=3)
+            log(f"model/mixtral-8x7b {label}: loss_fn {fwd:.4f} ms (batch 1,"
+                f" S = {S}, CUDA events, median of 3); card {card_line()}")
+            del p
+    log(f"model/mixtral-8x7b: loss at init {loss:.4f} (nll "
+        f"{float(parts['nll']):.4f}, moe aux {float(parts['moe_aux']):.4f})")
+    torch.cuda.empty_cache()
+    B, P, T = MOE_GEN_BATCH, MOE_GEN_PROMPT, GEN_TOKENS
+    prompts = torch.randint(2, cfg.vocab_size, (B, P), device="cuda",
+                            generator=gen)
+    with torch.no_grad():
+        out = generate(model, params, prompts, gen_len=T,
+                       cache_len=P + T + 1)
+    assert out.shape == (B, P + T) and int(out.max()) < cfg.vocab_size
+    for label, p, pcfg in (
+            ("fp32", params, cfg),
+            ("bf16", model_params_to(params, dtype=torch.bfloat16),
+             model_config("mixtral-8x7b", num_layers=MIXTRAL_LAYERS))):
+        t = generate_times(Model(pcfg), p, prompts, T)
+        log(f"model/generate mixtral-8x7b {label}: batch {B}, prompt {P}, "
+            f"{T} new tokens, ring cache of "
+            f"{min(cfg.sliding_window, P + T + 1)} slots (no wrap): prefill "
+            f"{t['prefill_ms']:.4f} ms, generate {t['generate_ms']:.4f} ms, "
+            f"{t['ms_per_token']:.4f} ms a decode step, "
+            f"{t['tokens_per_s']:.1f} tokens/s (CUDA events, medians of 3);"
+            f" {t['profile']}; card {card_line()}")
+        del p
+    torch.cuda.empty_cache()
+    model_ring_wrap(cfg, params, gen)
+    del params
+    torch.cuda.empty_cache()
+    log(f"model/mixtral-8x7b: K4 at d = {D} on Sᵀ: {row['ms']:.4f} ms "
+        f"against its bound {row['bound_ms']:.4f} ms ({row['bound_by']}) and "
+        f"torch.sparse.mm {row['library_ms']:.4f} ms")
+    return counted["spmm_bcsr_fused_staged"]
+
+
+def model_reduced() -> None:
+    """(m4) every ported architecture at ``reduced()``: the same weights
+    on the card and the CPU, forward_train's logits within 1e-4, and a
+    greedy generate of REDUCED_GEN tokens on the card."""
+    from repro_torch.configs import all_arch_names, get_config, reduced
+    from repro_torch.convert import model_params_to
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model, transformer
+    worst = {}
+    for seed, arch in enumerate(all_arch_names()):
+        cfg = reduced(get_config(arch))
+        model = Model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = model_params_to(cpu, device="cuda")
+        rng = np.random.default_rng(seed)
+        tok = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 16)))
+        img = None
+        if cfg.family == "vlm":
+            img = torch.from_numpy((rng.standard_normal(
+                (2, cfg.num_image_tokens, cfg.d_model)) * 0.02).astype(
+                    np.float32))
+        with torch.no_grad():
+            want, _ = transformer.forward_train(
+                cfg, cpu, tok, image_embeds=img, device="cpu")
+            got, _ = transformer.forward_train(
+                cfg, card, tok, image_embeds=None if img is None
+                else img.cuda())
+            out = generate(model, card, tok[:, :8], gen_len=REDUCED_GEN,
+                           cache_len=8 + REDUCED_GEN + 1,
+                           image_embeds=None if img is None else img.cuda())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        assert out.shape == (2, 8 + REDUCED_GEN) and out.is_cuda
+        assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab_size
+        worst[arch] = (got.cpu() - want).abs().max().item()
+    log(f"model/reduced: {len(worst)} architectures at reduced(), card vs "
+        f"CPU logits max |diff| "
+        + ", ".join(f"{a} {d:.3g}" for a, d in worst.items())
+        + f" (rtol = atol = 1e-4); each generated {REDUCED_GEN} tokens on "
+        f"the card")
+
+
+def phase_model() -> dict:
+    """The decoder stack on the card: (m1)-(m4).  Returns the launches of
+    K6 and K4 that the phase's counted runs made."""
+    t0 = time.perf_counter()
+    k6 = model_longformer()
+    log(f"model: longformer part {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k4 = model_mixtral()
+    log(f"model: mixtral part {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model_reduced()
+    log(f"model: reduced sweep {time.perf_counter() - t0:.1f} s")
+    return {"attn_fused_staged": k6, "spmm_bcsr_fused_staged": k4}
+
+
 # -- K2 and K6 beside a parent tree's (``--ab-parent``, ``--ab-ptxas``) -----
 
 def parent_package(root: Path):
@@ -3460,10 +4078,19 @@ def main() -> int:
     log(f"sharded: attention part {time.perf_counter() - t_phase:.1f} s")
     sattn = phase_sattn()
     done("sattn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = phase_model()
+    done("model")
     # K5/K6 launches: the attention op path's plus the layer's forward
+    # and the model's; K4's: the main path's, the serve phase's and the
+    # model's MoE layer
     for name, row in attn.items():
         row["launches"] += sattn["launches"] if name == "attn_fused_staged" \
             else 0
+        row["launches"] += model.get(name, 0)
+    results["spmm_bcsr_fused_staged"]["launches"] += \
+        model["spmm_bcsr_fused_staged"]
     results.update(attn)
     results.update(oracles)
     results.update(sharded)
@@ -3473,7 +4100,10 @@ def main() -> int:
         f"in {TRAIN_STEPS} steps, step {train['step_ms']:.4f} ms; sattn "
         f"layer: attn_fused_staged {sattn['launches']} launches a forward, "
         f"forward {sattn['fwd_ms']:.4f} ms, forward + backward "
-        f"{sattn['step_ms']:.4f} ms")
+        f"{sattn['step_ms']:.4f} ms; model: attn_fused_staged "
+        f"{model['attn_fused_staged']} launches a longformer-1.4b forward, "
+        f"spmm_bcsr_fused_staged {model['spmm_bcsr_fused_staged']} in the "
+        f"MoE layer's routing")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

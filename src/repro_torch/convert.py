@@ -3,7 +3,8 @@
 The reference's state is the SpMM instance — a ``CSRMatrix`` whose
 structure is host numpy and whose values are a JAX array — the dense
 operand, and the parameter pytrees of the GCN
-(``examples/gnn_graphconv.py``) and of the ``sattn`` layer.
+(``examples/gnn_graphconv.py``), of the ``sattn`` layer and of a whole
+decoder stack (``models.transformer.init_params``).
 These take those as numpy arrays (what ``np.asarray`` gives for either
 package) and build the port's objects, so one seeded instance or model
 can feed both packages.
@@ -45,4 +46,29 @@ def params_from_numpy(params, *, device=None, requires_grad: bool = True):
                    if isinstance(value, dict) else
                    dense_from_numpy(np.asarray(value), device=device)
                    .requires_grad_(requires_grad))
+            for name, value in params.items()}
+
+
+def model_params_from_numpy(params, *, device=None,
+                            dtype: torch.dtype = torch.float32):
+    """The reference's decoder-stack parameter pytree (``embed``,
+    ``final_norm``, ``lm_head`` and ``period/slot{i}/{kind, ffn_dense,
+    ffn_moe}``, each period leaf stacked over periods) as the port's
+    tree of the same keys and shapes: ``dtype`` tensors on ``device``
+    (the card unless ``"cpu"``), no grad.  The MoE router stays float32,
+    as the reference keeps it."""
+    return model_params_to(params_from_numpy(params, device=device,
+                                             requires_grad=False),
+                           dtype=dtype)
+
+
+def model_params_to(params, *, dtype=None, device=None):
+    """A decoder-stack parameter tree with every leaf moved to ``dtype``
+    and ``device`` (either ``None``: unchanged), the MoE router kept in
+    float32 as ``init_params`` keeps it."""
+    def leaf(name, t):
+        return t.to(device, torch.float32 if name == "router" else dtype)
+
+    return {name: model_params_to(value, dtype=dtype, device=device)
+            if isinstance(value, dict) else leaf(name, value)
             for name, value in params.items()}

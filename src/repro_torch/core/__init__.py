@@ -1,7 +1,8 @@
 # The paper's primary contribution, JIT-specialized SpMM, and the fused
 # sparse-attention sandwich on the same plan, on one device or sharded
-# over a chip mesh, with its autotuner and the serving tier's batched
-# artifact, ported to PyTorch + CUDA (the reference is src/repro/core/).
+# over a chip mesh, with its autotuner, the serving tier's batched
+# artifact and MoE routing as SpMM (moe_spmm), ported to PyTorch + CUDA
+# (the reference is src/repro/core/).
 from .csr import BCSRMatrix, CSRMatrix, from_coo, random_csr
 from .ccm import ccm_register_decomposition, plan_d_tiles, DTiling
 from .plan import (SpmmPlan, MixedPlan, MxuBlockRow, FusedEllWorkspace,
@@ -26,6 +27,7 @@ from .spmm import (ChipMesh, CompiledBatchedSpmm, CompiledSparseAttention,
                    FUSED_BACKENDS, X_SHARDING_MODES)
 from .autotune import (TuneConfig, TuneResult, autotune_spmm,
                        autotune_spmm_with_result, default_candidates)
+from . import moe_spmm
 
 __all__ = [
     "BCSRMatrix", "CSRMatrix", "from_coo", "random_csr",
@@ -48,5 +50,5 @@ __all__ = [
     "CompiledSparseAttention", "compile_sparse_attention",
     "sparse_attention", "CompiledBatchedSpmm", "compile_batched_spmm",
     "TuneConfig", "TuneResult", "autotune_spmm",
-    "autotune_spmm_with_result", "default_candidates",
+    "autotune_spmm_with_result", "default_candidates", "moe_spmm",
 ]

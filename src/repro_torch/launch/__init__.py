@@ -1,2 +1,3 @@
-# Port of src/repro/launch/: the multi-tenant SpMM serving endpoint and its
-# continuous-batching scheduler (launch/serve.py).
+# Port of src/repro/launch/: the multi-tenant SpMM serving endpoint, its
+# continuous-batching scheduler and the LM generate driver
+# (launch/serve.py).

@@ -1,5 +1,6 @@
 """Multi-tenant SpMM serving endpoint and its continuous-batching
-scheduler (port of the SpMM half of ``src/repro/launch/serve.py``).
+scheduler, plus the LM generate driver (port of
+``src/repro/launch/serve.py``).
 
 The paper's amortization story (Table IV: codegen ≤ 0.02% of execution)
 only materializes if a long-lived endpoint reuses the generated artifact
@@ -35,13 +36,20 @@ comes back as a host array, ``a`` is the port's ``CSRMatrix`` (its
 values stay on their device).  The server takes ``device=`` (``None`` =
 the card) where the reference takes ``interpret=``.
 
+``generate`` is the LM driver: prefill, then one ``forward_decode`` a
+token against the KV caches (``models.transformer``), greedy or sampled
+from an explicit ``torch.Generator``.  The reference memoizes a
+``jax.jit`` of prefill/decode per model; nothing is traced here, so
+there is nothing to memoize.
+
   # SpMM endpoint smoke (batching + scheduler + cache), on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke
   # ... or on the CPU, through the kernels' plain versions:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-The reference's LM ``generate()`` driver and ``--arch`` wait for the
-port's model stacks; both raise here.
+  # LM generate driver (--smoke: the reduced config; --device cpu):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --smoke --batch 4 --prompt-len 32 --gen 16
 """
 from __future__ import annotations
 
@@ -65,13 +73,41 @@ from ..core.spmm import (FUSED_BACKENDS, PlanVerificationError,
 from ..data.pipeline import DeviceStage
 from ..kernels.ops import resolve_device, resolve_validate
 
-_NOT_PORTED = ("the LM generate driver waits for the port's model stacks "
-               "(ROADMAP queue 1 item 4); this module serves SpMM only")
 
+# -- LM generate driver ------------------------------------------------------
 
-def generate(*args, **kwargs):
-    """The reference's LM generate driver: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
+             cache_len: int, image_embeds=None, greedy: bool = True,
+             generator: Optional[torch.Generator] = None,
+             device=None) -> torch.Tensor:
+    """prompts (B, S) -> (B, S+gen_len) token ids, on ``device`` (the card
+    unless ``"cpu"``).
+
+    The first new token is the argmax of prefill's last logits; each
+    later one comes from a decode step, its argmax or, with
+    ``greedy=False``, a ``torch.multinomial`` draw from its softmax on
+    ``generator`` (default: one seeded 0 on the device, the counterpart
+    of the reference's fixed default key).
+    """
+    device = resolve_device(device)
+    prompts = prompts.to(device)
+    B, S = prompts.shape
+    if not greedy and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    logits, caches = model.prefill(params, prompts, cache_len,
+                                   image_embeds=image_embeds, device=device)
+    last = torch.argmax(logits[:, -1:], dim=-1)
+    out = [prompts.long(), last]
+    for pos in range(S, S + gen_len - 1):
+        logits, caches = model.decode_step(params, last, caches, pos,
+                                           device=device)
+        if greedy:
+            last = torch.argmax(logits, dim=-1)
+        else:
+            last = torch.multinomial(torch.softmax(logits[:, 0], dim=-1), 1,
+                                     generator=generator)
+        out.append(last)
+    return torch.cat(out, dim=1)
 
 
 # -- multi-tenant SpMM endpoint ---------------------------------------------
@@ -749,20 +785,60 @@ def run_spmm_smoke(device: Optional[str] = None) -> int:
     return 0
 
 
+def _run_lm(args) -> int:
+    """The LM driver on ``args.arch`` (``reduced`` under ``--smoke``):
+    weights from a seeded generator, prompts from a numpy seed, one
+    ``generate`` call, timed on the host clock."""
+    from ..configs import get_config, reduced
+    from ..models.model import Model
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    device = resolve_device(args.device)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, size=(args.batch, args.prompt_len)))
+    img = None
+    if cfg.family == "vlm":
+        img = (torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.num_image_tokens, cfg.d_model)) * 0.02)
+            .to(device, getattr(torch, cfg.dtype)))
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, gen_len=args.gen,
+                   cache_len=args.prompt_len + args.gen + 1,
+                   image_embeds=img, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[serve] {cfg.name} on {device}: generated {tuple(out.shape)} in "
+          f"{dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s batched)")
+    print("[serve] sample:", out[0, -args.gen:].tolist())
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="The SpMM serving endpoint's smoke run.")
+        description="The SpMM serving endpoint's smoke run, or the LM "
+                    "generate driver with --arch.")
     ap.add_argument("--arch", default=None,
-                    help="the reference's LM generate driver: not ported")
+                    help="LM generate driver for this arch; omit to run "
+                         "the SpMM endpoint smoke")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="'cpu' runs the kernels' plain versions; default "
                          "the CUDA card")
     args = ap.parse_args(argv)
     if args.arch is not None:
-        raise NotImplementedError(_NOT_PORTED)
+        return _run_lm(args)
     if not args.smoke:
-        ap.error("pass --smoke for the SpMM endpoint smoke")
+        ap.error("pass --arch for the LM driver or --smoke for the SpMM "
+                 "endpoint smoke")
     return run_spmm_smoke(args.device)
 
 

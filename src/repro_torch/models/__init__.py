@@ -1,8 +1,11 @@
-# The model layers the port runs (port of src/repro/models/): the
-# longformer "sattn" slot and the layer functions it uses.
-from . import layers, sparse_attention
+# The model stack the port runs (port of src/repro/models/): the layer
+# functions, the sparse-attention "sattn" slot, the MoE FFN, the decoder
+# stack over attention-family slots and the Model facade.
+from . import layers, model, moe, sparse_attention, transformer
+from .model import Model, cross_entropy_loss
 from .sparse_attention import (sparse_attention_mask,
                                sparse_self_attention_layer)
 
-__all__ = ["layers", "sparse_attention", "sparse_attention_mask",
+__all__ = ["layers", "model", "moe", "sparse_attention", "transformer",
+           "Model", "cross_entropy_loss", "sparse_attention_mask",
            "sparse_self_attention_layer"]

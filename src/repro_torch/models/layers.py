@@ -1,14 +1,28 @@
-"""The transformer layers the ``sattn`` slot uses (port of the matching
-functions of ``src/repro/models/layers.py``): RMS norm, RoPE and the
-Q/K/V projections.
+"""Core transformer layers (port of ``src/repro/models/layers.py``):
+norms, RoPE, GQA attention (QKV bias, qk_norm, sliding window, global
+columns, cross-attention), SwiGLU MLP.
 
 Functions are pure; parameters are plain dicts of tensors.  The compute
-dtype is the tensor's dtype; norm statistics are float32.
+dtype is the tensor's dtype; softmax and norm statistics are float32,
+and attention scores are accumulated in float32 as the reference's
+``preferred_element_type`` asks.  Attention is query-chunked when
+``Sq > chunk_q`` (a Python loop over chunks where the reference maps
+over them), so the (S x S) score matrix is never held whole.  The dense
+attention and the FFN products are plain ``torch.einsum``: the reference
+computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
 
 def rms_norm(x, weight, eps: float = 1e-5):
     xf = x.float()
@@ -16,6 +30,19 @@ def rms_norm(x, weight, eps: float = 1e-5):
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
 
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * weight.float() + bias.float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -34,6 +61,96 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Attention core (query-chunked, GQA, causal / windowed / cross)
+# ---------------------------------------------------------------------------
+
+def _attend(q, k, v, mask):
+    """q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask (B|1,Sq,Sk) bool or None."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores,
+                             scores.new_full((), NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+
+
+def gqa_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
+                  window: Optional[int] = None, num_global: int = 0,
+                  chunk_q: int = 512):
+    """Grouped-query attention.
+
+    q (B,Sq,H,hd), k/v (B,Sk,KV,hd).  H % KV == 0; G = H // KV.
+    Causal/window masks are built from explicit positions so the same
+    code serves training (positions 0..S) and decode (one new position
+    against a cache).  ``num_global`` widens the window mask with
+    longformer-style global key columns (positions < num_global stay
+    visible to every later query) — the dense fallback for the sparse-
+    attention ("sattn") serving paths; still ANDed with the causal
+    test, so unfilled cache slots (UNFILLED_POS = +2^30) stay masked.
+    Query-chunked when Sq > chunk_q.
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+
+    def mask_for(qpos):
+        m = None
+        if causal:
+            m = qpos[:, :, None] >= kv_positions[:, None, :]
+        if window is not None:
+            wm = qpos[:, :, None] - kv_positions[:, None, :] < window
+            if num_global:
+                wm = wm | (kv_positions[:, None, :] < num_global)
+            m = wm if m is None else (m & wm)
+        return m
+
+    if Sq <= chunk_q:
+        return _attend(qg, k, v, mask_for(q_positions)).reshape(B, Sq, H, hd)
+    assert Sq % chunk_q == 0, (Sq, chunk_q)
+    outs = [_attend(qg[:, i:i + chunk_q], k, v,
+                    mask_for(q_positions[:, i:i + chunk_q]))
+            for i in range(0, Sq, chunk_q)]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+def gqa_attention_causal_skip(q, k, v, *, q_positions, kv_positions,
+                              window: Optional[int] = None,
+                              chunk_q: int = 512):
+    """Causal chunked attention with block skipping: query chunk i only
+    attends kv[lo_i : (i+1)*chunk_q] (positions are the standard aligned
+    0..S layout), with lo_i = max(0, hi_i - window - chunk_q) under a
+    sliding window, so fully-masked score blocks are never computed."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    if Sq <= chunk_q:
+        m = q_positions[:, :, None] >= kv_positions[:, None, :]
+        if window is not None:
+            m &= q_positions[:, :, None] - kv_positions[:, None, :] < window
+        return _attend(qg, k, v, m).reshape(B, Sq, H, hd)
+    assert Sq % chunk_q == 0
+    outs = []
+    for i in range(Sq // chunk_q):
+        hi = (i + 1) * chunk_q
+        lo = 0 if window is None else max(0, hi - window - chunk_q)
+        qp = q_positions[:, i * chunk_q: hi]
+        kp = kv_positions[:, lo:hi]
+        m = qp[:, :, None] >= kp[:, None, :]
+        if window is not None:
+            m &= qp[:, :, None] - kp[:, None, :] < window
+        outs.append(_attend(qg[:, i * chunk_q: hi], k[:, lo:hi],
+                            v[:, lo:hi], m))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Attention layer (projections + rope + attend)
+# ---------------------------------------------------------------------------
+
 def attn_project_qkv(p, x, cfg_heads, cfg_kv_heads, head_dim, *, qk_norm,
                      norm_eps):
     """Q (B, S, H, hd) and K, V (B, S, KV, hd) from x (B, S, D)."""
@@ -48,3 +165,72 @@ def attn_project_qkv(p, x, cfg_heads, cfg_kv_heads, head_dim, *, qk_norm,
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
     return q, k, v
+
+
+def self_attention_layer(p, x, *, positions, head_dim, num_heads,
+                         num_kv_heads, rope_theta, causal=True,
+                         window=None, qk_norm=False, norm_eps=1e-5,
+                         kv_override=None, chunk_q: int = 512,
+                         causal_skip: bool = False):
+    """Pre-norm self-attention block: x + attn(norm(x)).
+
+    kv_override: (k, v, kv_positions) for decode-with-cache paths.
+    """
+    h = rms_norm(x, p["ln"], norm_eps)
+    q, k, v = attn_project_qkv(p, h, num_heads, num_kv_heads, head_dim,
+                               qk_norm=qk_norm, norm_eps=norm_eps)
+    q = apply_rope(q, positions, rope_theta)
+    if kv_override is None:
+        k = apply_rope(k, positions, rope_theta)
+        kv_positions = positions
+    else:
+        k, v, kv_positions = kv_override(k, v)
+    if causal_skip and causal and kv_override is None:
+        out = gqa_attention_causal_skip(
+            q, k, v, q_positions=positions, kv_positions=kv_positions,
+            window=window, chunk_q=chunk_q)
+    else:
+        out = gqa_attention(q, k, v, q_positions=positions,
+                            kv_positions=kv_positions, causal=causal,
+                            window=window, chunk_q=chunk_q)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return x + out
+
+
+def cross_attention_layer(p, x, kv_src, *, head_dim, num_heads,
+                          num_kv_heads, qk_norm=False, norm_eps=1e-5,
+                          chunk_q: int = 512):
+    """Cross-attention block (llama-3.2-vision image layers): queries from
+    the text stream, keys/values from image embeddings; no causal mask,
+    no RoPE; gated residual (tanh gate, init 0) as in llama-3.2."""
+    h = rms_norm(x, p["ln"], norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(x.dtype))
+    kv = rms_norm(kv_src, p["ln_kv"], norm_eps)
+    k = torch.einsum("bsd,dhk->bshk", kv, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv, p["wv"].to(x.dtype))
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((B, Sk), dtype=torch.int32, device=x.device)
+    out = gqa_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
+                        causal=False, chunk_q=chunk_q)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    gate = torch.tanh(p["gate"].float()).to(x.dtype)
+    return x + gate * out
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_mlp(p, x, *, norm_eps=1e-5):
+    """Pre-norm SwiGLU FFN block: x + W_down(silu(W_gate h) * W_up h)."""
+    h = rms_norm(x, p["ln"], norm_eps)
+    g = torch.einsum("bsd,df->bsf", h, p["w_gate"].to(x.dtype))
+    u = torch.einsum("bsd,df->bsf", h, p["w_up"].to(x.dtype))
+    act = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    out = torch.einsum("bsf,fd->bsd", act, p["w_down"].to(x.dtype))
+    return x + out

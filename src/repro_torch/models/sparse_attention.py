@@ -55,11 +55,12 @@ def sparse_attention_mask(seq_len: int, window: int, num_global: int = 0, *,
 
 @functools.lru_cache(maxsize=64)
 def _mask_and_artifact(seq_len: int, head_dim: int, window: int,
-                       num_global: int, backend: str, device: str):
+                       num_global: int, backend: str, device: str,
+                       staging: Optional[str] = None):
     from ..core import compile_sparse_attention
     a = sparse_attention_mask(seq_len, window, num_global, device=device)
     art = compile_sparse_attention(a, head_dim, head_dim, backend=backend,
-                                   device=device)
+                                   device=device, staging=staging)
     return a, art
 
 
@@ -67,7 +68,8 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
                                 num_kv_heads, window, num_global=0,
                                 rope_theta=1e4, qk_norm=False,
                                 norm_eps=1e-5, backend="auto",
-                                device: Optional[str] = None):
+                                device: Optional[str] = None,
+                                staging: Optional[str] = None):
     """Pre-norm sparse self-attention block: x + sattn(norm(x)).
 
     ``p`` holds ``ln`` (D,), ``wq`` (D, H, hd), ``wk``/``wv``
@@ -75,7 +77,9 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
     ``positions`` (B, S).  The attend step runs the fused artifact per
     (batch, head) with GQA head sharing (kv head = h // (H // KV)).
     ``device`` is resolved as for every entry point (the card unless
-    ``"cpu"``) and joins the artifact's cache key.
+    ``"cpu"``) and joins the artifact's cache key; ``staging`` is the
+    artifact's (``None`` = the card's ``"dma"``: K6; ``"resident"``:
+    K5).
     """
     from ..kernels.ops import resolve_device
     device = resolve_device(device)
@@ -87,7 +91,7 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
     q = layers.apply_rope(q, positions, rope_theta)
     k = layers.apply_rope(k, positions, rope_theta)
     a, art = _mask_and_artifact(S, head_dim, int(window), int(num_global),
-                                backend, device)
+                                backend, device, staging)
     G = num_heads // num_kv_heads
     outs = []
     for b in range(B):

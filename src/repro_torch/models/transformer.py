@@ -1,0 +1,489 @@
+"""Unified decoder stack for the attention-family architectures (port of
+``src/repro/models/transformer.py``).
+
+Depth is ``num_periods`` repetitions of the config's layer ``pattern``;
+parameters are stacked over periods as the reference stacks them (each
+leaf has a leading period axis), so a reference pytree carries across
+leaf for leaf (``convert.model_params_from_numpy``).  The reference's
+``lax.scan`` over periods is a Python loop over the period index here;
+heterogeneous patterns (the VLM's 1-in-5 cross-attention) unroll within
+the period.  ``remat="full"`` checkpoints each period with
+``torch.utils.checkpoint`` when grad is on; ``"none"`` keeps every
+activation.
+
+Slots: ``attn`` (dense GQA), ``sattn`` (the fused sparse-attention
+sandwich in ``forward_train`` — K6 under the card's default lowering,
+K5 with ``staging="resident"`` — and the reference's dense masked
+fallback in ``prefill``/``forward_decode``), ``xattn`` (cross-attention
+to image embeddings); FFNs dense SwiGLU or MoE.  The recurrent slots
+(``mamba``, ``rwkv``) wait for port slice 14 and raise.  ``shard_ctx``
+(the reference's GSPMD layout hints, ``_constrain``/``_gather_fsdp``)
+has no single-card counterpart and raises when given.
+
+Three entry points, each on the card unless the caller passes
+``device="cpu"``:
+  forward_train   full-sequence forward -> (logits, aux)
+  prefill         forward + cache construction -> (logits, caches)
+  forward_decode  one token against caches -> (logits, caches); it
+                  writes the new K/V row into the caches it is given
+                  (in place, where the reference returns updated copies)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import RECURRENT_SLICE, ArchConfig
+from ..kernels.ops import resolve_device
+from . import layers, moe, sparse_attention
+
+# sentinel position for unfilled KV-cache slots: +2^30 fails the causal
+# test (qpos >= kvpos) so empty slots never attend
+UNFILLED_POS = 2 ** 30
+
+PORTED_SLOTS = ("attn", "sattn", "xattn")
+
+
+def _no_sharding():
+    raise NotImplementedError(
+        "shard_ctx: the reference's GSPMD layout hints (_constrain, "
+        "_gather_fsdp) wait for the port's sharding slice "
+        "(distributed/sharding.py's AxisEnv and param shardings); the "
+        "port's model stack runs on one card")
+
+
+def _check(cfg: ArchConfig, shard_ctx=None) -> None:
+    if shard_ctx is not None:
+        _no_sharding()
+    for kind in cfg.pattern:
+        if kind not in PORTED_SLOTS:
+            raise NotImplementedError(
+                f"{cfg.name}: {kind!r} slots wait for {RECURRENT_SLICE} "
+                f"(models/mamba.py, models/rwkv6.py)")
+
+
+def _device(device) -> str:
+    return "meta" if device == "meta" else resolve_device(device)
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (per slot kind), stacked over periods
+# ---------------------------------------------------------------------------
+
+class _Init:
+    """Draws leaves with the leading axes ``lead`` (the period axis, or
+    none) from one explicit generator (none on the ``meta`` device)."""
+
+    def __init__(self, cfg: ArchConfig, generator, device, lead=()):
+        self.gen, self.device, self.lead = generator, device, tuple(lead)
+        self.dt = _dtype(cfg)
+        self.so = 0.02 / (2 * cfg.num_layers) ** 0.5
+
+    def normal(self, shape, scale, dtype=None):
+        return torch.randn(self.lead + tuple(shape), generator=self.gen,
+                           dtype=dtype or self.dt, device=self.device) * scale
+
+    def full(self, shape, value, dtype=None):
+        return torch.full(self.lead + tuple(shape), value,
+                          dtype=dtype or self.dt, device=self.device)
+
+
+def _init_attn(cfg: ArchConfig, r: _Init):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"ln": r.full((D,), 1.0),
+         "wq": r.normal((D, H, hd), 0.02),
+         "wk": r.normal((D, KV, hd), 0.02),
+         "wv": r.normal((D, KV, hd), 0.02),
+         "wo": r.normal((H, hd, D), r.so)}
+    if cfg.qkv_bias:
+        p["bq"] = r.full((H, hd), 0.0)
+        p["bk"] = r.full((KV, hd), 0.0)
+        p["bv"] = r.full((KV, hd), 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = r.full((hd,), 1.0)
+        p["k_norm"] = r.full((hd,), 1.0)
+    return p
+
+
+def _init_xattn(cfg: ArchConfig, r: _Init):
+    p = _init_attn(cfg, r)
+    p["ln_kv"] = r.full((cfg.d_model,), 1.0)
+    p["gate"] = r.full((), 0.0)
+    return p
+
+
+def _init_dense_ffn(cfg: ArchConfig, r: _Init):
+    D, F = cfg.d_model, cfg.d_ff
+    return {"ln": r.full((D,), 1.0),
+            "w_gate": r.normal((D, F), 0.02),
+            "w_up": r.normal((D, F), 0.02),
+            "w_down": r.normal((F, D), r.so)}
+
+
+def _init_moe_ffn(cfg: ArchConfig, r: _Init):
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {"ln": r.full((D,), 1.0),
+            "router": r.normal((D, E), 0.02, torch.float32),
+            "w_gate": r.normal((E, D, F), 0.02),
+            "w_up": r.normal((E, D, F), 0.02),
+            "w_down": r.normal((E, F, D), r.so)}
+
+
+# "sattn" (sparse attention, DESIGN.md §13) reuses the attn projection
+# stack verbatim — only the attend step differs
+_SLOT_INIT = {"attn": _init_attn, "xattn": _init_xattn, "sattn": _init_attn}
+_FFN_INIT = {"dense": _init_dense_ffn, "moe": _init_moe_ffn}
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                *, device=None) -> Dict[str, Any]:
+    """The reference's parameter tree, distributions and scales (normal
+    draws times 0.02, output projections times 0.02 / sqrt(2 L), norms
+    ones, biases and gates zeros, the router in float32), drawn from
+    ``generator`` on ``device`` (the card unless ``"cpu"``; ``"meta"``
+    allocates nothing).  ``generator`` defaults to one seeded 0 on that
+    device; its numbers are not the reference's, whose RNG differs."""
+    _check(cfg)
+    device = _device(device)
+    if device == "meta":
+        generator = None
+    elif generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    top = _Init(cfg, generator, device)
+    params: Dict[str, Any] = {
+        "embed": top.normal((cfg.vocab_size, cfg.d_model), 0.02),
+        "final_norm": top.full((cfg.d_model,), 1.0),
+        "lm_head": top.normal((cfg.d_model, cfg.vocab_size), 0.02),
+        "period": {},
+    }
+    r = _Init(cfg, generator, device, (cfg.num_periods,))
+    for i, kind in enumerate(cfg.pattern):
+        slot = {kind: _SLOT_INIT[kind](cfg, r)}
+        fk = cfg.ffn_kind(i)
+        slot["ffn_" + fk] = _FFN_INIT[fk](cfg, r)
+        params["period"][f"slot{i}"] = slot
+    return params
+
+
+def _at(tree, index: int):
+    """Period ``index`` of a period-stacked tree (views, no copies)."""
+    return {k: _at(v, index) if isinstance(v, dict) else v[index]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Slot application
+# ---------------------------------------------------------------------------
+
+def _apply_ffn(cfg, slot_params, x):
+    aux = {}
+    if "ffn_dense" in slot_params:
+        x = layers.swiglu_mlp(slot_params["ffn_dense"], x,
+                              norm_eps=cfg.norm_eps)
+    elif "ffn_moe" in slot_params:
+        x, aux = moe.moe_ffn(slot_params["ffn_moe"], x,
+                             num_experts=cfg.num_experts, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             norm_eps=cfg.norm_eps)
+    return x, aux
+
+
+def _apply_slot_train(cfg: ArchConfig, kind: str, slot_params, x, positions,
+                      image_embeds, chunk_q, *, causal_skip=False, backend="auto", staging=None,
+                      device=None):
+    if kind == "attn":
+        x = layers.self_attention_layer(
+            slot_params["attn"], x, positions=positions,
+            head_dim=cfg.head_dim, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
+            causal=True, window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+            norm_eps=cfg.norm_eps, chunk_q=chunk_q, causal_skip=causal_skip)
+    elif kind == "sattn":
+        x = sparse_attention.sparse_self_attention_layer(
+            slot_params["sattn"], x, positions=positions,
+            head_dim=cfg.head_dim, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads,
+            window=cfg.sparse_attn_window,
+            num_global=cfg.sparse_attn_global,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+            norm_eps=cfg.norm_eps, backend=backend, staging=staging,
+            device=device)
+    elif kind == "xattn":
+        x = layers.cross_attention_layer(
+            slot_params["xattn"], x, image_embeds, head_dim=cfg.head_dim,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, chunk_q=chunk_q)
+    else:
+        raise ValueError(kind)
+    return _apply_ffn(cfg, slot_params, x)
+
+
+def _head(cfg, params, x):
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(
+        B, S)
+
+
+# ---------------------------------------------------------------------------
+# Train forward
+# ---------------------------------------------------------------------------
+
+def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
+                  remat: str = "full", chunk_q: int = 512, shard_ctx=None, causal_skip: bool = False,
+                  backend: str = "auto", staging: Optional[str] = None,
+                  device=None):
+    """tokens (B, S) -> (logits (B, S, V) float32, {"moe_aux": scalar}).
+
+    ``remat`` is ``"full"`` (checkpoint each period when grad is on) or
+    ``"none"``.  ``backend``/``staging`` are the ``sattn`` slots'
+    attention artifact knobs (``"auto"`` is ``pallas_bcsr`` on the card,
+    and ``staging`` ``None`` its ``"dma"``: one K6 launch per (batch,
+    head) a layer).
+    """
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat={remat!r}: 'none' or 'full'")
+    _check(cfg, shard_ctx)
+    device = resolve_device(device)
+    tokens = tokens.to(device)
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    positions = _positions(B, S, device)
+
+    def period_body(x, period_params):
+        aux_total = torch.zeros((), dtype=torch.float32, device=device)
+        for i, kind in enumerate(cfg.pattern):
+            x, aux = _apply_slot_train(
+                cfg, kind, period_params[f"slot{i}"], x, positions,
+                image_embeds, chunk_q, causal_skip=causal_skip, backend=backend, staging=staging,
+                device=device)
+            if aux:
+                aux_total = aux_total + aux["moe_lb_loss"] \
+                    + 1e-3 * aux["moe_z_loss"]
+        return x, aux_total
+
+    remat_on = remat == "full" and torch.is_grad_enabled()
+    aux_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for index in range(cfg.num_periods):
+        period_params = _at(params["period"], index)
+        if remat_on:
+            x, aux = checkpoint(period_body, x, period_params,
+                                use_reentrant=False)
+        else:
+            x, aux = period_body(x, period_params)
+        aux_sum = aux_sum + aux
+    return _head(cfg, params, x).float(), {"moe_aux": aux_sum}
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+def attn_cache_len(cfg: ArchConfig, cache_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, cache_len)
+    return cache_len
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
+                      device=None):
+    """Zero caches (stacked over periods) for decode, on ``device`` (the
+    card unless ``"cpu"``; ``"meta"`` for shapes only)."""
+    _check(cfg)
+    device = _device(device)
+    dt = _dtype(cfg)
+    P = cfg.num_periods
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    caches = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind in ("attn", "sattn"):
+            # sattn keeps the FULL cache: rolling window eviction would
+            # drop the global tokens every later query must still see
+            T = cache_len if kind == "sattn" \
+                else attn_cache_len(cfg, cache_len)
+            caches[f"slot{i}"] = {
+                "k": torch.zeros((P, batch, T, KV, hd), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((P, batch, T, KV, hd), dtype=dt,
+                                 device=device),
+                "kpos": torch.full((P, batch, T), UNFILLED_POS,
+                                   dtype=torch.int32, device=device),
+            }
+        elif kind == "xattn":
+            n_img = cfg.num_image_tokens
+            caches[f"slot{i}"] = {
+                "xk": torch.zeros((P, batch, n_img, KV, hd), dtype=dt,
+                                  device=device),
+                "xv": torch.zeros((P, batch, n_img, KV, hd), dtype=dt,
+                                  device=device),
+            }
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Decode step (one new token against the caches)
+# ---------------------------------------------------------------------------
+
+def _decode_attn(cfg, p, x, cache, pos: int, *, window=None, num_global=0):
+    """One position through an (s)attn slot; ``cache`` holds one period's
+    views, into which the new K/V row and position are written at the
+    ring index ``pos % T``."""
+    B = x.shape[0]
+    h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = layers.attn_project_qkv(p, h, cfg.num_heads, cfg.num_kv_heads,
+                                      cfg.head_dim, qk_norm=cfg.qk_norm,
+                                      norm_eps=cfg.norm_eps)
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = layers.apply_rope(q, posb, cfg.rope_theta)
+    k = layers.apply_rope(k, posb, cfg.rope_theta)
+    idx = pos % cache["k"].shape[1]
+    cache["k"][:, idx] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, idx] = v[:, 0].to(cache["v"].dtype)
+    cache["kpos"][:, idx] = pos
+    out = layers.gqa_attention(q, cache["k"], cache["v"], q_positions=posb,
+                               kv_positions=cache["kpos"], causal=True,
+                               window=window, num_global=num_global)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return x + out
+
+
+def _decode_xattn(cfg, p, x, cache):
+    h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(x.dtype))
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+    B = x.shape[0]
+    n_img = cache["xk"].shape[1]
+    qpos = torch.zeros((B, 1), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((B, n_img), dtype=torch.int32, device=x.device)
+    out = layers.gqa_attention(q, cache["xk"], cache["xv"],
+                               q_positions=qpos, kv_positions=kpos,
+                               causal=False)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    gate = torch.tanh(p["gate"].float()).to(x.dtype)
+    return x + gate * out
+
+
+def forward_decode(cfg: ArchConfig, params, token, caches, pos, *,
+                   shard_ctx=None, device=None):
+    """token (B, 1) integer; ``pos`` an int (or 0-d tensor); caches from
+    ``init_decode_cache``/``prefill``, updated in place and returned."""
+    _check(cfg, shard_ctx)
+    device = resolve_device(device)
+    pos = int(pos)
+    x = params["embed"][token.to(device)]
+    for index in range(cfg.num_periods):
+        period_params = _at(params["period"], index)
+        for i, kind in enumerate(cfg.pattern):
+            sp = period_params[f"slot{i}"]
+            cache = _at(caches[f"slot{i}"], index)
+            if kind == "attn":
+                x = _decode_attn(cfg, sp["attn"], x, cache, pos,
+                                 window=cfg.sliding_window)
+            elif kind == "sattn":
+                # serve-side fallback: dense masked attention with the
+                # SAME window+global mask the fused train path encodes
+                # in its CSR structure (the diagonal is always present)
+                x = _decode_attn(cfg, sp["sattn"], x, cache, pos,
+                                 window=cfg.sparse_attn_window,
+                                 num_global=cfg.sparse_attn_global)
+            else:
+                x = _decode_xattn(cfg, sp["xattn"], x, cache)
+            x, _ = _apply_ffn(cfg, sp, x)
+    return _head(cfg, params, x).float(), caches
+
+
+# ---------------------------------------------------------------------------
+# Prefill (forward + cache build) — serving path
+# ---------------------------------------------------------------------------
+
+def _filled(t, T: int, fill=0):
+    """(B, T, ...) ring cache holding the last min(S, T) rows of t
+    (B, S, ...), the row at position p in slot p % T (where
+    ``_decode_attn`` writes position p), ``fill`` elsewhere.  The
+    reference puts them in the first slots, which decode then overwrites
+    out of order once a prompt longer than the ring is not a multiple of
+    it; for every other prompt the two layouts are the same."""
+    S = t.shape[1]
+    keep = min(S, T)
+    out = t.new_full((t.shape[0], T) + tuple(t.shape[2:]), fill)
+    out[:, torch.arange(S - keep, S, device=t.device) % T] = t[:, S - keep:]
+    return out
+
+
+def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
+            image_embeds=None, chunk_q: int = 512, shard_ctx=None, causal_skip: bool = False, device=None):
+    """tokens (B, S) -> (logits (B, S, V) float32, caches stacked over
+    periods).  ``sattn`` slots take the dense masked fallback, as in the
+    reference, with a full-length cache (global tokens must survive)."""
+    _check(cfg, shard_ctx)
+    device = resolve_device(device)
+    tokens = tokens.to(device)
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    positions = _positions(B, S, device)
+    per_period = []
+    for index in range(cfg.num_periods):
+        period_params = _at(params["period"], index)
+        new_caches = {}
+        for i, kind in enumerate(cfg.pattern):
+            sp = period_params[f"slot{i}"]
+            if kind in ("attn", "sattn"):
+                p = sp[kind]
+                h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+                q, k, v = layers.attn_project_qkv(
+                    p, h, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+                q = layers.apply_rope(q, positions, cfg.rope_theta)
+                k = layers.apply_rope(k, positions, cfg.rope_theta)
+                if kind == "attn" and causal_skip:
+                    out = layers.gqa_attention_causal_skip(
+                        q, k, v, q_positions=positions,
+                        kv_positions=positions, window=cfg.sliding_window,
+                        chunk_q=chunk_q)
+                elif kind == "attn":
+                    out = layers.gqa_attention(
+                        q, k, v, q_positions=positions,
+                        kv_positions=positions, causal=True,
+                        window=cfg.sliding_window, chunk_q=chunk_q)
+                else:
+                    out = layers.gqa_attention(
+                        q, k, v, q_positions=positions,
+                        kv_positions=positions, causal=True,
+                        window=cfg.sparse_attn_window,
+                        num_global=cfg.sparse_attn_global, chunk_q=chunk_q)
+                x = x + torch.einsum("bshk,hkd->bsd", out,
+                                     p["wo"].to(x.dtype))
+                T = cache_len if kind == "sattn" \
+                    else attn_cache_len(cfg, cache_len)
+                new_caches[f"slot{i}"] = {
+                    "k": _filled(k, T), "v": _filled(v, T),
+                    "kpos": _filled(positions, T, UNFILLED_POS)}
+            else:
+                p = sp["xattn"]
+                kv = layers.rms_norm(image_embeds, p["ln_kv"], cfg.norm_eps)
+                xk = torch.einsum("bsd,dhk->bshk", kv, p["wk"].to(x.dtype))
+                xv = torch.einsum("bsd,dhk->bshk", kv, p["wv"].to(x.dtype))
+                if cfg.qk_norm:
+                    xk = layers.rms_norm(xk, p["k_norm"], cfg.norm_eps)
+                x = layers.cross_attention_layer(
+                    p, x, image_embeds, head_dim=cfg.head_dim,
+                    num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                    qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+                    chunk_q=chunk_q)
+                new_caches[f"slot{i}"] = {"xk": xk, "xv": xv}
+            x, _ = _apply_ffn(cfg, sp, x)
+        per_period.append(new_caches)
+    caches = {slot: {name: torch.stack([c[slot][name] for c in per_period])
+                     for name in per_period[0][slot]}
+              for slot in per_period[0]}
+    return _head(cfg, params, x).float(), caches

@@ -61,7 +61,17 @@ def test_every_slice_module_is_covered():
                  "repro_torch.core.autotune", "repro_torch.analysis.roofline",
                  "repro_torch.analysis.memmodel", "repro_torch.data",
                  "repro_torch.data.pipeline", "repro_torch.launch",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.core.moe_spmm",
+                 "repro_torch.models.moe", "repro_torch.models.transformer",
+                 "repro_torch.models.model", "repro_torch.convert",
+                 "repro_torch.configs.qwen2_5_32b",
+                 "repro_torch.configs.qwen3_14b",
+                 "repro_torch.configs.qwen1_5_32b",
+                 "repro_torch.configs.llama3_405b",
+                 "repro_torch.configs.llama4_scout_17b_a16e",
+                 "repro_torch.configs.mixtral_8x7b",
+                 "repro_torch.configs.musicgen_large",
+                 "repro_torch.configs.llama_3_2_vision_11b"):
         assert name in modules, name
     for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
                 "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu",

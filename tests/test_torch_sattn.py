@@ -66,8 +66,12 @@ def test_config_matches_reference():
     for field in dataclasses.fields(got):
         assert getattr(got, field.name) == getattr(want, field.name) or \
             field.name == "notes", field.name
+    # the attention-family archs are registered now; an unknown name
+    # still raises, and the recurrent ones raise by name
     with pytest.raises(KeyError):
-        get_config("qwen2.5-32b")
+        get_config("no-such-arch")
+    with pytest.raises(NotImplementedError, match="slice 14"):
+        get_config("rwkv6-1.6b")
 
 
 def test_layer_functions_match_reference():

@@ -366,10 +366,29 @@ def test_a_server_for_the_card_raises_without_one(monkeypatch):
 
 
 def test_the_lm_driver_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="model stacks"):
-        serve.generate(None, None, None, gen_len=1, cache_len=2)
-    with pytest.raises(NotImplementedError, match="model stacks"):
-        serve.main(["--arch", "rwkv6-1.6b", "--smoke"])
+    # generate() runs every attention-family arch now
+    # (tests/test_torch_generate.py); the recurrent ones wait for their
+    # slots, by name, on the CLI and in the model stack
+    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
+        with pytest.raises(NotImplementedError, match="slice 14"):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models import Model
+    rwkv = ArchConfig(name="rwkv-like", family="ssm", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=0, head_dim=16,
+                      d_ff=128, vocab_size=256, pattern=("rwkv",),
+                      dtype="float32")
+    with pytest.raises(NotImplementedError, match="slice 14"):
+        serve.generate(Model(rwkv), {}, torch.zeros((1, 4), dtype=torch.long),
+                       gen_len=1, cache_len=6, device="cpu")
+
+
+def test_the_lm_driver_generates_on_the_cpu(capsys):
+    assert serve.main(["--arch", "qwen2.5-32b", "--smoke", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "4", "--gen",
+                       "3"]) == 0
+    assert "qwen2.5-32b-smoke on cpu: generated (2, 7)" in \
+        capsys.readouterr().out
 
 
 def test_smoke_cli_on_the_cpu(capsys):
