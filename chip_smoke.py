@@ -153,11 +153,38 @@ result line):
              backend="auto")`` the gather path at rtol 1e-4, atol 1e-5
              (4 K4 launches, counted); K4 timed there beside its bound and
              ``torch.sparse.mm``; then ``loss_fn`` (finite) and
-             ``generate`` (batch 4, prompt 512, 32 tokens) timed.  (m4)
-             every ported architecture at ``reduced()``: the same weights
-             on the card and the CPU give logits within 1e-4, and a
-             greedy ``generate`` of 8 tokens runs on the card.
-12. sharded — K8, the sharded path, on a mesh of 4 chips over the one
+             ``generate`` (batch 4, prompt 512, 32 tokens) timed.  (m5)
+             rwkv6-1.6b at full size (24 layers, d_model 2048, 1.6 B
+             parameters): ``loss_fn`` at batch 1, S = 4096 at fp32 and
+             bf16 (loss at ln V + σ²/2); a prefill of 512 and 256
+             decode steps held to ``forward_train`` at 1e-4; ``generate``
+             (batch 4, prompt 512, 32 tokens) with a decode step's
+             launches under ``torch.profiler``.  (m6) jamba-1.5-large-
+             398b's period cut to its first five slots at full width
+             (mamba x 4 and attention, MoE on two; 44.8 GiB at bf16):
+             ``loss_fn`` at batch 1, S = 4096 with its peak memory and
+             ``generate`` (batch 4, prompt 512, 16 tokens); then slots
+             3-5 (mamba, mamba + MoE, attention) at fp32, prefill and
+             256 decode steps held to ``forward_train`` (rtol 1e-4, atol
+             4e-4) with capacity C = T.  (m4) every architecture at
+             ``reduced()``: the same weights on the card and the CPU
+             give logits within 1e-4, and a greedy ``generate`` of 8
+             tokens runs on the card.
+12. training — the training path (``optim``, ``train``, ``ft``,
+             ``launch/train.py``): two AdamW steps of longformer-1.4b at
+             full width (fp32, batch 1, S = 4096, remat full), the second
+             timed by CUDA events around its forward, backward and
+             optimizer, with its peak memory and its K6 launches (768:
+             every layer in the forward and in each period's recompute),
+             no attention plain version, every gradient finite and the
+             loss falling on the batch; one rwkv6-1.6b step at S = 1024
+             the same way; ``run_training`` on reduced longformer, rwkv6
+             and jamba (6 steps, then stopped at 3 and resumed from the
+             checkpoint: losses and params bit for bit, under
+             deterministic algorithms; the K6 preflight, and for
+             longformer the one-chip K8 preflight, counted); one step of
+             every architecture at ``reduced()``, card vs CPU.
+13. sharded — K8, the sharded path, on a mesh of 4 chips over the one
              card (``ChipMesh(("cuda:0",) * 4)``), in two parts.  After
              ``oracles``, while the SpMM artifacts live: the three sharded
              wrappers against their plain versions (rtol = atol = 1e-5)
@@ -181,7 +208,7 @@ result line):
              the longformer mask over the same mesh, 4 K6 launches, bit-
              identical to the unsharded default forward, timed the same
              way.
-13. serve  — after the sharded SpMM part, the serving tier at tenant
+14. serve  — after the sharded SpMM part, the serving tier at tenant
              sizes (``launch/serve.py``): four seeded tenants in two
              d-buckets — arxiv (ogbn-arxiv's 169,343 nodes, 1.17 M
              edges, d 128), web (power-law, 2^17 rows, 16 a row, d 100),
@@ -209,7 +236,7 @@ result line):
              with kernels); device memory falling on ``cache.clear()``
              and on eviction at ``JitCache(capacity=2)`` with no
              ``gc.collect()``.
-14. report — the launch counts, one JSON line of per-kernel numbers, and
+15. report — the launch counts, one JSON line of per-kernel numbers, and
              the final ``{"ok": true, ...}`` line.
 
 With ``--ab-parent DIR`` (a parent commit unpacked with ``git
@@ -3248,12 +3275,14 @@ def model_longformer() -> int:
     return counted["attn_fused_staged"]
 
 
-def decode_consistency(cfg, model, params, prompts, T: int) -> tuple:
+def decode_consistency(cfg, model, params, prompts, T: int, *,
+                       tol=DECODE_TOL) -> tuple:
     """Greedy ``generate`` of ``T`` tokens after ``prompts``: its tokens
     equal to a prefill + decode loop's, prefill's logits held to
     ``forward_train``'s on the prompt and each decode step's to
-    ``forward_train``'s on the generated sequence at 2e-3.  Returns the
-    two max |diff| and the caches after the last decode step."""
+    ``forward_train``'s on the generated sequence at ``tol`` (2e-3 unless
+    given).  Returns the two max |diff| and the caches after the last
+    decode step."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer
     B, S = prompts.shape
@@ -3265,7 +3294,7 @@ def decode_consistency(cfg, model, params, prompts, T: int) -> tuple:
         pre, caches = model.prefill(params, prompts, cache_len)
         full, _ = transformer.forward_train(cfg, params, out[:, :-1])
         d_pre = (pre - full[:, :S]).abs().max().item()
-        torch.testing.assert_close(pre, full[:, :S], **DECODE_TOL)
+        torch.testing.assert_close(pre, full[:, :S], **tol)
         del pre
         last = torch.argmax(full[:, S - 1:S], dim=-1)
         assert torch.equal(last, out[:, S:S + 1])
@@ -3275,8 +3304,7 @@ def decode_consistency(cfg, model, params, prompts, T: int) -> tuple:
                                                caches, pos)
             d_dec = max(d_dec, (logits - full[:, pos:pos + 1]).abs().max()
                         .item())
-            torch.testing.assert_close(logits, full[:, pos:pos + 1],
-                                       **DECODE_TOL)
+            torch.testing.assert_close(logits, full[:, pos:pos + 1], **tol)
             assert torch.equal(torch.argmax(logits, dim=-1),
                                out[:, pos + 1:pos + 2]), pos
     return d_pre, d_dec, caches
@@ -3502,7 +3530,7 @@ def model_mixtral() -> int:
 
 
 def model_reduced() -> None:
-    """(m4) every ported architecture at ``reduced()``: the same weights
+    """(m4) every architecture at ``reduced()``: the same weights
     on the card and the CPU, forward_train's logits within 1e-4, and a
     greedy generate of REDUCED_GEN tokens on the card."""
     from repro_torch.configs import all_arch_names, get_config, reduced
@@ -3542,8 +3570,225 @@ def model_reduced() -> None:
         f"the card")
 
 
+# rwkv6-1.6b at full size (m5): loss_fn at batch 1 over RWKV_SEQ tokens
+# (16 chunks of 256); a prefill of RECURRENT_PROMPT tokens and
+# RECURRENT_STEPS decode steps held to forward_train on the same tokens at
+# MODEL_TOL; generate at batch 4, prompt 512, 32 tokens
+RWKV_SEQ = 4096
+RECURRENT_PROMPT, RECURRENT_STEPS = 512, 256
+# jamba-1.5-large-398b cut to the first JAMBA_SLOTS slots of its period
+# (mamba x 4, then attention; MoE on slots 1 and 3) at full width and the
+# config's bf16: 44.8 GiB of weights; loss_fn and generate at batch 4,
+# prompt 512, JAMBA_GEN_TOKENS tokens.  Its decode is held to
+# forward_train at fp32 (JAMBA_TOL) on the period's slots JAMBA_CHECK
+# (mamba, mamba + MoE, attention; 48.2 GiB at fp32, where the five slots'
+# 89.6 GiB do not fit): a prompt of JAMBA_PROMPT and JAMBA_STEPS steps, a
+# 512-token forward of two mamba chunks and one attention query chunk.
+# At bf16 a last-bit difference in a router input flips a near-tie
+# between experts, and the token's logits then differ by whole units.
+# JAMBA_TOL is MODEL_TOL with its atol scaled to the cut's sums: logits of
+# std 0.02·sqrt(8192) = 1.81 (longformer's 0.91) from contractions over
+# 8192-24576 terms (longformer's 2048-8192), so a sum-order difference
+# of about 2 x 2 = 4 times longformer's; at MODEL_TOL two of 131,072
+# logits of a decode step missed by 1.12e-4 on the H100
+JAMBA_SLOTS, JAMBA_CHECK = 5, slice(2, 5)
+JAMBA_TOL = dict(rtol=1e-4, atol=4e-4)
+JAMBA_PROMPT, JAMBA_STEPS, JAMBA_GEN_TOKENS = 256, 256, 16
+
+
+def init_loss(cfg) -> float:
+    """The loss at init: ln V plus σ²/2 for logits of std σ = 0.02 ·
+    sqrt(d_model) (a unit-RMS final norm times the lm_head's 0.02
+    draws), the log-mean-exp of a normal."""
+    return float(np.log(cfg.vocab_size) + (0.02 ** 2 * cfg.d_model) / 2)
+
+
+def decode_launches(profile: str) -> str:
+    """The launch count of ``profile_decode``'s line."""
+    match = re.search(r"(\d+) launch calls", profile)
+    return match.group(1) if match else "not measured"
+
+
+def twice_ms(fn) -> tuple:
+    """CUDA-event milliseconds of a first and a second call of ``fn``."""
+    times = []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return tuple(times)
+
+
+def model_rwkv() -> None:
+    """(m5) rwkv6-1.6b at full size: ``loss_fn`` at batch 1, S =
+    RWKV_SEQ (fp32 and bf16, one timed call each: ≈ 8 s, the wkv loop's
+    ≈ 393 k launches), a prefill of RECURRENT_PROMPT and
+    RECURRENT_STEPS decode steps held to ``forward_train`` at MODEL_TOL
+    (fp32), ``generate`` timed at batch 4 with a decode step's launches
+    under ``torch.profiler``."""
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model
+
+    cfg = model_config("rwkv6-1.6b", dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    log(f"model/rwkv6-1.6b: {cfg.num_layers} rwkv layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{sum(t.numel() for t in tree_leaves(params))} parameters, "
+        f"{gib(params):.3f} GiB at fp32, init "
+        f"{time.perf_counter() - t0:.2f} s; card {card_line()}")
+    tok = torch.randint(2, cfg.vocab_size, (1, RWKV_SEQ + 1), device="cuda",
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    with torch.no_grad():
+        for label, p, pcfg in (
+                ("fp32", params, cfg),
+                ("bf16", model_params_to(params, dtype=torch.bfloat16),
+                 model_config("rwkv6-1.6b"))):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            loss = float(Model(pcfg).loss_fn(p, batch)[0])
+            end.record()
+            torch.cuda.synchronize()
+            assert np.isfinite(loss) and abs(loss - init_loss(cfg)) < 0.1, \
+                loss
+            log(f"model/rwkv6-1.6b {label}: loss_fn (batch 1, S = "
+                f"{RWKV_SEQ}, {RWKV_SEQ // 256} chunks of 256) "
+                f"{start.elapsed_time(end):.4f} ms (CUDA events, one call), "
+                f"loss {loss:.4f} (at init ln V + σ²/2 = "
+                f"{init_loss(cfg):.4f}); card {card_line()}")
+            del p
+    torch.cuda.empty_cache()
+    S, T = RECURRENT_PROMPT, RECURRENT_STEPS + 1
+    prompts = torch.randint(2, cfg.vocab_size, (2, S), device="cuda",
+                            generator=gen)
+    t0 = time.perf_counter()
+    d_pre, d_dec, _ = decode_consistency(cfg, model, params, prompts, T,
+                                         tol=MODEL_TOL)
+    log(f"model/generate rwkv6-1.6b: batch 2, prompt {S}, {T - 1} decode "
+        f"steps: prefill logits max |diff| {d_pre:.3g} and the decode steps' "
+        f"max |diff| {d_dec:.3g} vs forward_train on the {S + T - 1} tokens "
+        f"(rtol = atol = {MODEL_TOL['rtol']:g}); every generated token the "
+        f"decode loop's argmax ({time.perf_counter() - t0:.1f} s)")
+    prompts = torch.randint(2, cfg.vocab_size, (GEN_BATCH, MOE_GEN_PROMPT),
+                            device="cuda", generator=gen)
+    for label, p, pcfg in (
+            ("fp32", params, cfg),
+            ("bf16", model_params_to(params, dtype=torch.bfloat16),
+             model_config("rwkv6-1.6b"))):
+        t = generate_times(Model(pcfg), p, prompts, GEN_TOKENS, reps=1)
+        log(f"model/generate rwkv6-1.6b {label}: batch {GEN_BATCH}, prompt "
+            f"{MOE_GEN_PROMPT}, {GEN_TOKENS} new tokens: prefill "
+            f"{t['prefill_ms']:.4f} ms, generate {t['generate_ms']:.4f} ms, "
+            f"{t['ms_per_token']:.4f} ms a decode step "
+            f"({decode_launches(t['profile'])} launches), "
+            f"{t['tokens_per_s']:.1f} tokens/s (CUDA events, one run after "
+            f"two warm-ups); "
+            f"{t['profile']}; card {card_line()}")
+        del p
+    del params
+    torch.cuda.empty_cache()
+
+
+def jamba_cut(slots: slice, **cut):
+    """jamba-1.5-large-398b's period slots ``slots`` at full width."""
+    from repro_torch.configs import get_config
+    pattern = get_config("jamba-1.5-large-398b").pattern[slots]
+    return model_config("jamba-1.5-large-398b", pattern=pattern,
+                        num_layers=len(pattern), **cut)
+
+
+def model_jamba() -> None:
+    """(m6) jamba-1.5-large-398b cut to its period's first JAMBA_SLOTS
+    slots (widths unchanged) at its bf16: ``loss_fn`` at batch 1, S =
+    4096, timed, with its peak memory; ``generate`` timed at batch 4.
+    Then the slots JAMBA_CHECK at fp32: prefill and JAMBA_STEPS decode
+    steps held to ``forward_train`` at JAMBA_TOL with capacity C = T (no
+    drops on either path)."""
+    import dataclasses
+    from repro_torch.models import Model
+
+    cfg = jamba_cut(slice(0, JAMBA_SLOTS))
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    kinds = [f"{k}+{cfg.ffn_kind(i)}" for i, k in enumerate(cfg.pattern)]
+    log(f"model/jamba-1.5-large-398b cut: slots {kinds} of the 8-slot period "
+        f"(72 layers), d_model {cfg.d_model}, d_inner {cfg.mamba_d_inner}, "
+        f"state {cfg.mamba_state}, {cfg.num_heads} heads / "
+        f"{cfg.num_kv_heads} KV, {cfg.num_experts} experts top-"
+        f"{cfg.top_k} at d_ff {cfg.d_ff}: "
+        f"{sum(t.numel() for t in tree_leaves(params))} parameters, "
+        f"{gib(params):.3f} GiB at bf16, init "
+        f"{time.perf_counter() - t0:.2f} s; card {card_line()}")
+    tok = torch.randint(2, cfg.vocab_size, (1, MODEL_SEQ + 1), device="cuda",
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    with torch.no_grad():
+        loss = {}
+
+        def run():
+            out = model.loss_fn(params, batch)
+            loss["v"], loss["nll"] = float(out[0]), float(out[1]["nll"])
+        torch.cuda.reset_peak_memory_stats()
+        first, second = twice_ms(run)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert np.isfinite(loss["v"]) and \
+        abs(loss["nll"] - init_loss(cfg)) < 0.1, loss
+    log(f"model/jamba-1.5-large-398b cut bf16: loss_fn (batch 1, S = "
+        f"{MODEL_SEQ}) {first:.4f} / {second:.4f} ms (CUDA events, first and "
+        f"second call), loss {loss['v']:.4f} (nll {loss['nll']:.4f}; at init "
+        f"ln V + σ²/2 = {init_loss(cfg):.4f}), peak memory {peak:.2f} GiB; "
+        f"card {card_line()}")
+    torch.cuda.empty_cache()
+    prompts = torch.randint(2, cfg.vocab_size, (GEN_BATCH, MOE_GEN_PROMPT),
+                            device="cuda", generator=gen)
+    t = generate_times(model, params, prompts, JAMBA_GEN_TOKENS)
+    log(f"model/generate jamba-1.5-large-398b cut bf16: batch {GEN_BATCH}, "
+        f"prompt {MOE_GEN_PROMPT}, {JAMBA_GEN_TOKENS} new tokens: prefill "
+        f"{t['prefill_ms']:.4f} ms, generate {t['generate_ms']:.4f} ms, "
+        f"{t['ms_per_token']:.4f} ms a decode step "
+        f"({decode_launches(t['profile'])} launches), "
+        f"{t['tokens_per_s']:.1f} tokens/s (CUDA events, medians of 3); "
+        f"{t['profile']}; card {card_line()}")
+    del params
+    torch.cuda.empty_cache()
+    cfg = jamba_cut(JAMBA_CHECK, dtype="float32")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                              / cfg.top_k)
+    model = Model(cfg)
+    params = model.init(gen)
+    S, T = JAMBA_PROMPT, JAMBA_STEPS + 1
+    prompts = torch.randint(2, cfg.vocab_size, (2, S), device="cuda",
+                            generator=gen)
+    t0 = time.perf_counter()
+    d_pre, d_dec, _ = decode_consistency(cfg, model, params, prompts, T,
+                                         tol=JAMBA_TOL)
+    kinds = [f"{k}+{cfg.ffn_kind(i)}" for i, k in enumerate(cfg.pattern)]
+    log(f"model/generate jamba-1.5-large-398b slots {kinds} fp32 "
+        f"({gib(params):.3f} GiB): batch 2, prompt {S}, {T - 1} decode "
+        f"steps, capacity factor {cfg.capacity_factor:g} (no drops): "
+        f"prefill logits max |diff| {d_pre:.3g} and the decode steps' max "
+        f"|diff| {d_dec:.3g} vs forward_train on the {S + T - 1} tokens "
+        f"(rtol {JAMBA_TOL['rtol']:g}, atol {JAMBA_TOL['atol']:g}); every "
+        f"generated token the decode loop's argmax "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_model() -> dict:
-    """The decoder stack on the card: (m1)-(m4).  Returns the launches of
+    """The decoder stack on the card: (m1)-(m6).  Returns the launches of
     K6 and K4 that the phase's counted runs made."""
     t0 = time.perf_counter()
     k6 = model_longformer()
@@ -3555,10 +3800,334 @@ def phase_model() -> dict:
     log(f"model: mixtral part {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    for name, part in (("rwkv6-1.6b", model_rwkv),
+                       ("jamba cut", model_jamba)):
+        t0 = time.perf_counter()
+        part()
+        log(f"model: {name} part {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model_reduced()
     log(f"model: reduced sweep {time.perf_counter() - t0:.1f} s")
     return {"attn_fused_staged": k6, "spmm_bcsr_fused_staged": k4}
+
+
+# the training path (k): AdamW steps of longformer-1.4b at full width,
+# fp32, batch 1, S = TRAIN_SEQ under remat "full" (a warm-up, then the
+# timed step); one rwkv6-1.6b step at
+# S = RWKV_TRAIN_SEQ; run_training on reduced configs (RUN_STEPS steps,
+# the resume from the step-RUN_STOP checkpoint); one step of every
+# architecture at reduced(), card against CPU
+TRAIN_SEQ, RWKV_TRAIN_SEQ, TRAIN_LR = 4096, 1024, 3e-4
+RUN_ARCHS = ("longformer-1.4b", "rwkv6-1.6b", "jamba-1.5-large-398b")
+RUN_STEPS, RUN_STOP, RUN_BATCH, RUN_SEQ = 6, 3, 2, 64
+SWEEP_LR, SWEEP_EPS = 1e-3, 1e-8
+# card against CPU: the same fp32 formulas on another device's products,
+# whose sum orders differ in the last bits
+SWEEP_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+class _StepSpans:
+    """CUDA events at the edges of a train step's parts: ``Model.loss_fn``
+    (the forward), the optimizer's ``update`` (everything from its call
+    to the step's end: the update and ``apply_updates``), and between
+    them the backward."""
+
+    def __init__(self, model):
+        from repro_torch.optim import AdamW
+        self.model, self.opt_cls = model, AdamW
+        self.ev = {}
+
+    def _event(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.ev[name] = ev
+
+    def __enter__(self):
+        loss_fn, update = self.model.loss_fn, self.opt_cls.update
+
+        def timed_loss(*a, **kw):
+            self._event("start")
+            out = loss_fn(*a, **kw)
+            self._event("forward")
+            return out
+
+        def timed_update(opt, *a, **kw):
+            self._event("backward")
+            return update(opt, *a, **kw)
+
+        self.saved = update
+        self.model.loss_fn = timed_loss
+        self.opt_cls.update = timed_update
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.loss_fn
+        self.opt_cls.update = self.saved
+        return False
+
+    def split(self) -> dict:
+        self._event("end")
+        torch.cuda.synchronize()
+        e = self.ev
+        parts = {"forward": e["start"].elapsed_time(e["forward"]),
+                 "backward": e["forward"].elapsed_time(e["backward"]),
+                 "optimizer": e["backward"].elapsed_time(e["end"])}
+        parts["step"] = sum(parts.values())
+        return parts
+
+
+def train_step_at_size(arch: str, seq: int, steps: int) -> dict:
+    """``steps`` ``make_train_step`` steps (AdamW, remat "full") of
+    ``arch`` at full width, fp32, batch 1 over ``seq`` tokens of one
+    batch, each from the initial params and optimizer state: the ones
+    before the last warm up (plans, allocator; their results dropped,
+    timed by the host clock), the last is timed by parts
+    (``_StepSpans``), with its peak memory and its K6 launches (zeroed
+    just before, read just after), no attention plain version run;
+    every gradient finite, and the loss on the batch after the update
+    under the loss before it."""
+    from repro_torch import kernels
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.pytree import tree_leaves as leaves
+    from repro_torch.train import make_train_step
+
+    cfg = model_config(arch, dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    params = model.init(gen)
+    opt = AdamW(learning_rate=TRAIN_LR)
+    state = opt.init(params)
+    tok = torch.randint(2, cfg.vocab_size, (1, seq + 1), device="cuda",
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    finite = []
+
+    def check(grads):
+        finite.append(torch.stack([torch.isfinite(g).all()
+                                   for g in leaves(grads)]).all())
+        return grads
+
+    step = make_train_step(model, opt, remat="full", grad_transform=check)
+    warm = []
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        metrics = step(params, state, batch)[2]
+        warm.append(f"{time.perf_counter() - t0:.2f} s")
+    k6 = kernels.attn_fused_staged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k6.launches = 0
+    with _PlainCalls(("repro_torch.kernels.attn_fused", "_Carry")) as plain, \
+            _StepSpans(model) as spans:
+        params, state, metrics = step(params, state, batch)
+        parts = spans.split()
+    launches = k6.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in metrics.items()}
+    with torch.no_grad():
+        after = float(model.loss_fn(params, batch)[0])
+    assert plain.calls == 0, plain.calls
+    assert all(bool(f) for f in finite), "a gradient is not finite"
+    assert np.isfinite(metrics["loss"]) and after < metrics["loss"], \
+        (metrics, after)
+    shares = ", ".join(f"{k} {parts[k]:.4f} ms ({100 * parts[k] / parts['step']:.1f}"
+                       f" %)" for k in ("forward", "backward", "optimizer"))
+    log(f"training/{arch} step: fp32, batch 1, S = {seq}, AdamW (lr "
+        f"{TRAIN_LR:g}), remat full: {parts['step']:.4f} ms by CUDA events "
+        f"= {shares}, call {steps} of {steps} (warm-ups by the host clock: "
+        f"{', '.join(warm) or 'none'}); peak memory "
+        f"{peak:.2f} GiB ({gib(params):.2f} GiB of params); {launches} "
+        f"attn_fused_staged launches in the step, no attention plain "
+        f"version; every gradient finite; loss {metrics['loss']:.4f} -> "
+        f"{after:.4f} on the same batch after the update (grad norm "
+        f"{metrics['grad_norm']:.4f}); card {card_line()}")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": parts["step"], "peak_gib": peak}
+
+
+class _Deterministic:
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` while
+    active: index_add_, scatter_add_ and the gathers' backwards take
+    their deterministic CUDA forms; the ops that have none only warn,
+    and ``warned`` collects their messages."""
+
+    def __enter__(self):
+        import warnings
+        self.before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self.catch = warnings.catch_warnings(record=True)
+        self.records = self.catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        self.catch.__exit__(*exc)
+        torch.use_deterministic_algorithms(self.before)
+        self.warned = sorted({str(r.message).split("\n")[0][:120]
+                              for r in self.records
+                              if "deterministic" in str(r.message)})
+        return False
+
+
+def train_runs() -> dict:
+    """``run_training`` on the card for each of RUN_ARCHS at
+    ``reduced()``: an uninterrupted RUN_STEPS-step run, then a run that
+    stops at RUN_STOP with a checkpoint and one that resumes from it,
+    whose losses and final params must be the uninterrupted run's bit
+    for bit.  ``sparse_attn_preflight`` counted alone (one K6 launch);
+    longformer's runs also take the SpMM shard preflight on one chip
+    (K8 over K3).  Returns the phase's K6, K8 and K3 launches."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.ft.watchdog import Watchdog
+    from repro_torch.launch import train
+    from repro_torch.pytree import tree_leaves as leaves
+
+    k6, k8 = kernels.attn_fused_staged, kernels.spmm_ell_fused_sharded
+    k3 = kernels.spmm_ell_fused_staged
+    counts = {"attn_fused_staged": 0, "spmm_ell_fused_sharded": 0,
+              "spmm_ell_fused_staged": 0}
+    cfg = reduced(get_config("longformer-1.4b"))
+    k6.launches = 0
+    train.sparse_attn_preflight(cfg, RUN_SEQ)
+    assert k6.launches == 1, k6.launches
+    counts["attn_fused_staged"] += 1
+    for arch in RUN_ARCHS:
+        cfg = reduced(get_config(arch))
+        t0 = time.perf_counter()
+        kw = dict(steps=RUN_STEPS, global_batch=RUN_BATCH, seq_len=RUN_SEQ,
+                  log_every=RUN_STEPS, spmm_chips=int(arch == RUN_ARCHS[0]))
+        k6.launches = k8.launches = k3.launches = 0
+        with tempfile.TemporaryDirectory() as tmp, _Deterministic() as det:
+            # a generous deadline: this run checks the resume, not the
+            # watchdog, which the CPU tests drive on a fake clock
+            full_p, full = train.run_training(
+                cfg, watchdog=Watchdog(min_deadline_s=600), **kw)
+            _, first = train.run_training(
+                cfg, stop_at=RUN_STOP, ckpt_dir=tmp, ckpt_every=100,
+                watchdog=Watchdog(min_deadline_s=600), **kw)
+            res_p, rest = train.run_training(
+                cfg, ckpt_dir=tmp, ckpt_every=100,
+                watchdog=Watchdog(min_deadline_s=600), **kw)
+        same = all(torch.equal(a, b) for a, b in zip(leaves(full_p),
+                                                     leaves(res_p)))
+        log(f"training/run_training {cfg.name}: {RUN_STEPS} steps at batch "
+            f"{RUN_BATCH}, S = {RUN_SEQ}: losses {[f'{v:.6f}' for v in full]};"
+            f" stopped at {RUN_STOP} and resumed: "
+            f"{'bit for bit' if first + rest == full else 'DIFFERENT'} "
+            f"losses, params {'bit for bit' if same else 'DIFFERENT'}; "
+            f"launches K6 {k6.launches}, K8 {k8.launches}, K3 {k3.launches}; "
+            f"ops without a deterministic CUDA form: {det.warned or 'none'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        assert first + rest == full and same, cfg.name
+        assert full[-1] < full[0], full
+        counts["attn_fused_staged"] += k6.launches
+        counts["spmm_ell_fused_sharded"] += k8.launches
+        counts["spmm_ell_fused_staged"] += k3.launches
+        if "sattn" in cfg.pattern:
+            assert k6.launches > 0
+        del full_p, res_p
+    return counts
+
+
+def train_sweep() -> None:
+    """One ``make_train_step`` step of every architecture at ``reduced()``,
+    the same weights and batch on the card and the CPU: loss and grad
+    norm at SWEEP_TOL, every gradient at SWEEP_TOL, the updated params at
+    SWEEP_TOL where the clipped gradient |g'| >= 10 eps and within 2 lr
+    elsewhere (AdamW's first step moves an element by lr · g' / (|g'| +
+    eps), which a last-bit difference in a g' near 0 can flip)."""
+    from repro_torch.configs import all_arch_names, get_config, reduced
+    from repro_torch.convert import model_params_to
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.pytree import tree_leaves as leaves
+    from repro_torch.train import make_train_step
+    worst = {}
+    for seed, arch in enumerate(all_arch_names()):
+        cfg = reduced(get_config(arch))
+        model = Model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        batch = TokenPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=32, global_batch=2, seed=seed,
+            num_image_tokens=cfg.num_image_tokens
+            if cfg.family == "vlm" else 0, d_model=cfg.d_model)).batch_at(0)
+        runs = {}
+        for device, params in (("cpu", cpu),
+                               ("cuda", model_params_to(cpu, device="cuda"))):
+            grads = []
+
+            def keep(g):
+                grads.append(g)
+                return g
+            opt = AdamW(learning_rate=SWEEP_LR, eps=SWEEP_EPS)
+            step = make_train_step(model, opt, chunk_q=32,
+                                   grad_transform=keep, device=device)
+            new, _, metrics = step(params, opt.init(params), batch)
+            runs[device] = ([t.cpu() for t in leaves(new)],
+                            [g.cpu() for g in leaves(grads[0])],
+                            {k: float(v) for k, v in metrics.items()})
+        (p_cpu, g_cpu, m_cpu), (p_gpu, g_gpu, m_gpu) = runs["cpu"], \
+            runs["cuda"]
+        for k in ("loss", "grad_norm", "nll"):
+            np.testing.assert_allclose(m_gpu[k], m_cpu[k], **SWEEP_TOL)
+        d_g = max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu))
+        for a, b in zip(g_gpu, g_cpu):
+            torch.testing.assert_close(a, b, **SWEEP_TOL)
+        scale = min(1.0, 1.0 / (m_cpu["grad_norm"] + 1e-9))
+        d_firm = d_soft = 0.0
+        for a, b, g in zip(p_gpu, p_cpu, g_cpu):
+            diff = (a - b).abs()
+            firm = g.abs() * scale >= 10 * SWEEP_EPS
+            if firm.any():
+                bound = SWEEP_TOL["atol"] + SWEEP_TOL["rtol"] * b.abs()
+                assert bool((diff[firm] <= bound[firm]).all()), arch
+                d_firm = max(d_firm, diff[firm].max().item())
+            if (~firm).any():
+                assert bool((diff[~firm] <= 2 * SWEEP_LR + 1e-5).all()), arch
+                d_soft = max(d_soft, diff[~firm].max().item())
+        worst[arch] = (abs(m_gpu["loss"] - m_cpu["loss"]),
+                       abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]), d_g,
+                       d_firm, d_soft)
+    log(f"training/reduced sweep: {len(worst)} architectures, one AdamW step "
+        f"each (batch 2, S = 32), card vs CPU max |diff| of loss, grad norm, "
+        f"grads, params where |g'| >= 10 eps, params elsewhere: "
+        + "; ".join(f"{a} " + " ".join(f"{v:.3g}" for v in d)
+                    for a, d in worst.items())
+        + f" (rtol = atol = {SWEEP_TOL['rtol']:g}; elsewhere within "
+        f"2 lr = {2 * SWEEP_LR:g})")
+
+
+def phase_training() -> dict:
+    """(k) the training path on the card.  Returns the phase's launches of
+    K6, K8 and K3 and the longformer step's numbers."""
+    t0 = time.perf_counter()
+    step = train_step_at_size("longformer-1.4b", TRAIN_SEQ, 2)
+    assert step["launches"] >= 384 and step["launches"] % 384 == 0, step
+    log(f"training: longformer-1.4b step part {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # one step: the wkv loop's ≈ 0.5 M launches and their autograd nodes
+    # take ≈ 47 s of host time a step at S = 1024
+    train_step_at_size("rwkv6-1.6b", RWKV_TRAIN_SEQ, 1)
+    log(f"training: rwkv6-1.6b step part {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts = train_runs()
+    log(f"training: run_training part {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_sweep()
+    log(f"training: reduced sweep {time.perf_counter() - t0:.1f} s")
+    counts["attn_fused_staged"] += step["launches"]
+    return {"launches": counts, "step": step}
 
 
 # -- K2 and K6 beside a parent tree's (``--ab-parent``, ``--ab-ptxas``) -----
@@ -4082,18 +4651,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = phase_model()
     done("model")
-    # K5/K6 launches: the attention op path's plus the layer's forward
-    # and the model's; K4's: the main path's, the serve phase's and the
-    # model's MoE layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = phase_training()
+    done("training")
+    # K5/K6 launches: the attention op path's plus the layer's forward,
+    # the model's and the training phase's; K4's: the main path's, the
+    # serve phase's and the model's MoE layer; K3's and K8's also the
+    # training driver's SpMM preflight
     for name, row in attn.items():
         row["launches"] += sattn["launches"] if name == "attn_fused_staged" \
             else 0
         row["launches"] += model.get(name, 0)
+        row["launches"] += training["launches"].get(name, 0)
     results["spmm_bcsr_fused_staged"]["launches"] += \
         model["spmm_bcsr_fused_staged"]
+    results["spmm_ell_fused_staged"]["launches"] += \
+        training["launches"]["spmm_ell_fused_staged"]
     results.update(attn)
     results.update(oracles)
     results.update(sharded)
+    results["spmm_ell_fused_sharded"]["launches"] += \
+        training["launches"]["spmm_ell_fused_sharded"]
     log("kernels: " + ", ".join(f"{r['name']} launches={r['launches']}"
                                 for r in results.values())
         + f"; training: spmm_bcsr_fused_staged {train['launches']} launches "
@@ -4103,7 +4682,14 @@ def main() -> int:
         f"{sattn['step_ms']:.4f} ms; model: attn_fused_staged "
         f"{model['attn_fused_staged']} launches a longformer-1.4b forward, "
         f"spmm_bcsr_fused_staged {model['spmm_bcsr_fused_staged']} in the "
-        f"MoE layer's routing")
+        f"MoE layer's routing; training: attn_fused_staged "
+        f"{training['step']['launches']} launches in a longformer-1.4b step "
+        f"({training['step']['ms']:.4f} ms, peak "
+        f"{training['step']['peak_gib']:.2f} GiB), "
+        f"{training['launches']['attn_fused_staged']} in the phase, "
+        f"spmm_ell_fused_sharded "
+        f"{training['launches']['spmm_ell_fused_sharded']} in the driver's "
+        f"preflight")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
-"""Config registry — one module per architecture the port runs (port of
-``src/repro/configs/``; ``NOT_PORTED`` names the two that wait for the
-recurrent slots)."""
+"""Config registry — one module per architecture (port of
+``src/repro/configs/``)."""
 import importlib
 
 _ARCH_MODULES = (
     "qwen2_5_32b", "llama3_405b", "qwen3_14b", "qwen1_5_32b",
     "llama4_scout_17b_a16e", "mixtral_8x7b", "llama_3_2_vision_11b",
-    "musicgen_large", "longformer_1_4b",
+    "musicgen_large", "jamba_1_5_large_398b", "rwkv6_1_6b",
+    "longformer_1_4b",
 )
 
 _loaded = False
@@ -22,9 +22,8 @@ def _load_all():
 
 
 from .base import (  # noqa: E402
-    ArchConfig, ShapeSpec, SHAPES, REGISTRY, NOT_PORTED, get_config,
+    ArchConfig, ShapeSpec, SHAPES, REGISTRY, get_config,
     all_arch_names, reduced, cell_supported, register)
 
-__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "REGISTRY", "NOT_PORTED",
-           "get_config", "all_arch_names", "reduced", "cell_supported",
-           "register"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "REGISTRY", "get_config",
+           "all_arch_names", "reduced", "cell_supported", "register"]

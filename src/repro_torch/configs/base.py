@@ -5,10 +5,8 @@ stdlib only).
 parameter counts one for one, so a configuration reads the same in both
 packages; ``register`` adds one to :data:`REGISTRY`.  ``SHAPES`` are the
 reference's four input-shape cells and ``reduced`` its CPU-sized smoke
-variant, field for field.  The port registers the configurations whose
-layer slots it runs (``attn``, ``sattn``, ``xattn`` with a dense or MoE
-FFN); the two whose slots are recurrent (:data:`NOT_PORTED`) raise
-``NotImplementedError`` by name.
+variant, field for field.  The registry holds the reference's eleven
+architectures.
 """
 from __future__ import annotations
 
@@ -16,11 +14,6 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 REGISTRY: Dict[str, "ArchConfig"] = {}
-
-# the reference's architectures whose layer slots the port does not run
-# yet: slot kind -> the port slice that brings it
-NOT_PORTED = {"jamba-1.5-large-398b": "mamba", "rwkv6-1.6b": "rwkv"}
-RECURRENT_SLICE = "port slice 14"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,10 +172,6 @@ def get_config(name: str) -> ArchConfig:
     # import registers all arch modules on first use
     from . import _load_all
     _load_all()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: its {NOT_PORTED[name]!r} slots wait for "
-            f"{RECURRENT_SLICE} (models/mamba.py, models/rwkv6.py)")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]

@@ -11,6 +11,8 @@ can feed both packages.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -55,19 +57,33 @@ def model_params_from_numpy(params, *, device=None,
     ``final_norm``, ``lm_head`` and ``period/slot{i}/{kind, ffn_dense,
     ffn_moe}``, each period leaf stacked over periods) as the port's
     tree of the same keys and shapes: ``dtype`` tensors on ``device``
-    (the card unless ``"cpu"``), no grad.  The MoE router stays float32,
-    as the reference keeps it."""
+    (the card unless ``"cpu"``), no grad.  The leaves that the reference
+    keeps in float32 at every model dtype (:func:`keeps_float32`) stay
+    float32."""
     return model_params_to(params_from_numpy(params, device=device,
                                              requires_grad=False),
                            dtype=dtype)
 
 
+# leaves that the reference's init_params draws in float32 at every model
+# dtype: the MoE router, mamba's scan parameters, rwkv's bonus, decay base,
+# group norm and every low-rank (lora_*_a / lora_*_b) factor
+FLOAT32_LEAVES = frozenset({"router", "dt_bias", "A_log", "D", "u", "w0",
+                            "gn_w", "gn_b"})
+_LORA = re.compile(r"lora_[a-z]+_[ab]")
+
+
+def keeps_float32(name: str) -> bool:
+    """Whether the leaf ``name`` stays float32 whatever the model dtype."""
+    return name in FLOAT32_LEAVES or _LORA.fullmatch(name) is not None
+
+
 def model_params_to(params, *, dtype=None, device=None):
     """A decoder-stack parameter tree with every leaf moved to ``dtype``
-    and ``device`` (either ``None``: unchanged), the MoE router kept in
-    float32 as ``init_params`` keeps it."""
+    and ``device`` (either ``None``: unchanged), the leaves that
+    ``init_params`` keeps in float32 (:func:`keeps_float32`) kept so."""
     def leaf(name, t):
-        return t.to(device, torch.float32 if name == "router" else dtype)
+        return t.to(device, torch.float32 if keeps_float32(name) else dtype)
 
     return {name: model_params_to(value, dtype=dtype, device=device)
             if isinstance(value, dict) else leaf(name, value)

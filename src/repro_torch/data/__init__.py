@@ -1,5 +1,5 @@
-# Port of src/repro/data/: the serving tier's host-to-device input stage.
-# TokenPipeline waits for the model stacks.
-from .pipeline import DeviceStage
+# Port of src/repro/data/: the deterministic token pipeline and the
+# serving tier's host-to-device input stage.
+from .pipeline import DeviceStage, PipelineConfig, TokenPipeline
 
-__all__ = ["DeviceStage"]
+__all__ = ["DeviceStage", "PipelineConfig", "TokenPipeline"]

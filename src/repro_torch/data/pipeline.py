@@ -1,12 +1,19 @@
-"""The serving tier's async host-to-device input stage (port of
-``DeviceStage`` from ``src/repro/data/pipeline.py``).
+"""Deterministic, offset-addressable token pipeline and the serving
+tier's async host-to-device input stage (port of
+``src/repro/data/pipeline.py``).
 
-A bounded look-ahead thread packs batch k+1 and copies it to the device
-while the consumer dispatches batch k (DESIGN.md §12).  On the card the
-copy runs on the stage's own CUDA stream from pinned host memory, so it
-can overlap the kernels the consumer launches on its stream.
-``TokenPipeline``, the reference module's token stream, waits for the
-port's model stacks.
+``TokenPipeline`` is the reference's, copied: numpy, a pure function of
+(seed, step, host), so a restart at step k reproduces exactly the
+batches k, k+1, ... without replaying (the data-side half of
+checkpoint/restart), and both packages give the same batches.  Sources:
+a synthetic LM stream (zipf-ish unigram mixture with repeated motifs, so
+the loss falls) or a memory-mapped int32 token file.
+
+``DeviceStage``: a bounded look-ahead thread packs batch k+1 and copies
+it to the device while the consumer dispatches batch k (DESIGN.md §12).
+On the card the copy runs on the stage's own CUDA stream from pinned
+host memory, so it can overlap the kernels the consumer launches on its
+stream.
 """
 from __future__ import annotations
 
@@ -14,12 +21,87 @@ import contextlib
 import dataclasses
 import queue
 import threading
-from typing import Any, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.ops import resolve_device
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    token_file: Optional[str] = None     # memmap int32 tokens, else synthetic
+    num_image_tokens: int = 0            # vlm stub frontend
+    d_model: int = 0
+
+
+class TokenPipeline:
+    def __init__(self, cfg: PipelineConfig, *, host_index: int = 0,
+                 host_count: int = 1):
+        if cfg.global_batch % host_count:
+            raise ValueError(f"global_batch {cfg.global_batch} does not "
+                             f"split over {host_count} hosts")
+        self.cfg = cfg
+        self.host_index = host_index
+        self.host_count = host_count
+        self.local_batch = cfg.global_batch // host_count
+        self._tokens = None
+        if cfg.token_file:
+            self._tokens = np.memmap(cfg.token_file, dtype=np.int32,
+                                     mode="r")
+            # batch_at samples (seq_len + 1)-token windows from
+            # rng.integers(0, len - seq_len - 1)
+            if len(self._tokens) < cfg.seq_len + 2:
+                raise ValueError(
+                    f"token_file {cfg.token_file!r} has "
+                    f"{len(self._tokens)} tokens — too short for "
+                    f"seq_len={cfg.seq_len} (need >= {cfg.seq_len + 2} "
+                    f"so at least one sample window exists)")
+
+    # -- pure function of (seed, step, host) --------------------------------
+    def _rng(self, step: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.cfg.seed, step, self.host_index]))
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = self._rng(step)
+        if self._tokens is not None:
+            n = len(self._tokens) - cfg.seq_len - 1
+            starts = rng.integers(0, n, size=self.local_batch)
+            tok = np.stack([self._tokens[s:s + cfg.seq_len + 1]
+                            for s in starts]).astype(np.int32)
+        else:
+            # synthetic: mixture of a zipf unigram stream and short
+            # repeated motifs (gives structure a model can learn)
+            zipf = rng.zipf(1.3, size=(self.local_batch, cfg.seq_len + 1))
+            tok = (zipf % (cfg.vocab_size - 2)).astype(np.int32) + 2
+            motif_len = 8
+            motif = rng.integers(2, cfg.vocab_size,
+                                 size=(self.local_batch, motif_len))
+            for rep in range(1, (cfg.seq_len + 1) // (2 * motif_len), 2):
+                sl = slice(rep * motif_len, (rep + 1) * motif_len)
+                tok[:, sl] = motif
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        if cfg.num_image_tokens:
+            batch["image_embeds"] = rng.standard_normal(
+                (self.local_batch, cfg.num_image_tokens, cfg.d_model)
+            ).astype(np.float32) * 0.02
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self.iter_from(0)
+
+    def iter_from(self, step: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Resume mid-stream (restart path)."""
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass

@@ -1,4 +1,4 @@
-"""Unified decoder stack for the attention-family architectures (port of
+"""Unified decoder stack for all eleven architectures (port of
 ``src/repro/models/transformer.py``).
 
 Depth is ``num_periods`` repetitions of the config's layer ``pattern``;
@@ -6,17 +6,18 @@ parameters are stacked over periods as the reference stacks them (each
 leaf has a leading period axis), so a reference pytree carries across
 leaf for leaf (``convert.model_params_from_numpy``).  The reference's
 ``lax.scan`` over periods is a Python loop over the period index here;
-heterogeneous patterns (the VLM's 1-in-5 cross-attention) unroll within
-the period.  ``remat="full"`` checkpoints each period with
-``torch.utils.checkpoint`` when grad is on; ``"none"`` keeps every
-activation.
+heterogeneous patterns (jamba's 7:1 mamba:attn, the VLM's 1-in-5
+cross-attention) unroll within the period.  ``remat="full"``
+checkpoints each period with ``torch.utils.checkpoint`` when grad is
+on; ``"none"`` keeps every activation.
 
 Slots: ``attn`` (dense GQA), ``sattn`` (the fused sparse-attention
 sandwich in ``forward_train`` — K6 under the card's default lowering,
 K5 with ``staging="resident"`` — and the reference's dense masked
 fallback in ``prefill``/``forward_decode``), ``xattn`` (cross-attention
-to image embeddings); FFNs dense SwiGLU or MoE.  The recurrent slots
-(``mamba``, ``rwkv``) wait for port slice 14 and raise.  ``shard_ctx``
+to image embeddings), and the recurrent ``mamba`` (``models/mamba.py``)
+and ``rwkv`` (``models/rwkv6.py``, its channel-mix in place of an FFN);
+FFNs dense SwiGLU or MoE.  ``shard_ctx``
 (the reference's GSPMD layout hints, ``_constrain``/``_gather_fsdp``)
 has no single-card counterpart and raises when given.
 
@@ -25,25 +26,25 @@ Three entry points, each on the card unless the caller passes
   forward_train   full-sequence forward -> (logits, aux)
   prefill         forward + cache construction -> (logits, caches)
   forward_decode  one token against caches -> (logits, caches); it
-                  writes the new K/V row into the caches it is given
-                  (in place, where the reference returns updated copies)
+                  writes the new K/V row, and the recurrent slots' new
+                  states, into the caches it is given (in place, where
+                  the reference returns updated copies)
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import RECURRENT_SLICE, ArchConfig
+from ..configs.base import ArchConfig
 from ..kernels.ops import resolve_device
-from . import layers, moe, sparse_attention
+from . import layers, mamba, moe, rwkv6, sparse_attention
 
 # sentinel position for unfilled KV-cache slots: +2^30 fails the causal
 # test (qpos >= kvpos) so empty slots never attend
 UNFILLED_POS = 2 ** 30
-
-PORTED_SLOTS = ("attn", "sattn", "xattn")
 
 
 def _no_sharding():
@@ -54,14 +55,9 @@ def _no_sharding():
         "port's model stack runs on one card")
 
 
-def _check(cfg: ArchConfig, shard_ctx=None) -> None:
+def _check(shard_ctx) -> None:
     if shard_ctx is not None:
         _no_sharding()
-    for kind in cfg.pattern:
-        if kind not in PORTED_SLOTS:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} slots wait for {RECURRENT_SLICE} "
-                f"(models/mamba.py, models/rwkv6.py)")
 
 
 def _device(device) -> str:
@@ -92,6 +88,18 @@ class _Init:
     def full(self, shape, value, dtype=None):
         return torch.full(self.lead + tuple(shape), value,
                           dtype=dtype or self.dt, device=self.device)
+
+    def log_uniform(self, shape, low, high):
+        """float32 exp(U(log low, log high)) draws."""
+        u = torch.rand(self.lead + tuple(shape), generator=self.gen,
+                       dtype=torch.float32, device=self.device)
+        lo, hi = math.log(low), math.log(high)
+        return torch.exp(lo + (hi - lo) * u)
+
+    def tile(self, value: torch.Tensor):
+        """``value`` (float32, on the CPU) copied to every leading index."""
+        value = value.to(self.device)
+        return value.expand(self.lead + tuple(value.shape)).clone()
 
 
 def _init_attn(cfg: ArchConfig, r: _Init):
@@ -135,9 +143,55 @@ def _init_moe_ffn(cfg: ArchConfig, r: _Init):
             "w_down": r.normal((E, F, D), r.so)}
 
 
+def _init_mamba(cfg: ArchConfig, r: _Init):
+    D = cfg.d_model
+    Di, N = cfg.mamba_d_inner, cfg.mamba_state
+    R, K = cfg.mamba_dt_rank, cfg.mamba_conv
+    f32 = torch.float32
+    dt_init = r.log_uniform((Di,), 1e-3, 1e-1)
+    return {"ln": r.full((D,), 1.0),
+            "in_proj": r.normal((D, 2 * Di), 0.02),
+            "conv_w": r.normal((K, Di), 0.02),
+            "conv_b": r.full((Di,), 0.0),
+            "x_proj": r.normal((Di, R + 2 * N), 0.02),
+            "dt_proj": r.normal((R, Di), R ** -0.5),
+            "dt_bias": torch.log(torch.expm1(dt_init)),
+            "A_log": r.tile(torch.log(torch.arange(
+                1, N + 1, dtype=f32)).expand(Di, N)),
+            "D": r.full((Di,), 1.0, f32),
+            "out_proj": r.normal((Di, D), r.so)}
+
+
+def _init_rwkv(cfg: ArchConfig, r: _Init):
+    D, F = cfg.d_model, cfg.d_ff
+    H, N = cfg.num_heads, cfg.head_dim
+    f32 = torch.float32
+    tm = {"ln_w": r.full((D,), 1.0), "ln_b": r.full((D,), 0.0),
+          "u": r.normal((H, N), 0.02, f32),
+          "w0": r.full((H, N), -5.0, f32),
+          "gn_w": r.full((H, N), 1.0, f32),
+          "gn_b": r.full((H, N), 0.0, f32)}
+    for nm in ("r", "k", "v", "g"):
+        tm[f"mu_{nm}"] = r.full((D,), 0.5)
+        tm[f"lora_{nm}_a"] = r.normal((D, 32), 0.02, f32)
+        tm[f"lora_{nm}_b"] = r.normal((32, D), 0.02, f32)
+        tm[f"w_{nm}"] = r.normal((D, H, N), 0.02)
+    tm["mu_w"] = r.full((D,), 0.5)
+    tm["lora_w_a"] = r.normal((D, 64), 0.02, f32)
+    tm["lora_w_b"] = r.normal((64, D), 0.02, f32)
+    tm["w_o"] = r.normal((H, N, D), r.so)
+    cm = {"ln_w": r.full((D,), 1.0), "ln_b": r.full((D,), 0.0),
+          "mu_k": r.full((D,), 0.5), "mu_r": r.full((D,), 0.5),
+          "w_k": r.normal((D, F), 0.02),
+          "w_v": r.normal((F, D), 0.02),
+          "w_r": r.normal((D, D), 0.02)}
+    return {"tm": tm, "cm": cm}
+
+
 # "sattn" (sparse attention, DESIGN.md §13) reuses the attn projection
 # stack verbatim — only the attend step differs
-_SLOT_INIT = {"attn": _init_attn, "xattn": _init_xattn, "sattn": _init_attn}
+_SLOT_INIT = {"attn": _init_attn, "xattn": _init_xattn, "sattn": _init_attn,
+              "mamba": _init_mamba, "rwkv": _init_rwkv}
 _FFN_INIT = {"dense": _init_dense_ffn, "moe": _init_moe_ffn}
 
 
@@ -145,11 +199,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device=None) -> Dict[str, Any]:
     """The reference's parameter tree, distributions and scales (normal
     draws times 0.02, output projections times 0.02 / sqrt(2 L), norms
-    ones, biases and gates zeros, the router in float32), drawn from
+    ones, biases and gates zeros, the router and the recurrent slots'
+    scan parameters in float32), drawn from
     ``generator`` on ``device`` (the card unless ``"cpu"``; ``"meta"``
     allocates nothing).  ``generator`` defaults to one seeded 0 on that
     device; its numbers are not the reference's, whose RNG differs."""
-    _check(cfg)
     device = _device(device)
     if device == "meta":
         generator = None
@@ -166,7 +220,8 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     for i, kind in enumerate(cfg.pattern):
         slot = {kind: _SLOT_INIT[kind](cfg, r)}
         fk = cfg.ffn_kind(i)
-        slot["ffn_" + fk] = _FFN_INIT[fk](cfg, r)
+        if fk != "none":
+            slot["ffn_" + fk] = _FFN_INIT[fk](cfg, r)
         params["period"][f"slot{i}"] = slot
     return params
 
@@ -219,6 +274,8 @@ def _apply_slot_train(cfg: ArchConfig, kind: str, slot_params, x, positions,
             slot_params["xattn"], x, image_embeds, head_dim=cfg.head_dim,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, chunk_q=chunk_q)
+    elif kind in ("mamba", "rwkv"):
+        x = _recurrent(cfg, kind, slot_params[kind], x)[0]
     else:
         raise ValueError(kind)
     return _apply_ffn(cfg, slot_params, x)
@@ -252,7 +309,7 @@ def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
     """
     if remat not in ("none", "full"):
         raise ValueError(f"remat={remat!r}: 'none' or 'full'")
-    _check(cfg, shard_ctx)
+    _check(shard_ctx)
     device = resolve_device(device)
     tokens = tokens.to(device)
     B, S = tokens.shape
@@ -297,8 +354,9 @@ def attn_cache_len(cfg: ArchConfig, cache_len: int) -> int:
 def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device=None):
     """Zero caches (stacked over periods) for decode, on ``device`` (the
-    card unless ``"cpu"``; ``"meta"`` for shapes only)."""
-    _check(cfg)
+    card unless ``"cpu"``; ``"meta"`` for shapes only): K/V rings, the
+    mamba slots' SSM state (float32) and conv buffer, the rwkv slots' wkv
+    state (float32) and token-shift rows."""
     device = _device(device)
     dt = _dtype(cfg)
     P = cfg.num_periods
@@ -325,6 +383,24 @@ def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                                   device=device),
                 "xv": torch.zeros((P, batch, n_img, KV, hd), dtype=dt,
                                   device=device),
+            }
+        elif kind == "mamba":
+            Di, N, K = cfg.mamba_d_inner, cfg.mamba_state, cfg.mamba_conv
+            caches[f"slot{i}"] = {
+                "ssm": torch.zeros((P, batch, Di, N), dtype=torch.float32,
+                                   device=device),
+                "conv": torch.zeros((P, batch, K - 1, Di), dtype=dt,
+                                    device=device),
+            }
+        elif kind == "rwkv":
+            H, N, D = cfg.num_heads, cfg.head_dim, cfg.d_model
+            caches[f"slot{i}"] = {
+                "wkv": torch.zeros((P, batch, H, N, N), dtype=torch.float32,
+                                   device=device),
+                "x_prev_tm": torch.zeros((P, batch, D), dtype=dt,
+                                         device=device),
+                "x_prev_cm": torch.zeros((P, batch, D), dtype=dt,
+                                         device=device),
             }
     return caches
 
@@ -373,11 +449,32 @@ def _decode_xattn(cfg, p, x, cache):
     return x + gate * out
 
 
+def _recurrent(cfg: ArchConfig, kind: str, p, x, init_state=None):
+    """A mamba or rwkv slot over x, returning (x, its new state)."""
+    if kind == "mamba":
+        return mamba.mamba_block(p, x, state_dim=cfg.mamba_state,
+                                 conv_width=cfg.mamba_conv,
+                                 norm_eps=cfg.norm_eps,
+                                 init_state=init_state, return_state=True)
+    return rwkv6.rwkv_block(p, x, num_heads=cfg.num_heads,
+                            head_dim=cfg.head_dim, norm_eps=cfg.norm_eps,
+                            init_state=init_state, return_state=True)
+
+
+def _decode_recurrent(cfg, kind, p, x, cache):
+    """One position through a mamba or rwkv slot from the state in
+    ``cache`` (one period's views), into which the new state is written."""
+    x, state = _recurrent(cfg, kind, p, x, init_state=cache)
+    for name, value in state.items():
+        cache[name].copy_(value)
+    return x
+
+
 def forward_decode(cfg: ArchConfig, params, token, caches, pos, *,
                    shard_ctx=None, device=None):
     """token (B, 1) integer; ``pos`` an int (or 0-d tensor); caches from
     ``init_decode_cache``/``prefill``, updated in place and returned."""
-    _check(cfg, shard_ctx)
+    _check(shard_ctx)
     device = resolve_device(device)
     pos = int(pos)
     x = params["embed"][token.to(device)]
@@ -396,8 +493,10 @@ def forward_decode(cfg: ArchConfig, params, token, caches, pos, *,
                 x = _decode_attn(cfg, sp["sattn"], x, cache, pos,
                                  window=cfg.sparse_attn_window,
                                  num_global=cfg.sparse_attn_global)
-            else:
+            elif kind == "xattn":
                 x = _decode_xattn(cfg, sp["xattn"], x, cache)
+            else:
+                x = _decode_recurrent(cfg, kind, sp[kind], x, cache)
             x, _ = _apply_ffn(cfg, sp, x)
     return _head(cfg, params, x).float(), caches
 
@@ -424,8 +523,9 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
             image_embeds=None, chunk_q: int = 512, shard_ctx=None, causal_skip: bool = False, device=None):
     """tokens (B, S) -> (logits (B, S, V) float32, caches stacked over
     periods).  ``sattn`` slots take the dense masked fallback, as in the
-    reference, with a full-length cache (global tokens must survive)."""
-    _check(cfg, shard_ctx)
+    reference, with a full-length cache (global tokens must survive);
+    the recurrent slots' caches are their states after the prompt."""
+    _check(shard_ctx)
     device = resolve_device(device)
     tokens = tokens.to(device)
     B, S = tokens.shape
@@ -468,6 +568,9 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
                 new_caches[f"slot{i}"] = {
                     "k": _filled(k, T), "v": _filled(v, T),
                     "kpos": _filled(positions, T, UNFILLED_POS)}
+            elif kind in ("mamba", "rwkv"):
+                x, new_caches[f"slot{i}"] = _recurrent(cfg, kind, sp[kind],
+                                                       x)
             else:
                 p = sp["xattn"]
                 kv = layers.rms_norm(image_embeds, p["ln_kv"], cfg.norm_eps)

@@ -44,13 +44,12 @@ def _fields(cfg):
 # -- configurations ----------------------------------------------------------
 
 def test_registry_is_the_reference_less_the_recurrent_archs():
-    assert ARCHS == sorted(set(ref_configs.all_arch_names())
-                           - set(configs.NOT_PORTED))
-    assert len(ARCHS) == 9
-    for name, kind in configs.NOT_PORTED.items():
-        assert kind in ref_configs.get_config(name).pattern
-        with pytest.raises(NotImplementedError, match="slice 14"):
-            get_config(name)
+    # the registry is the reference's eleven now, the recurrent ones too
+    assert ARCHS == sorted(ref_configs.all_arch_names())
+    assert len(ARCHS) == 11
+    for name, kind in (("jamba-1.5-large-398b", "mamba"),
+                       ("rwkv6-1.6b", "rwkv")):
+        assert kind in get_config(name).pattern
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -325,7 +324,9 @@ def test_init_matches_reference_tree_and_scales(arch):
     slot0 = params["period"]["slot0"]
     kind = cfg.pattern[0]
     so = 0.02 / (2 * cfg.num_layers) ** 0.5
-    assert float(slot0[kind]["wo"].std()) == pytest.approx(so, rel=0.1)
+    out = {"mamba": lambda p: p["out_proj"],
+           "rwkv": lambda p: p["tm"]["w_o"]}.get(kind, lambda p: p["wo"])
+    assert float(out(slot0[kind]).std()) == pytest.approx(so, rel=0.1)
     again = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(jax.tree.leaves(params), jax.tree.leaves(again)))
@@ -373,7 +374,13 @@ def test_sharding_hints_and_recurrent_slots_raise():
     with pytest.raises(NotImplementedError, match="sharding slice"):
         transformer.forward_train(cfg, params, tok, remat="none",
                                   shard_ctx={"mesh": None}, device="cpu")
+    # a hybrid ("mamba", "attn") stack initialises and runs now
     hybrid = dataclasses.replace(cfg, pattern=("mamba", "attn"),
                                  num_layers=4)
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        Model(hybrid).init(device="cpu")
+    params = Model(hybrid).init(device="cpu")
+    assert set(params["period"]["slot0"]) == {"mamba", "ffn_dense"}
+    assert params["period"]["slot0"]["mamba"]["A_log"].shape == (
+        2, hybrid.mamba_d_inner, hybrid.mamba_state)
+    logits, _ = transformer.forward_train(hybrid, params, tok, remat="none",
+                                          device="cpu")
+    assert logits.shape == (1, 4, hybrid.vocab_size)

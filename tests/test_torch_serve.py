@@ -365,22 +365,27 @@ def test_a_server_for_the_card_raises_without_one(monkeypatch):
         spmm_mod.compile_batched_spmm([], 8, cache=JitCache())
 
 
-def test_the_lm_driver_is_not_ported_yet():
-    # generate() runs every attention-family arch now
-    # (tests/test_torch_generate.py); the recurrent ones wait for their
-    # slots, by name, on the CLI and in the model stack
+def test_the_lm_driver_is_not_ported_yet(capsys):
+    # generate() runs the recurrent architectures now too
+    # (tests/test_torch_generate.py holds them to the reference), on the
+    # CLI and on a config of the rwkv slot alone
     for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError, match="slice 14"):
-            serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--batch", "1", "--prompt-len", "4", "--gen",
+                           "2"]) == 0
+        assert f"{arch}-smoke on cpu: generated (1, 6)" in \
+            capsys.readouterr().out
     from repro_torch.configs import ArchConfig
     from repro_torch.models import Model
     rwkv = ArchConfig(name="rwkv-like", family="ssm", num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=0, head_dim=16,
                       d_ff=128, vocab_size=256, pattern=("rwkv",),
                       dtype="float32")
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        serve.generate(Model(rwkv), {}, torch.zeros((1, 4), dtype=torch.long),
-                       gen_len=1, cache_len=6, device="cpu")
+    model = Model(rwkv)
+    out = serve.generate(model, model.init(device="cpu"),
+                         torch.zeros((1, 4), dtype=torch.long), gen_len=2,
+                         cache_len=6, device="cpu")
+    assert out.shape == (1, 6) and int(out.max()) < rwkv.vocab_size
 
 
 def test_the_lm_driver_generates_on_the_cpu(capsys):

@@ -18,7 +18,10 @@ from repro_torch.configs import get_config, reduced
 
 # leaves that init to constants: perturbed so that each one matters
 _PERTURBED = ("gate", "ln", "ln_kv", "final_norm", "q_norm", "k_norm",
-              "bq", "bk", "bv")
+              "bq", "bk", "bv",
+              # the recurrent slots' norms, biases, mixes and decay base
+              "ln_w", "ln_b", "gn_w", "gn_b", "conv_b", "D", "w0",
+              "mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
 
 
 def _perturb(tree, rng):
