@@ -3706,13 +3706,13 @@ def jamba_cut(slots: slice, **cut):
                         num_layers=len(pattern), **cut)
 
 
-def model_jamba() -> None:
+def model_jamba() -> float:
     """(m6) jamba-1.5-large-398b cut to its period's first JAMBA_SLOTS
     slots (widths unchanged) at its bf16: ``loss_fn`` at batch 1, S =
     4096, timed, with its peak memory; ``generate`` timed at batch 4.
     Then the slots JAMBA_CHECK at fp32: prefill and JAMBA_STEPS decode
     steps held to ``forward_train`` at JAMBA_TOL with capacity C = T (no
-    drops on either path)."""
+    drops on either path).  Returns the ``loss_fn`` peak, GiB."""
     import dataclasses
     from repro_torch.models import Model
 
@@ -3785,6 +3785,7 @@ def model_jamba() -> None:
         f"({time.perf_counter() - t0:.1f} s)")
     del params
     torch.cuda.empty_cache()
+    return peak
 
 
 def phase_model() -> dict:
@@ -3800,17 +3801,19 @@ def phase_model() -> dict:
     log(f"model: mixtral part {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    peaks = {}
     for name, part in (("rwkv6-1.6b", model_rwkv),
                        ("jamba cut", model_jamba)):
         t0 = time.perf_counter()
-        part()
+        peaks[name] = part()
         log(f"model: {name} part {time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model_reduced()
     log(f"model: reduced sweep {time.perf_counter() - t0:.1f} s")
-    return {"attn_fused_staged": k6, "spmm_bcsr_fused_staged": k4}
+    return {"attn_fused_staged": k6, "spmm_bcsr_fused_staged": k4,
+            "jamba_peak_gib": peaks["jamba cut"]}
 
 
 # the training path (k): AdamW steps of longformer-1.4b at full width,
@@ -3881,7 +3884,10 @@ class _StepSpans:
 def train_step_at_size(arch: str, seq: int, steps: int) -> dict:
     """``steps`` ``make_train_step`` steps (AdamW, remat "full") of
     ``arch`` at full width, fp32, batch 1 over ``seq`` tokens of one
-    batch, each from the initial params and optimizer state: the ones
+    batch, built as ``run_training`` builds its one-card step (the
+    parameters and state sharded onto ``make_host_mesh(1, 1)``, the
+    step given its ``shard_ctx`` and ``grad_shardings``), each from the
+    initial params and optimizer state: the ones
     before the last warm up (plans, allocator; their results dropped,
     timed by the host clock), the last is timed by parts
     (``_StepSpans``), with its peak memory and its K6 launches (zeroed
@@ -3889,6 +3895,8 @@ def train_step_at_size(arch: str, seq: int, steps: int) -> dict:
     every gradient finite, and the loss on the batch after the update
     under the loss before it."""
     from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import Model
     from repro_torch.optim import AdamW
     from repro_torch.pytree import tree_leaves as leaves
@@ -3897,7 +3905,11 @@ def train_step_at_size(arch: str, seq: int, steps: int) -> dict:
     cfg = model_config(arch, dtype="float32")
     model = Model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(37)
-    params = model.init(gen)
+    mesh = make_host_mesh(data=1, model=1)
+    ctx = {"mesh": mesh, "dp": ("data",)}
+    p_shard = sharding.param_shardings(model.param_shapes(), mesh)
+    params = sharding.shard_tree(model.init(gen), p_shard)
+    torch.cuda.empty_cache()
     opt = AdamW(learning_rate=TRAIN_LR)
     state = opt.init(params)
     tok = torch.randint(2, cfg.vocab_size, (1, seq + 1), device="cuda",
@@ -3910,7 +3922,8 @@ def train_step_at_size(arch: str, seq: int, steps: int) -> dict:
                                    for g in leaves(grads)]).all())
         return grads
 
-    step = make_train_step(model, opt, remat="full", grad_transform=check)
+    step = make_train_step(model, opt, remat="full", shard_ctx=ctx,
+                           grad_shardings=p_shard, grad_transform=check)
     warm = []
     for _ in range(steps - 1):
         t0 = time.perf_counter()
@@ -3926,20 +3939,23 @@ def train_step_at_size(arch: str, seq: int, steps: int) -> dict:
         parts = spans.split()
     launches = k6.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    param_gib = sum(b.numel() * b.element_size()
+                    for b in leaves(params)) / 2 ** 30
     metrics = {k: float(v) for k, v in metrics.items()}
     with torch.no_grad():
-        after = float(model.loss_fn(params, batch)[0])
+        after = float(model.loss_fn(params, batch, shard_ctx=ctx)[0])
     assert plain.calls == 0, plain.calls
     assert all(bool(f) for f in finite), "a gradient is not finite"
     assert np.isfinite(metrics["loss"]) and after < metrics["loss"], \
         (metrics, after)
     shares = ", ".join(f"{k} {parts[k]:.4f} ms ({100 * parts[k] / parts['step']:.1f}"
                        f" %)" for k in ("forward", "backward", "optimizer"))
-    log(f"training/{arch} step: fp32, batch 1, S = {seq}, AdamW (lr "
+    log(f"training/{arch} step (run_training's one-card (1, 1) mesh): "
+        f"fp32, batch 1, S = {seq}, AdamW (lr "
         f"{TRAIN_LR:g}), remat full: {parts['step']:.4f} ms by CUDA events "
         f"= {shares}, call {steps} of {steps} (warm-ups by the host clock: "
         f"{', '.join(warm) or 'none'}); peak memory "
-        f"{peak:.2f} GiB ({gib(params):.2f} GiB of params); {launches} "
+        f"{peak:.2f} GiB ({param_gib:.2f} GiB of params); {launches} "
         f"attn_fused_staged launches in the step, no attention plain "
         f"version; every gradient finite; loss {metrics['loss']:.4f} -> "
         f"{after:.4f} on the same batch after the update (grad norm "
@@ -4104,9 +4120,10 @@ def train_sweep() -> None:
         f"2 lr = {2 * SWEEP_LR:g})")
 
 
-def phase_training() -> dict:
-    """(k) the training path on the card.  Returns the phase's launches of
-    K6, K8 and K3 and the longformer step's numbers."""
+def phase_training(jamba_peak: float) -> dict:
+    """(k) the training path on the card, then (l) the mesh.  Returns the
+    phase's launches of K6, K8 and K3, the longformer step's numbers and
+    the mesh step's."""
     t0 = time.perf_counter()
     step = train_step_at_size("longformer-1.4b", TRAIN_SEQ, 2)
     assert step["launches"] >= 384 and step["launches"] % 384 == 0, step
@@ -4126,8 +4143,472 @@ def phase_training() -> dict:
     t0 = time.perf_counter()
     train_sweep()
     log(f"training: reduced sweep {time.perf_counter() - t0:.1f} s")
-    counts["attn_fused_staged"] += step["launches"]
-    return {"launches": counts, "step": step}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(jamba_peak)
+    counts["attn_fused_staged"] += step["launches"] + \
+        mesh["attn_fused_staged"]
+    return {"launches": counts, "step": step, "mesh": mesh["step"]}
+
+
+# the mesh (l): longformer-1.4b at full width, fp32, S = MESH_SEQ, global
+# batch MESH_BATCH, remat full, one AdamW step on make_host_mesh(data=2,
+# model=2) -- four chips on the card -- against the unsharded step at
+# microbatches=2 from the same weights, state and batch (l1); every
+# architecture at reduced(), a sharded step on the card against the
+# card's unsharded microbatches=2 step and the CPU's sharded step (l2);
+# run_training on reduced longformer at (2, 2), stopped at RUN_STOP and
+# resumed on (2, 1) (l3); compressed_psum over four chips of the card
+# against four CPU chips (l4); the dry run's card records beside the
+# peaks measured (l5).  Sharded params and moments are 20.3 GiB in all;
+# the unsharded step's initial weights wait on the host meanwhile
+MESH_SEQ, MESH_BATCH, MESH_SHAPE = 4096, 2, (2, 2)
+# the sharded step's leaves against the unsharded step's: bit for bit
+# where the grad norm is; it sums the blocks' squares in another order
+# than the whole leaves', and a last-bit change in the clip scale moves
+# an update by at most a few ulps of the leaf
+MESH_REL = 1e-6
+MESH_SWEEP_SEQ = 32
+GATHER = ("repro_torch.models.transformer", "gather")
+
+
+def _host(tree):
+    """Every leaf of a (sharded) tree gathered whole onto the CPU."""
+    from repro_torch.distributed.sharding import gather_tree
+    return gather_tree(tree, "cpu")
+
+
+def _leaf_diffs(got, want) -> tuple:
+    """(leaves equal bit for bit, of how many; the largest max|a-b| /
+    max|b| over the leaves), each leaf of ``want`` (on the CPU) moved to
+    ``got``'s device, one at a time, and compared there."""
+    from repro_torch.pytree import tree_leaves as leaves
+    same, worst, n = 0, 0.0, 0
+    for a, b in zip(leaves(got), leaves(want)):
+        b = b.to(a.device)
+        n += 1
+        if torch.equal(a, b):
+            same += 1
+            continue
+        top = float(b.float().abs().max())
+        worst = max(worst, float((a.float() - b.float()).abs().max())
+                    / (top or 1.0))
+    return same, n, worst
+
+
+class _MeshSpans(_Spans):
+    """CUDA events around every ``Model.loss_fn`` call (one a data group:
+    its forward and backward run from it to the next group's start), the
+    optimizer's ``update`` and the stack's parameter gathers."""
+
+    def __init__(self, model):
+        from repro_torch.optim import AdamW
+        super().__init__(GATHER)
+        self.model, self.opt_cls = model, AdamW
+        self.marks = []
+
+    def _mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def __enter__(self):
+        super().__enter__()
+        loss_fn, update = self.model.loss_fn, self.opt_cls.update
+
+        def timed_loss(*a, **kw):
+            self._mark("group")
+            return loss_fn(*a, **kw)
+
+        def timed_update(opt, *a, **kw):
+            self._mark("optimizer")
+            return update(opt, *a, **kw)
+
+        self.saved_update = update
+        self.model.loss_fn = timed_loss
+        self.opt_cls.update = timed_update
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.loss_fn
+        self.opt_cls.update = self.saved_update
+        return super().__exit__(*exc)
+
+    def split(self) -> dict:
+        self._mark("end")
+        torch.cuda.synchronize()
+        parts, groups = {}, 0
+        for (name, ev), (_, nxt) in zip(self.marks, self.marks[1:]):
+            if name == "group":
+                name, groups = f"group {groups}", groups + 1
+            parts[name] = ev.elapsed_time(nxt)
+        parts["gathers"] = self.ms(GATHER)
+        parts["step"] = self.marks[0][1].elapsed_time(self.marks[-1][1])
+        return parts
+
+
+def mesh_step_at_size() -> dict:
+    """(l1) one sharded AdamW step of longformer-1.4b at full width on a
+    (2, 2) mesh of the card's chips against the unsharded step at
+    microbatches=2, from the same initial weights, state and batch, both
+    under deterministic algorithms: loss, grad norm and every updated
+    parameter and moment leaf compared.  Times by data group, gathers
+    and optimizer (CUDA events), the peak memory, the bytes each chip
+    holds, and the K6 launches of the sharded step (zeroed just before,
+    read just after)."""
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    cfg = model_config("longformer-1.4b", dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    params = model.init(gen)
+    tok = torch.randint(2, cfg.vocab_size, (MESH_BATCH, MESH_SEQ + 1),
+                        device="cuda", generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    initial = _host(params)                 # the unsharded step's start
+    mesh = make_host_mesh(data=MESH_SHAPE[0], model=MESH_SHAPE[1])
+    p_shard = sharding.param_shardings(model.param_shapes(), mesh)
+    sp = sharding.shard_tree(params, p_shard)
+    del params
+    torch.cuda.empty_cache()
+    opt = AdamW(learning_rate=TRAIN_LR)
+    state = opt.init(sp)
+    sbatch = sharding.shard_tree(batch, sharding.batch_shardings(batch,
+                                                                  mesh))
+    resident = [a + b + c for a, b, c in zip(
+        sharding.chip_bytes(sp, mesh), sharding.chip_bytes(state.mu, mesh),
+        sharding.chip_bytes(state.nu, mesh))]
+    step = make_train_step(model, opt, remat="full",
+                           shard_ctx={"mesh": mesh, "dp": ("data",)},
+                           grad_shardings=p_shard)
+    k6 = kernels.attn_fused_staged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k6.launches = 0
+    with _Deterministic() as det, \
+            _PlainCalls(("repro_torch.kernels.attn_fused", "_Carry")) as plain, \
+            _MeshSpans(model) as spans:
+        sp, state, metrics = step(sp, state, sbatch)
+        parts = spans.split()
+    launches = k6.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m_s = {k: float(v) for k, v in metrics.items()}
+    assert plain.calls == 0, plain.calls
+    t_moves = time.perf_counter()
+    got_p, got_mu, got_nu = _host(sp), _host(state.mu), _host(state.nu)
+    del sp, state, metrics
+    torch.cuda.empty_cache()
+    params = _to_card(initial)
+    state_u = opt.init(params)
+    ref = make_train_step(model, opt, remat="full", microbatches=2)
+    moves = time.perf_counter() - t_moves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Deterministic():
+        params, state_u, metrics = ref(params, state_u, batch)
+        m_u = {k: float(v) for k, v in metrics.items()}
+    ref_s = time.perf_counter() - t0
+    peak_u = torch.cuda.max_memory_allocated() / 2 ** 30
+    diffs = {name: _leaf_diffs(a, b) for name, a, b in (
+        ("params", params, got_p), ("mu", state_u.mu, got_mu),
+        ("nu", state_u.nu, got_nu))}
+    d_norm = abs(m_s["grad_norm"] - m_u["grad_norm"])
+    ulp = float(np.spacing(np.float32(m_u["grad_norm"])))
+    groups = ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()
+                       if k.startswith("group"))
+    log(f"mesh/l1 longformer-1.4b sharded step on a {MESH_SHAPE} mesh of "
+        f"{mesh.size} chips on {mesh.devices[0]}: fp32, global batch "
+        f"{MESH_BATCH}, S = {MESH_SEQ}, AdamW (lr {TRAIN_LR:g}), remat full, "
+        f"deterministic algorithms: step {parts['step']:.4f} ms by CUDA "
+        f"events = {groups} (forward + backward each), optimizer "
+        f"{parts['optimizer']:.4f} ms; parameter gathers {parts['gathers']:.4f}"
+        f" ms in all ({len(spans.spans[GATHER])}"
+        f" calls, within the groups); peak memory {peak:.2f} GiB; resident "
+        f"per chip (params + moments) "
+        f"{[round(b / 2 ** 30, 3) for b in resident]} GiB, "
+        f"{sum(resident) / 2 ** 30:.3f} GiB over the chips; "
+        f"{launches} attn_fused_staged launches in the step, no attention "
+        f"plain version; ops without a deterministic CUDA form: "
+        f"{det.warned or 'none'}; card {card_line()}")
+    log(f"mesh/l1 against the unsharded step at microbatches=2 "
+        f"({ref_s:.2f} s by the host clock, peak {peak_u:.2f} GiB; the "
+        f"sharded results to the host and the initial weights back "
+        f"{moves:.1f} s): loss "
+        f"{m_s['loss']!r} vs {m_u['loss']!r} "
+        f"({'bit for bit' if m_s['loss'] == m_u['loss'] else 'DIFFERENT'}); "
+        f"grad norm {m_s['grad_norm']!r} vs {m_u['grad_norm']!r} (|diff| "
+        f"{d_norm:.3g} = {d_norm / ulp:.1f} ulp); leaves bit for bit: "
+        + "; ".join(f"{k} {s} of {n} (largest max|diff|/max|leaf| of the "
+                    f"rest {w:.3g})" for k, (s, n, w) in diffs.items())
+        + f" (held at {MESH_REL:g})")
+    assert m_s["loss"] == m_u["loss"], (m_s, m_u)
+    assert np.isfinite(m_s["grad_norm"]) and d_norm <= MESH_REL * \
+        m_u["grad_norm"], (m_s, m_u)
+    assert all(w <= MESH_REL for _, _, w in diffs.values()), diffs
+    assert launches == MESH_SHAPE[0] * 2 * 384, launches
+    del params, state_u, metrics, initial, got_p, got_mu, got_nu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": parts["step"], "peak_gib": peak,
+            "resident": resident, "cfg": cfg}
+
+
+def _to_card(tree):
+    from repro_torch.pytree import tree_map
+    return tree_map(lambda t: t.to("cuda"), tree)
+
+
+def mesh_sweep() -> int:
+    """(l2) one sharded step of every architecture at ``reduced()`` on a
+    (2, 2) mesh of the card, against the card's unsharded microbatches=2
+    step and the CPU's sharded step (the same weights and batch), at
+    SWEEP_TOL (params: where |g'| >= 10 eps; within 2 lr elsewhere).
+    Returns its K6 launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import all_arch_names, get_config, reduced
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.pytree import tree_leaves as leaves
+    from repro_torch.train import make_train_step
+
+    k6 = kernels.attn_fused_staged
+    launches = 0
+    worst, exact = {}, []
+    for seed, arch in enumerate(all_arch_names()):
+        cfg = reduced(get_config(arch))
+        model = Model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        batch = TokenPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=MESH_SWEEP_SEQ,
+            global_batch=MESH_BATCH, seed=seed,
+            num_image_tokens=cfg.num_image_tokens
+            if cfg.family == "vlm" else 0, d_model=cfg.d_model)).batch_at(0)
+        runs = {}
+        for name, device, sharded in (("card", "cuda", True),
+                                      ("card mb2", "cuda", False),
+                                      ("cpu", "cpu", True)):
+            opt = AdamW(learning_rate=SWEEP_LR, eps=SWEEP_EPS)
+            grads = []
+
+            def keep(g):
+                grads.append(g)
+                return g
+            params = cpu if device == "cpu" else _to_card(cpu)
+            if sharded:
+                mesh = make_host_mesh(data=MESH_SHAPE[0],
+                                      model=MESH_SHAPE[1], device=device)
+                params = sharding.shard_tree(params, sharding.param_shardings(
+                    model.param_shapes(), mesh))
+                step = make_train_step(model, opt, chunk_q=MESH_SWEEP_SEQ,
+                                       grad_transform=keep,
+                                       shard_ctx={"mesh": mesh,
+                                                  "dp": ("data",)})
+            else:
+                step = make_train_step(model, opt, chunk_q=MESH_SWEEP_SEQ,
+                                       microbatches=2, grad_transform=keep,
+                                       device=device)
+            before = k6.launches
+            with _Deterministic():
+                new, _, metrics = step(params, opt.init(params), batch)
+            if name == "card":
+                launches += k6.launches - before
+            runs[name] = ([t for t in leaves(_host(new))],
+                          [g for g in leaves(_host(grads[0]))],
+                          {k: float(v) for k, v in metrics.items()})
+        p_ref, g_ref, m_ref = runs["card"]
+        exact.append(runs["card"][2]["loss"] == runs["card mb2"][2]["loss"])
+        row = []
+        for other in ("card mb2", "cpu"):
+            p_o, g_o, m_o = runs[other]
+            for k in ("loss", "grad_norm"):
+                np.testing.assert_allclose(m_ref[k], m_o[k], **SWEEP_TOL)
+            for a, b in zip(g_ref, g_o):
+                torch.testing.assert_close(a, b, **SWEEP_TOL)
+            scale = min(1.0, 1.0 / (m_o["grad_norm"] + 1e-9))
+            d_firm = 0.0
+            for a, b, g in zip(p_ref, p_o, g_o):
+                diff = (a - b).abs()
+                firm = g.abs() * scale >= 10 * SWEEP_EPS
+                bound = SWEEP_TOL["atol"] + SWEEP_TOL["rtol"] * b.abs()
+                assert bool((diff[firm] <= bound[firm]).all()), (arch, other)
+                assert bool((diff[~firm] <= 2 * SWEEP_LR + 1e-5).all()), \
+                    (arch, other)
+                if firm.any():
+                    d_firm = max(d_firm, diff[firm].max().item())
+            row += [abs(m_ref["loss"] - m_o["loss"]), d_firm]
+        worst[arch] = row
+    log(f"mesh/l2 reduced sweep: {len(worst)} architectures, one AdamW step "
+        f"each (global batch {MESH_BATCH}, S = {MESH_SWEEP_SEQ}) on a "
+        f"{MESH_SHAPE} mesh of the card, deterministic algorithms; loss bit "
+        f"for bit with the card's unsharded microbatches=2 step in "
+        f"{sum(exact)} of {len(exact)}; max |diff| of loss and firm params vs "
+        f"the card's microbatches=2 step, then vs the CPU's sharded step: "
+        + "; ".join(f"{a} " + " ".join(f"{v:.3g}" for v in d)
+                    for a, d in worst.items())
+        + f" (rtol = atol = {SWEEP_TOL['rtol']:g}; {launches} K6 launches)")
+    return launches
+
+
+def mesh_runs() -> int:
+    """(l3) ``run_training`` on reduced longformer at --dp 2 --tp 2 for
+    RUN_STEPS steps, and stopped at RUN_STOP with a checkpoint, then
+    resumed on a (2, 1) mesh: the data grouping is the same, so the
+    resumed losses are the uninterrupted run's.  Returns its K6
+    launches."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.ft.watchdog import Watchdog
+    from repro_torch.launch import train
+
+    k6 = kernels.attn_fused_staged
+    cfg = reduced(get_config("longformer-1.4b"))
+    kw = dict(steps=RUN_STEPS, global_batch=RUN_BATCH, seq_len=RUN_SEQ,
+              log_every=RUN_STEPS)
+    k6.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, _Deterministic() as det:
+        full_p, full = train.run_training(
+            cfg, data_parallel=2, model_parallel=2,
+            watchdog=Watchdog(min_deadline_s=600), **kw)
+        _, first = train.run_training(
+            cfg, data_parallel=2, model_parallel=2, stop_at=RUN_STOP,
+            ckpt_dir=tmp, ckpt_every=100,
+            watchdog=Watchdog(min_deadline_s=600), **kw)
+        res_p, rest = train.run_training(
+            cfg, data_parallel=2, model_parallel=1, ckpt_dir=tmp,
+            ckpt_every=100, watchdog=Watchdog(min_deadline_s=600), **kw)
+    same, n, worst = _leaf_diffs(res_p, _host(full_p))
+    log(f"mesh/l3 run_training {cfg.name} at (2, 2): {RUN_STEPS} steps at "
+        f"batch {RUN_BATCH}, S = {RUN_SEQ}: losses "
+        f"{[f'{v:.6f}' for v in full]}; stopped at {RUN_STOP} and resumed on "
+        f"(2, 1): {'bit for bit' if first + rest == full else 'DIFFERENT'} "
+        f"losses (|diff| {max(abs(a - b) for a, b in zip(first + rest, full)):.3g}); "
+        f"final params bit for bit in {same} of {n} leaves (largest "
+        f"max|diff|/max|leaf| {worst:.3g}); {k6.launches} K6 launches; ops "
+        f"without a deterministic CUDA form: {det.warned or 'none'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    assert first + rest == full, (first, rest, full)
+    assert full[-1] < full[0] and worst <= MESH_REL, (full, worst)
+    return k6.launches
+
+
+def mesh_psum() -> None:
+    """(l4) ``compressed_psum`` over four chips of the card: each
+    participant's int8 payload and scale bit for bit the same call's on
+    four CPU chips, every chip's sum the same, within the reference's
+    bound C · scale · 0.51 of the float32 sum."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rng = np.random.default_rng(43)
+    C = 4
+    parts = [torch.from_numpy((rng.standard_normal((4096, 1024)) * (1 + c))
+                              .astype(np.float32)) for c in range(C)]
+    card = collectives.int8_wire([p.cuda() for p in parts])
+    host = collectives.int8_wire(parts)
+    same = all(torch.equal(q.cpu(), hq) and torch.equal(s.cpu(), hs)
+               for (q, s), (hq, hs) in zip(card, host))
+    sums = collectives.compressed_psum(
+        [p.cuda() for p in parts], make_host_mesh(data=C, model=1),
+        axis="data")
+    want = torch.stack(parts).sum(0)
+    bound = sum(float(p.abs().max()) / 127.0 for p in parts) * 0.51
+    err = float((sums[0].cpu() - want).abs().max())
+    cpu_sum = collectives.compressed_psum(
+        parts, make_host_mesh(data=C, model=1, device="cpu"),
+        axis="data")[0]
+    log(f"mesh/l4 compressed_psum over {C} chips of the card, parts of "
+        f"{tuple(parts[0].shape)}: int8 payloads and scales "
+        f"{'bit for bit' if same else 'DIFFERENT'} the CPU chips'; every "
+        f"chip's sum {'the same' if all(torch.equal(s, sums[0]) for s in sums) else 'DIFFERENT'}"
+        f", max |sum - float32 sum| {err:.4g} within C·scale·0.51 = "
+        f"{bound:.4g}; card sum vs CPU chips' sum max |diff| "
+        f"{float((sums[0].cpu() - cpu_sum).abs().max()):.3g}")
+    assert same and err <= bound + 1e-6
+    assert all(torch.equal(s, sums[0]) for s in sums)
+
+
+def mesh_dryrun(l1: dict, jamba_peak: float) -> None:
+    """(l5) the dry run's ``card`` records (meta device) beside the
+    peaks the card measured: longformer-1.4b at train_4k and at (l1)'s
+    own configuration and batch, its per-chip bytes on (l1)'s mesh, and
+    the jamba cut's forward at (m6)'s batch and sequence."""
+    import dataclasses
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+
+    def gib_(b):
+        return b / 2 ** 30
+
+    rec = dryrun.dryrun_cell("longformer-1.4b", "train_4k", "card")
+    own = dryrun.dryrun_cell(
+        "longformer-1.4b", "l1", "card", cfg=l1["cfg"],
+        shape=ShapeSpec("l1", MESH_SEQ, MESH_BATCH, "train"))
+    meta = sharding.LogicalMesh(("data", "model"), MESH_SHAPE,
+                                ("meta",) * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    model = Model(l1["cfg"])
+    shapes = model.param_shapes()
+    opt = AdamW().init(shapes)
+    per_chip = sharding.placed_bytes(
+        shapes, sharding.param_shardings(shapes, meta)) + 2 * \
+        sharding.placed_bytes(opt.mu, sharding.param_shardings(opt.mu, meta))
+    cut = jamba_cut(slice(0, JAMBA_SLOTS))
+    jam = dryrun.dryrun_cell(
+        "jamba-1.5-large-398b", "m6", "card", cfg=cut,
+        shape=ShapeSpec("m6", MODEL_SEQ, 1, "prefill"))
+    for r in (rec, own, jam):
+        assert r["status"] == "ok", r
+    log(f"mesh/l5 dry run (meta device, card mesh): longformer-1.4b "
+        f"train_4k (bf16, batch 256) arguments "
+        f"{gib_(rec['argument_bytes_per_chip']):.3f} GiB "
+        f"({ {k: round(gib_(v), 3) for k, v in rec['breakdown'].items()} }), "
+        f"bottleneck {rec['bottleneck']}, arguments fit the card: "
+        f"{rec['arguments_fit_card']}; "
+        f"(l1)'s configuration (fp32, batch {MESH_BATCH}, S = {MESH_SEQ}) "
+        f"arguments {gib_(own['argument_bytes_per_chip']):.3f} GiB, memory "
+        f"term {own['memory_s']:.4f} s, compute term {own['compute_s']:.4f} s"
+        f" at the card's rates, against the measured peak "
+        f"{l1['peak_gib']:.2f} GiB; on its {MESH_SHAPE} mesh "
+        f"{gib_(per_chip):.3f} GiB a chip predicted, "
+        f"{gib_(max(l1['resident'])):.3f} GiB measured; the jamba cut (bf16,"
+        f" batch 1, S = {MODEL_SEQ}, forward) arguments "
+        f"{gib_(jam['argument_bytes_per_chip']):.3f} GiB against the (m6) "
+        f"loss_fn peak {jamba_peak:.2f} GiB (predictions, no gate)")
+    assert per_chip == max(l1["resident"]), (per_chip, l1["resident"])
+
+
+def phase_mesh(jamba_peak: float) -> dict:
+    """(l) the mesh on the card.  Returns its K6 launches and (l1)'s
+    numbers."""
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    l1 = mesh_step_at_size()
+    log(f"mesh: l1 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k6 = l1["launches"] + mesh_sweep()
+    log(f"mesh: l2 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k6 += mesh_runs()
+    log(f"mesh: l3 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_psum()
+    mesh_dryrun(l1, jamba_peak)
+    log(f"mesh: l4 + l5 {time.perf_counter() - t0:.1f} s")
+    log(f"mesh: part {time.perf_counter() - t_part:.1f} s")
+    return {"attn_fused_staged": k6, "step": l1}
 
 
 # -- K2 and K6 beside a parent tree's (``--ab-parent``, ``--ab-ptxas``) -----
@@ -4653,7 +5134,7 @@ def main() -> int:
     done("model")
     gc.collect()
     torch.cuda.empty_cache()
-    training = phase_training()
+    training = phase_training(model["jamba_peak_gib"])
     done("training")
     # K5/K6 launches: the attention op path's plus the layer's forward,
     # the model's and the training phase's; K4's: the main path's, the
@@ -4689,7 +5170,10 @@ def main() -> int:
         f"{training['launches']['attn_fused_staged']} in the phase, "
         f"spmm_ell_fused_sharded "
         f"{training['launches']['spmm_ell_fused_sharded']} in the driver's "
-        f"preflight")
+        f"preflight; mesh: attn_fused_staged {training['mesh']['launches']} "
+        f"launches in the sharded longformer-1.4b step on {MESH_SHAPE} "
+        f"({training['mesh']['ms']:.4f} ms, peak "
+        f"{training['mesh']['peak_gib']:.2f} GiB)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
-"""The exact-panel X exchange of the sharded fused path (port of
-``exact_panel_exchange`` and ``wire_bytes_ratio`` in
-``src/repro/distributed/collectives.py``).
+"""The exact-panel X exchange of the sharded fused path and the int8
+wire all-reduce (port of ``src/repro/distributed/collectives.py``).
 
 The reference runs the exchange once per chip inside ``shard_map``, as
 one ``all_to_all``.  The port is single-controller, so
@@ -11,17 +10,25 @@ names.  Everything it does is a copy (``index_select`` and ``.to``), so
 the compact X workspaces are the reference's bit for bit; on chips
 that share one device the all-to-all and the fetch compose into one
 gather.  :func:`sharded_x` gives each chip its X operand under either
-placement.  ``compressed_psum`` belongs with the optimizer's gradient compression
-and is not here.
+placement.
+
+:func:`compressed_psum` is the int8 gradient all-reduce: each
+participant quantises its contribution to int8 with a per-tensor float32
+scale (``optim.compression._quantize``, the reference's formula), every
+participant gathers all payloads and scales of its group along the axis
+to its own device (4x fewer payload bytes than a float32 ring
+all-reduce), dequantises and sums them.  As in the reference, nothing in
+training calls it.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .sharding import ChipMesh, aligned16, place_on_chips
+from ..optim.compression import _quantize
+from .sharding import ChipMesh, LogicalMesh, aligned16, place_on_chips
 
 
 def exact_panel_exchange(strips, send_tbl: Sequence[torch.Tensor],
@@ -111,6 +118,37 @@ def sharded_x(x, mesh: ChipMesh, x_sharding: str, x_send, x_recv):
         raise ValueError("x_sharding='rows' needs the x_send/x_recv tables")
     return exact_panel_exchange(x, place_on_chips(x_send, mesh),
                                 place_on_chips(x_recv, mesh), mesh)
+
+
+def int8_wire(parts) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each participant's wire: (int8 payload, float32 scale) of its part,
+    on its own device."""
+    return [_quantize(p.float()) for p in parts]
+
+
+def compressed_psum(parts, mesh: LogicalMesh, axis: str = "data"
+                    ) -> List[torch.Tensor]:
+    """All-reduce ``parts`` (one same-shape tensor per chip, on the
+    chip's device) over ``axis`` with an int8 wire format.  Returns each
+    chip's float32 sum over the chips that differ from it only along
+    ``axis``, in the axis's order."""
+    if len(parts) != mesh.size:
+        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} "
+                         f"chips")
+    if axis not in mesh.axis_names:
+        raise ValueError(f"no axis {axis!r} in {mesh.axis_names}")
+    wire = int8_wire(parts)
+    coords = [mesh.coords(c) for c in range(mesh.size)]
+    out = []
+    for chip, dev in enumerate(mesh.devices):
+        peers = [c for c in range(mesh.size)
+                 if all(coords[c][a] == coords[chip][a]
+                        for a in mesh.axis_names if a != axis)]
+        qs = torch.stack([wire[c][0].to(dev) for c in peers])    # (n, ...)
+        ss = torch.stack([wire[c][1].to(dev) for c in peers])    # (n,)
+        deq = qs.float() * ss.reshape((-1,) + (1,) * (qs.ndim - 1))
+        out.append(torch.sum(deq, dim=0))
+    return out
 
 
 def wire_bytes_ratio(shape: Tuple[int, ...]) -> float:

@@ -1,28 +1,49 @@
-"""The chip mesh of the sharded fused path (port of the chip-mesh part of
-``src/repro/distributed/sharding.py`` and of ``chip_mesh`` /
-``resolve_chip_mesh`` in ``src/repro/core/spmm.py``).
+"""Meshes and placements (port of ``src/repro/distributed/sharding.py``
+and of ``chip_mesh`` / ``resolve_chip_mesh`` in
+``src/repro/core/spmm.py``).
 
-The reference drives a 1-D ``("chips",)`` ``jax.sharding.Mesh`` from ONE
-process under ``shard_map``.  The port keeps that single-controller
-shape: a :class:`ChipMesh` is an explicit list of torch devices, and the
-sharded wrappers loop over it, launching each chip's kernel on its own
-device.  A device may repeat — ``ChipMesh(("cuda:0",) * 4)`` runs four
-chips on one card, ``chip_mesh(4, device="cpu")`` four on the CPU — the
-counterpart of the reference's ``--xla_force_host_platform_device_count``
-virtual devices.
+Two meshes live here, both single-controller: one process drives every
+chip, and a chip is a torch device, which may repeat, so four chips can
+share ``cuda:0`` or the CPU (the counterpart of the reference's
+``--xla_force_host_platform_device_count`` virtual devices).
 
-:func:`place_on_chips` is the counterpart of ``chip_row_sharding`` +
-``jax.device_put``: row ``c`` of a stacked ``(C, ...)`` array goes to
-chip ``c``'s device.  :func:`run_on_chips` is the chip loop of the three
-sharded wrappers (K8): one kernel launch per chip, on its device, with
-its own staged window.
+* :class:`ChipMesh` is the sharded fused path's 1-D ``("chips",)`` mesh
+  (K8).  :func:`place_on_chips` is the counterpart of
+  ``chip_row_sharding`` + ``jax.device_put``: row ``c`` of a stacked
+  ``(C, ...)`` array goes to chip ``c``'s device.  :func:`run_on_chips`
+  is the chip loop of the three sharded wrappers: one kernel launch per
+  chip, on its device, with its own staged window.
+* :class:`LogicalMesh` is the model stacks' n-D ``("data", "model")`` or
+  ``("pod", "data", "model")`` mesh.  The reference's logical-axis rules
+  (``AxisEnv``, ``resolve_spec``, ``_PARAM_RULES``, ``_CACHE_RULES``)
+  are copied as pure logic; a ``PartitionSpec`` is a tuple whose entries
+  are ``None``, an axis name or a tuple of axis names.  A
+  :class:`Placement` (``NamedSharding``) pairs a mesh with a spec, and a
+  :class:`ShardedTensor` holds one block per distinct shard of a global
+  tensor, stored once on the device of the first chip that holds it
+  (so four chips on one card hold one copy of a replicated leaf), plus
+  the chip -> block map.  It is a pytree node whose leaves are its
+  blocks, so ``AdamW.init``/``update`` and ``tree_map`` run over blocks
+  unchanged.  :func:`shard` places a whole tensor, :func:`gather`
+  assembles it on one device from its blocks (the all-gather) with
+  differentiable ops, so gradients land on the blocks.
+
+GSPMD's compute split over the ``model`` axis (Megatron) has no
+single-controller counterpart here: the model axis shards storage
+(parameters, gradients, optimizer state), and each data group computes
+with gathered weights (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import math
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from ..pytree import register_node, tree_leaves, tree_map, tree_map_with_path
 
 
 def _normalise(device) -> torch.device:
@@ -197,3 +218,434 @@ def run_on_chips(kernel, stacked, per_chip, *, mesh: ChipMesh, staging: str,
         if counter is not None:
             counter.launches += kernel.launches - before
     return torch.stack([y.to(mesh.devices[0]) for y in outs])
+
+
+# ---------------------------------------------------------------------------
+# The model stacks' n-D mesh and the logical-axis rules
+# ---------------------------------------------------------------------------
+
+def _mesh_device(device) -> torch.device:
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else _normalise(dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """An n-D mesh of chips: ``axis_names`` (``("data", "model")`` or
+    ``("pod", "data", "model")``), their sizes ``shape``, and
+    ``devices[c]`` the torch device of the chip at flat (row-major)
+    coordinate ``c``.  A device may repeat; ``meta`` chips hold shapes
+    only (the dry run's production meshes)."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        shape = tuple(int(n) for n in self.shape)
+        devs = tuple(_mesh_device(d) for d in self.devices)
+        if len(self.axis_names) != len(shape) or min(shape, default=0) < 1:
+            raise ValueError(f"mesh axes {self.axis_names} and shape {shape} "
+                             f"do not match")
+        if len(devs) != math.prod(shape):
+            raise ValueError(f"a {shape} mesh needs {math.prod(shape)} "
+                             f"devices, got {len(devs)}")
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def single_device(self) -> bool:
+        """Every chip on one device, so all chips share one memory."""
+        return len(set(self.devices)) == 1
+
+    def coords(self, chip: int) -> Dict[str, int]:
+        """Chip ``chip``'s coordinate on each axis."""
+        return dict(zip(self.axis_names,
+                        (int(i) for i in np.unravel_index(chip, self.shape))))
+
+
+def logical_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence) -> LogicalMesh:
+    """A mesh over the first ``prod(shape)`` of ``devices``."""
+    n = math.prod(shape)
+    if len(devices) < n:
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} devices, "
+                         f"{len(devices)} given")
+    return LogicalMesh(tuple(axis_names), tuple(shape), tuple(devices[:n]))
+
+
+class AxisEnv:
+    """The logical axes on a mesh: ``dp``/``sp`` -> the batch axes
+    (``("pod", "data")`` on a multi-pod mesh), ``fsdp`` -> ``data``,
+    ``tp`` -> ``model``."""
+
+    def __init__(self, mesh: LogicalMesh):
+        self.mesh = mesh
+        self.multi_pod = "pod" in mesh.axis_names
+        self.sizes = dict(zip(mesh.axis_names, mesh.shape))
+
+    def logical(self, name: str) -> Tuple[str, ...]:
+        if name in ("dp", "sp"):
+            return ("pod", "data") if self.multi_pod else ("data",)
+        if name == "fsdp":
+            return ("data",)
+        if name == "tp":
+            return ("model",)
+        raise KeyError(name)
+
+    def axis_prod(self, axes: Sequence[str]) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+
+Spec = Tuple[Any, ...]       # entries: None, an axis name, a tuple of names
+
+
+def resolve_spec(shape: Sequence[int], dim_rules: Dict[int, List[str]],
+                 env: AxisEnv) -> Spec:
+    """First candidate per dim that divides and doesn't reuse an axis."""
+    used: set = set()
+    spec: List = [None] * len(shape)
+    for dim in sorted(dim_rules):
+        if dim >= len(shape):
+            continue
+        for cand in dim_rules[dim]:
+            axes = env.logical(cand)
+            if any(a in used for a in axes):
+                continue
+            if shape[dim] > 0 and shape[dim] % env.axis_prod(axes) == 0:
+                spec[dim] = axes if len(axes) > 1 else axes[0]
+                used.update(axes)
+                break
+    return tuple(spec)
+
+
+# Parameter rules: (path-suffix regex, dim -> logical-axis candidates).
+# Dims are indexed on the UNSTACKED shape; period-stacked leaves get +1.
+# First match wins.
+_PARAM_RULES: List[Tuple[str, Dict[int, List[str]]]] = [
+    (r"\bembed$",                {0: ["tp"], 1: ["fsdp"]}),
+    (r"\blm_head$",              {1: ["tp"], 0: ["fsdp"]}),
+    (r"\bfinal_norm$",           {}),
+    # attention
+    (r"\bw[qkv]$",               {1: ["tp"], 0: ["fsdp"]}),
+    (r"\bwo$",                   {0: ["tp"], 2: ["fsdp"]}),
+    (r"\bb[qkv]$",               {0: ["tp"]}),
+    (r"\b[qk]_norm$",            {}),
+    (r"\bgate$",                 {}),
+    # MoE (E first -> EP when divisible; else F -> TP)
+    (r"\brouter$",               {}),
+    (r"ffn_moe.*\bw_(gate|up)$", {0: ["tp"], 2: ["tp"], 1: ["fsdp"]}),
+    (r"ffn_moe.*\bw_down$",      {0: ["tp"], 1: ["tp"], 2: ["fsdp"]}),
+    # dense FFN
+    (r"\bw_(gate|up)$",          {1: ["tp"], 0: ["fsdp"]}),
+    (r"\bw_down$",               {0: ["tp"], 1: ["fsdp"]}),
+    # mamba
+    (r"\bin_proj$",              {1: ["tp"], 0: ["fsdp"]}),
+    (r"\bconv_w$",               {1: ["tp"]}),
+    (r"\b(conv_b|dt_bias|D)$",   {0: ["tp"]}),
+    (r"\bx_proj$",               {0: ["tp"]}),
+    (r"\bdt_proj$",              {1: ["tp"]}),
+    (r"\bA_log$",                {0: ["tp"]}),
+    (r"\bout_proj$",             {0: ["tp"], 1: ["fsdp"]}),
+    # rwkv time-mix / channel-mix
+    (r"tm.*\bw_[rkvg]$",         {1: ["tp"], 0: ["fsdp"]}),
+    (r"tm.*\bw_o$",              {0: ["tp"], 2: ["fsdp"]}),
+    (r"tm.*\b(u|w0|gn_w|gn_b)$", {0: ["tp"]}),
+    (r"lora_\w+_a$",             {0: ["fsdp"]}),
+    (r"lora_\w+_b$",             {1: ["fsdp"]}),
+    (r"\bmu_\w+$",               {}),
+    (r"cm.*\bw_k$",              {1: ["tp"], 0: ["fsdp"]}),
+    (r"cm.*\bw_v$",              {0: ["tp"], 1: ["fsdp"]}),
+    (r"cm.*\bw_r$",              {1: ["tp"], 0: ["fsdp"]}),
+    # norms and anything else small
+    (r"\bln(_w|_b|_kv)?$",       {}),
+]
+
+
+def _path_str(path) -> str:
+    """The reference's path string: ``pytree.tree_map_with_path`` keys
+    are already ``jax.tree_util``'s key strings (a dict key, a sequence
+    index, ``.field`` of a NamedTuple)."""
+    return "/".join(str(k) for k in path)
+
+
+def param_pspec(path, shape, env: AxisEnv) -> Spec:
+    ps = _path_str(path)
+    stacked = "period" in ps
+    for pattern, rules in _PARAM_RULES:
+        if re.search(pattern, ps):
+            if stacked:
+                rules = {d + 1: c for d, c in rules.items()}
+            rules = {d: c for d, c in rules.items() if d < len(shape)}
+            return resolve_spec(shape, rules, env)
+    return ()   # replicate unknown leaves
+
+
+_CACHE_RULES: List[Tuple[str, Dict[int, List[str]]]] = [
+    # attn cache (P,B,T,KV,hd): batch -> dp; else sequence -> sp (flash-
+    # decoding style); kv heads -> tp when divisible
+    (r"\bk(pos)?$|\bv$",   {1: ["dp"], 2: ["sp"], 3: ["tp"]}),
+    (r"\bx[kv]$",          {1: ["dp"], 3: ["tp"]}),
+    (r"\bssm$",            {1: ["dp"], 2: ["tp"]}),
+    (r"\bconv$",           {1: ["dp"], 3: ["tp"]}),
+    (r"\bwkv$",            {1: ["dp"], 2: ["tp"]}),
+    (r"\bx_prev_\w+$",     {1: ["dp"]}),
+]
+
+
+def cache_pspec(path, shape, env: AxisEnv) -> Spec:
+    ps = _path_str(path)
+    for pattern, rules in _CACHE_RULES:
+        if re.search(pattern, ps):
+            return resolve_spec(shape, rules, env)
+    return ()
+
+
+# ---------------------------------------------------------------------------
+# Placements (NamedSharding) and the sharded tensor
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A mesh and a spec: dim ``d`` of a tensor splits over the axes
+    ``spec[d]`` (row-major over them, as GSPMD splits it), dims past the
+    spec's end and ``None`` entries are whole, and every chip whose
+    coordinates agree on those axes holds the same shard."""
+    mesh: LogicalMesh
+    spec: Spec = ()
+
+    def grid(self, ndim: int) -> Tuple[int, ...]:
+        """Shards along each of ``ndim`` dims."""
+        sizes = self.mesh.sizes
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        return tuple(math.prod(sizes[a] for a in _axes(e)) for e in spec)
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of one shard of a ``shape`` tensor."""
+        grid = self.grid(len(shape))
+        for n, g in zip(shape, grid):
+            if n % g:
+                raise ValueError(f"dim {n} does not split into {g} shards "
+                                 f"under {self.spec}")
+        return tuple(n // g for n, g in zip(shape, grid))
+
+    def chip_block(self, ndim: int) -> Tuple[int, ...]:
+        """For every chip, the index of its shard in the row-major shard
+        grid."""
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        grid, sizes = self.grid(ndim), self.mesh.sizes
+        out = []
+        for chip in range(self.mesh.size):
+            at = self.mesh.coords(chip)
+            index = []
+            for e in spec:
+                i = 0
+                for a in _axes(e):
+                    i = i * sizes[a] + at[a]
+                index.append(i)
+            out.append(int(np.ravel_multi_index(index, grid)) if grid else 0)
+        return tuple(out)
+
+    def block_devices(self, ndim: int) -> Tuple[torch.device, ...]:
+        """Each block's storage device: the first chip's that holds it."""
+        grid = self.grid(ndim)
+        owner: Dict[int, torch.device] = {}
+        for chip, b in enumerate(self.chip_block(ndim)):
+            owner.setdefault(b, self.mesh.devices[chip])
+        return tuple(owner[b] for b in range(math.prod(grid)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTensor:
+    """A global tensor of ``shape`` under ``placement``: ``blocks[b]`` is
+    shard ``b`` of the row-major shard grid, once, on its owner chip's
+    device (:meth:`Placement.block_devices`)."""
+    placement: Placement
+    shape: torch.Size
+    blocks: Tuple[torch.Tensor, ...]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def period(self, index: int) -> "ShardedTensor":
+        """Index ``index`` of the whole leading axis (a period-stacked
+        leaf's period), as views of the blocks."""
+        spec = self.placement.spec
+        if spec and spec[0] is not None:
+            raise ValueError(f"the leading axis is sharded ({spec})")
+        return ShardedTensor(Placement(self.placement.mesh, tuple(spec[1:])),
+                             self.shape[1:],
+                             tuple(b[index] for b in self.blocks))
+
+    def chip_bytes(self) -> List[int]:
+        """Bytes of each chip's block."""
+        sizes = [b.numel() * b.element_size() for b in self.blocks]
+        return [sizes[b] for b in self.placement.chip_block(self.ndim)]
+
+
+register_node(ShardedTensor, lambda t: list(t.blocks),
+              lambda t, blocks: ShardedTensor(t.placement, t.shape,
+                                              tuple(blocks)))
+
+
+def shard(full: torch.Tensor, placement: Placement) -> ShardedTensor:
+    """``full`` cut into its distinct shards, each copied once to its
+    owner's device (contiguous, sharing no storage with ``full``)."""
+    shape = tuple(full.shape)
+    part = placement.shard_shape(shape)
+    grid = placement.grid(len(shape))
+    blocks = []
+    for b, dev in enumerate(placement.block_devices(len(shape))):
+        index = np.unravel_index(b, grid) if grid else ()
+        piece = full[tuple(slice(i * n, (i + 1) * n)
+                           for i, n in zip(index, part))]
+        blocks.append(piece.detach().to(dev).clone(
+            memory_format=torch.contiguous_format))
+    return ShardedTensor(placement, full.shape, tuple(blocks))
+
+
+def gather(sharded: ShardedTensor, device) -> torch.Tensor:
+    """The global tensor on ``device``: the blocks moved there and
+    concatenated dim by dim (``.to`` and ``torch.cat``, so autograd
+    carries a gradient back onto each block).  A replicated tensor on
+    its own device comes back as its one block, uncopied."""
+    grid = sharded.placement.grid(sharded.ndim)
+    blocks = [b.to(device) for b in sharded.blocks]
+
+    def assemble(parts, dim):
+        if dim == len(grid):
+            return parts[0]
+        n = grid[dim]
+        step = len(parts) // n
+        rows = [assemble(parts[i * step:(i + 1) * step], dim + 1)
+                for i in range(n)]
+        return rows[0] if n == 1 else torch.cat(rows, dim)
+
+    return assemble(blocks, 0)
+
+
+def is_sharded(x) -> bool:
+    return isinstance(x, ShardedTensor)
+
+
+def shard_tree(tree, placements):
+    """Every tensor of ``tree`` placed by the matching leaf of
+    ``placements`` (a sharded leaf is gathered and placed anew)."""
+    return tree_map(lambda x, p: shard(gather(x, x.blocks[0].device)
+                                       if is_sharded(x) else x, p),
+                    tree, placements, is_leaf=is_sharded)
+
+
+def gather_tree(tree, device):
+    """Every leaf of ``tree`` whole on ``device``."""
+    return tree_map(lambda x: gather(x, device) if is_sharded(x)
+                    else x.to(device), tree, is_leaf=is_sharded)
+
+
+def chip_bytes(tree, mesh: LogicalMesh) -> List[int]:
+    """Bytes resident on each chip: the sum of its blocks over the
+    sharded leaves of ``tree`` (a plain tensor counts on every chip)."""
+    total = [0] * mesh.size
+    for x in tree_leaves(tree, is_leaf=is_sharded):
+        per = x.chip_bytes() if is_sharded(x) else \
+            [x.numel() * x.element_size()] * mesh.size
+        total = [a + b for a, b in zip(total, per)]
+    return total
+
+
+def placed_bytes(shapes, placements) -> int:
+    """Per-chip bytes of ``shapes`` (tensors, ``meta`` ones included)
+    under ``placements``: the counterpart of a compiled step's
+    ``argument_size_in_bytes`` (every chip holds one shard of each leaf,
+    so each chip holds the same count)."""
+    return sum(math.prod(p.shard_shape(tuple(x.shape))) * x.element_size()
+               for x, p in zip(tree_leaves(shapes), tree_leaves(placements)))
+
+
+def param_shardings(param_shapes, mesh: LogicalMesh, *, mode: str = "train"):
+    """Tree of :class:`Placement` matching a tree of tensors (``meta`` ones
+    included).
+
+    mode="train": FSDP(data) x TP(model) per _PARAM_RULES.
+    mode="serve_replicated": TP-only — drop the fsdp axis so weights are
+    replicated across ``data`` (use when param_bytes/TP fits device
+    memory; the classic weight-stationary serving layout)."""
+    if mode not in ("train", "serve_replicated"):
+        raise ValueError(f"mode must be 'train' or 'serve_replicated', got "
+                         f"{mode!r}")
+    env = AxisEnv(mesh)
+
+    def leaf(path, x):
+        spec = param_pspec(path, tuple(x.shape), env)
+        if mode == "serve_replicated":
+            spec = tuple(None if s in ("data", ("data",)) else s
+                         for s in spec)
+        return Placement(mesh, spec)
+    return tree_map_with_path(leaf, param_shapes)
+
+
+def batch_shardings(batch_shapes, mesh: LogicalMesh):
+    """tokens/labels (B,S) B->dp; image_embeds (B,I,D) B->dp."""
+    env = AxisEnv(mesh)
+    return tree_map_with_path(
+        lambda path, x: Placement(mesh, resolve_spec(tuple(x.shape),
+                                                     {0: ["dp"]}, env)),
+        batch_shapes)
+
+
+def decode_shardings(decode_shapes, mesh: LogicalMesh):
+    """{token, caches, pos} input tree for serve_step."""
+    env = AxisEnv(mesh)
+
+    def leaf(path, x):
+        ps = _path_str(path)
+        if ps.startswith("token"):
+            return Placement(mesh, resolve_spec(tuple(x.shape), {0: ["dp"]},
+                                                env))
+        if ps.startswith("pos"):
+            return Placement(mesh, ())
+        return Placement(mesh, cache_pspec(path, tuple(x.shape), env))
+    return tree_map_with_path(leaf, decode_shapes)
+
+
+def logits_sharding(mesh: LogicalMesh, batch: int, vocab: int) -> Placement:
+    """(B, S, V) logits: B->dp when divisible, V->tp when divisible."""
+    env = AxisEnv(mesh)
+    return Placement(mesh, resolve_spec((batch, 1, vocab),
+                                        {0: ["dp"], 2: ["tp"]}, env))
+
+
+def replicated(mesh: LogicalMesh) -> Placement:
+    return Placement(mesh, ())
+
+
+def chip_row_sharding(mesh) -> Placement:
+    """Placement for the x-sharded fused SpMM operands (DESIGN.md §7.8):
+    arrays stacked per chip on their leading axis shard over the 1-D chip
+    mesh, so each chip holds only its own rows.  ``mesh`` is a
+    :class:`ChipMesh` or a 1-D :class:`LogicalMesh`."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"x-sharded spmm uses a 1-D chip mesh, got {mesh.axis_names}")
+    if isinstance(mesh, ChipMesh):
+        mesh = LogicalMesh(("chips",), (mesh.size,), mesh.devices)
+    return Placement(mesh, (mesh.axis_names[0],))

@@ -13,7 +13,11 @@ Layout:  <dir>/step_<k>/  { manifest.json, shard_<host>.npz }
 - ``treedef`` is a description of the tree (the reference writes
   ``str(treedef)``); a restore checks the leaf count, shapes and dtypes
   against the structure it restores into, not that string;
-- keep_last trims old steps after a successful save.
+- keep_last trims old steps after a successful save;
+- mesh-portable: a sharded leaf (``distributed.sharding.ShardedTensor``)
+  is gathered whole before it is written, so the files are the same
+  whatever mesh saved them, and ``restore_checkpoint(shardings=)``
+  places each leaf on any mesh (the elastic re-mesh path).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import gather, is_sharded, shard
 from ..kernels.ops import resolve_device
 from ..pytree import tree_leaves, tree_structure, tree_unflatten
 
@@ -34,7 +39,7 @@ def _encode(t: torch.Tensor):
     """(numpy array to store, logical dtype name) of one leaf: a dtype
     numpy has no type for (bfloat16, float8_*) as the unsigned integers
     of its width, holding its bits."""
-    t = t.detach().to("cpu")
+    t = (gather(t, "cpu") if is_sharded(t) else t).detach().to("cpu")
     name = str(t.dtype).split(".")[-1]
     try:
         return t.numpy(), name
@@ -55,7 +60,7 @@ def save_checkpoint(ckpt_dir, step: int, tree: Any, *, keep_last: int = 3,
                     host_index: int = 0) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    leaves = tree_leaves(tree)
+    leaves = tree_leaves(tree, is_sharded)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_"))
     try:
@@ -65,7 +70,7 @@ def save_checkpoint(ckpt_dir, step: int, tree: Any, *, keep_last: int = 3,
         manifest = {
             "step": step,
             "num_leaves": len(leaves),
-            "treedef": tree_structure(tree),
+            "treedef": tree_structure(tree, is_sharded),
             "leaves": [{"dtype": e[1], "shape": list(e[0].shape)}
                        for e in encoded],
         }
@@ -97,20 +102,28 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir, tree_like: Any, *, step: Optional[int]
-                       = None, host_index: int = 0, device=None) -> Any:
+                       = None, shardings: Any = None, host_index: int = 0,
+                       device=None) -> Any:
     """Restore into the structure of ``tree_like`` (tensors, ``meta``
-    ones included, whose shapes and dtypes each stored leaf must have),
-    every leaf on ``device`` (the card unless ``"cpu"``)."""
+    ones included, or sharded tensors, whose global shapes and dtypes
+    each stored leaf must have).  With ``shardings`` (a matching tree of
+    ``Placement`` s) each leaf is placed on its mesh, which is what makes
+    checkpoints mesh-portable; every other leaf (all of them without
+    ``shardings``, a ``None`` placement with them) goes to ``device``
+    (the card unless ``"cpu"``)."""
     ckpt_dir = Path(ckpt_dir)
-    device = resolve_device(device)
+    places = None if shardings is None else tree_leaves(shardings)
+    if places is None or None in places:
+        device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
-    like = tree_leaves(tree_like)
-    if manifest["num_leaves"] != len(like):
+    like = tree_leaves(tree_like, is_sharded)
+    if manifest["num_leaves"] != len(like) or (
+            places is not None and len(places) != len(like)):
         raise ValueError(f"{d}: {manifest['num_leaves']} leaves, the tree "
                          f"to restore into has {len(like)}")
     leaves = []
@@ -121,5 +134,6 @@ def restore_checkpoint(ckpt_dir, tree_like: Any, *, step: Optional[int]
                 raise ValueError(
                     f"{d}: leaf {i} is {leaf.dtype}{list(leaf.shape)}, the "
                     f"tree wants {want.dtype}{list(want.shape)}")
-            leaves.append(leaf.to(device))
-    return tree_unflatten(tree_like, leaves)
+            leaves.append(leaf.to(device) if places is None
+                          or places[i] is None else shard(leaf, places[i]))
+    return tree_unflatten(tree_like, leaves, is_sharded)

@@ -1,35 +1,43 @@
 """Meshes (port of ``src/repro/launch/mesh.py``).
 
-The sharded SpMM path's chip mesh is the port's ``ChipMesh``.  The
-training mesh runs at one card: ``make_host_mesh`` gives that layout and
-refuses any other, as does ``make_production_mesh``; the model-parallel
-meshes wait for the port's mesh and sharding slice (ROADMAP, queue 1:
-``distributed/sharding.py``, ``launch/mesh.py``).
+The model stacks' meshes are :class:`~repro_torch.distributed.sharding.
+LogicalMesh` es over single-controller chips, each chip a torch device
+(which may repeat: ``make_host_mesh(data=2, model=2)`` puts four chips on
+the card).  The sharded SpMM path's chip mesh is the port's
+``ChipMesh``.
 """
 from __future__ import annotations
 
-from ..distributed.sharding import ChipMesh, chip_mesh
+import math
+
+from ..distributed.sharding import (ChipMesh, LogicalMesh, chip_mesh,
+                                    logical_mesh)
+from ..kernels.ops import resolve_device
 
 
-def _no_mesh(what: str):
-    raise NotImplementedError(
-        f"{what}: data- and model-parallel meshes wait for the port's mesh "
-        f"and sharding slice (distributed/sharding.py's AxisEnv and param "
-        f"shardings); the port trains on one card")
-
-
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (x 2 pods) mesh: refused."""
-    _no_mesh("make_production_mesh")
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices=None) -> LogicalMesh:
+    """16x16 = 256 chips/pod ("data","model"); 2 pods stack a leading
+    "pod" axis (the DCN dimension).  The chips are ``meta`` devices
+    (shapes only, for the dry run) unless ``devices`` gives at least as
+    many devices as the mesh has chips."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        devices = ("meta",) * math.prod(shape)
+    return logical_mesh(shape, axes, devices)
 
 
 def make_host_mesh(*, data: int = 1, model: int = 1,
-                   device=None) -> ChipMesh:
-    """The single-card layout, ``data = model = 1``: a one-chip mesh on
-    ``device`` (the card unless ``"cpu"``); any other shape raises."""
-    if (data, model) != (1, 1):
-        _no_mesh(f"make_host_mesh(data={data}, model={model})")
-    return chip_mesh(1, device)
+                   device=None) -> LogicalMesh:
+    """A ``(data, model)`` mesh of ``data * model`` chips, all on
+    ``device`` (the card unless ``"cpu"``)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={data}, "
+                         f"model={model}")
+    dev = resolve_device(device)
+    return LogicalMesh(("data", "model"), (data, model),
+                       (dev,) * (data * model))
 
 
 def make_chip_mesh(n_chips: int, device=None) -> ChipMesh:

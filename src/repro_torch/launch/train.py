@@ -1,6 +1,10 @@
 """End-to-end training driver (port of ``src/repro/launch/train.py``):
 data pipeline -> train step -> checkpoint/restart + watchdog straggler
-mitigation, on one card (``device=None``) or the CPU (``"cpu"``).
+mitigation, on the card (``device=None``) or the CPU (``"cpu"``), over a
+``(data_parallel, model_parallel)`` mesh of chips on that device
+(``launch.mesh.make_host_mesh``): parameters, optimizer state and batch
+placed by ``distributed.sharding``'s rules, the data groups run in turn
+(``train.train_step``).  The model axis shards storage, not compute.
 
 Before step 0 it validates the kernels the run leans on: a config with
 ``sattn`` slots pushes one head of its own mask through the default
@@ -15,6 +19,8 @@ the run's device: the port's own draws, not the reference's (JAX's RNG).
       --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
       --smoke --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch longformer-1.4b \\
+      --smoke --device cpu --steps 3 --batch 4 --dp 2 --tp 2
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import torch
 
 from ..configs import get_config, reduced
 from ..data.pipeline import PipelineConfig, TokenPipeline
+from ..distributed.sharding import (batch_shardings, gather_tree,
+                                    param_shardings, shard_tree)
 from ..ft import checkpoint as ckpt
 from ..ft.watchdog import StepTimeout, Watchdog
 from ..kernels.ops import resolve_device
@@ -118,9 +126,10 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
     from the latest checkpoint there (params; optimizer state under
     ``ckpt_dir/opt``), saves every ``ckpt_every`` steps and at the end;
     a ``StepTimeout`` restores the last checkpoint (or retries the step
-    when there is none)."""
+    when there is none).  The returned params are gathered whole."""
     device = resolve_device(device)
-    make_host_mesh(data=data_parallel, model=model_parallel, device=device)
+    mesh = make_host_mesh(data=data_parallel, model=model_parallel,
+                          device=device)
     model = Model(cfg)
     if spmm_chips:
         spmm_shard_preflight(spmm_chips, spmm_backend, spmm_x_sharding,
@@ -129,9 +138,16 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
         sparse_attn_preflight(cfg, seq_len, device=device)
     opt = AdamW(learning_rate=warmup_cosine(lr, min(20, steps // 10 + 1),
                                             steps))
+    param_meta = model.param_shapes()
+    p_shard = param_shardings(param_meta, mesh)
+    # the step count stays a plain tensor on the device, as AdamW keeps it
+    o_shard = param_shardings(opt.init(param_meta), mesh)._replace(
+        count=None)
     step_fn = make_train_step(model, opt, remat=remat,
                               microbatches=microbatches,
-                              chunk_q=max(64, seq_len // 4), device=device)
+                              chunk_q=max(64, seq_len // 4),
+                              shard_ctx={"mesh": mesh, "dp": ("data",)},
+                              grad_shardings=p_shard)
 
     def step_synced(params, opt_state, batch):
         # the float() reads wait for the device: the watchdog times the
@@ -145,14 +161,19 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
         num_image_tokens=cfg.num_image_tokens
         if cfg.family == "vlm" else 0, d_model=cfg.d_model))
 
-    params = model.init(torch.Generator(device=device).manual_seed(seed),
-                        device=device)
+    b_shard = batch_shardings(pipe.batch_at(0), mesh)
+    # init whole, then shard: the starting params do not depend on the
+    # mesh (the reference's init-then-device_put, for the same reason)
+    params = shard_tree(model.init(torch.Generator(device=device).manual_seed(
+        seed), device=device), p_shard)
     opt_state = opt.init(params)
 
     def restore():
-        return (ckpt.restore_checkpoint(ckpt_dir, params, device=device),
-                ckpt.restore_checkpoint(Path(ckpt_dir) / "opt", opt_state,
-                                        device=device))
+        return (ckpt.restore_checkpoint(ckpt_dir, param_meta,
+                                        shardings=p_shard),
+                ckpt.restore_checkpoint(Path(ckpt_dir) / "opt",
+                                        opt.init(param_meta),
+                                        shardings=o_shard, device=device))
 
     start_step = 0
     if ckpt_dir is not None and ckpt.latest_step(ckpt_dir) is not None:
@@ -167,7 +188,9 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
     while step < end_step:
         try:
             params, opt_state, metrics = wd.run_step(
-                step_synced, params, opt_state, pipe.batch_at(step),
+                step_synced, params, opt_state,
+                shard_tree({k: torch.from_numpy(v) for k, v in
+                            pipe.batch_at(step).items()}, b_shard),
                 fault_injector=fault_injector)
         except StepTimeout as e:
             print(f"[train] step {step}: {e}; restoring last checkpoint",
@@ -188,7 +211,7 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
     if ckpt_dir is not None:
         ckpt.save_checkpoint(ckpt_dir, step, params)
         ckpt.save_checkpoint(Path(ckpt_dir) / "opt", step, opt_state)
-    return params, losses
+    return gather_tree(params, device), losses
 
 
 def main(argv=None) -> int:
@@ -209,9 +232,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel ways (only 1: one card)")
+                    help="data axis of the mesh: the batch splits over it")
     ap.add_argument("--tp", type=int, default=1,
-                    help="model-parallel ways (only 1: one card)")
+                    help="model axis of the mesh: it shards parameter and "
+                         "optimizer storage, not compute")
     ap.add_argument("--spmm-chips", type=int, default=0,
                     help="validate the sharded fused SpMM path on this "
                          "many chips before training (0 = skip)")

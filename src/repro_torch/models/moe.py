@@ -26,17 +26,17 @@ def moe_capacity(seq: int, top_k: int, num_experts: int,
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
-            capacity_factor: float = 1.25, norm_eps: float = 1e-5,
-            shard_ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            capacity_factor: float = 1.25, norm_eps: float = 1e-5
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Pre-norm MoE SwiGLU FFN: x + combine(experts(dispatch(norm(x)))).
 
     p: router (D,E), w_gate/w_up (E,D,F), w_down (E,F,D), ln (D,)
-    x: (B, S, D).  Returns (out, aux_losses).  ``shard_ctx`` (the
-    reference's GSPMD layout hints) has no single-card counterpart.
+    x: (B, S, D), one data group's rows on a mesh (its weights gathered
+    by the stack).  Returns (out, aux_losses).  The reference's
+    ``shard_ctx`` hints here (``_c``, its XLA-only ``moe_shard`` variant
+    pinning the dispatch buffers to the batch axes) have no eager
+    counterpart: the buffers are the group's own.
     """
-    if shard_ctx is not None:
-        from .transformer import _no_sharding
-        _no_sharding()
     B, S, D = x.shape
     h = rms_norm(x, p["ln"], norm_eps)
     logits = torch.einsum("bsd,de->bse", h.float(), p["router"].float())

@@ -17,9 +17,22 @@ K5 with ``staging="resident"`` — and the reference's dense masked
 fallback in ``prefill``/``forward_decode``), ``xattn`` (cross-attention
 to image embeddings), and the recurrent ``mamba`` (``models/mamba.py``)
 and ``rwkv`` (``models/rwkv6.py``, its channel-mix in place of an FFN);
-FFNs dense SwiGLU or MoE.  ``shard_ctx``
-(the reference's GSPMD layout hints, ``_constrain``/``_gather_fsdp``)
-has no single-card counterpart and raises when given.
+FFNs dense SwiGLU or MoE.
+
+``shard_ctx = {"mesh": LogicalMesh, "dp": batch axes}`` runs the stack
+over parameters that are a tree of ``ShardedTensor`` s on a mesh of
+single-controller chips (``distributed/sharding.py``): inside each
+period's body (so ``remat="full"`` regathers in the recompute and live
+gathered memory stays at one period) ``_gather_fsdp`` gathers the
+period's parameters from their blocks onto the compute device with
+differentiable ops, so gradients land on the blocks.  The stack
+computes the whole batch it is given; the data axes' split of the
+batch (the reference's ``_constrain``) is the train step's
+(``train_step.data_groups``).  The model axis shards storage only:
+GSPMD's Megatron compute split over ``model`` has no single-controller
+counterpart here.  The reference's XLA-only layout variants
+(``gather_fsdp``, ``moe_shard``, ``bf16_ar``: sharding hints and an
+``optimization_barrier``) have no eager counterpart either.
 
 Three entry points, each on the card unless the caller passes
 ``device="cpu"``:
@@ -39,7 +52,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import LogicalMesh, gather, is_sharded
 from ..kernels.ops import resolve_device
+from ..pytree import tree_map
 from . import layers, mamba, moe, rwkv6, sparse_attention
 
 # sentinel position for unfilled KV-cache slots: +2^30 fails the causal
@@ -47,17 +62,26 @@ from . import layers, mamba, moe, rwkv6, sparse_attention
 UNFILLED_POS = 2 ** 30
 
 
-def _no_sharding():
-    raise NotImplementedError(
-        "shard_ctx: the reference's GSPMD layout hints (_constrain, "
-        "_gather_fsdp) wait for the port's sharding slice "
-        "(distributed/sharding.py's AxisEnv and param shardings); the "
-        "port's model stack runs on one card")
+def _gather_fsdp(tree, shard_ctx, device):
+    """Every sharded leaf of ``tree`` gathered onto ``device`` (the
+    per-layer ZeRO-3 "gather at use"); plain tensors pass unchanged."""
+    if shard_ctx is None:
+        return tree
+    return tree_map(lambda x: gather(x, device) if is_sharded(x) else x,
+                    tree, is_leaf=is_sharded)
 
 
-def _check(shard_ctx) -> None:
+def _ctx_device(shard_ctx, device) -> str:
+    """The compute device: ``device``, or by default the mesh's first
+    chip's."""
     if shard_ctx is not None:
-        _no_sharding()
+        mesh = shard_ctx["mesh"]
+        if not isinstance(mesh, LogicalMesh):
+            raise TypeError(f"shard_ctx['mesh'] must be a LogicalMesh, got "
+                            f"{type(mesh).__name__}")
+        if device is None:
+            device = mesh.devices[0]
+    return resolve_device(device)
 
 
 def _device(device) -> str:
@@ -228,8 +252,15 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 def _at(tree, index: int):
     """Period ``index`` of a period-stacked tree (views, no copies)."""
-    return {k: _at(v, index) if isinstance(v, dict) else v[index]
+    return {k: _at(v, index) if isinstance(v, dict)
+            else v.period(index) if is_sharded(v) else v[index]
             for k, v in tree.items()}
+
+
+def _top(params, shard_ctx, device):
+    """The embedding, final norm and head, gathered when sharded."""
+    return _gather_fsdp({k: v for k, v in params.items() if k != "period"},
+                        shard_ctx, device)
 
 
 # ---------------------------------------------------------------------------
@@ -309,14 +340,15 @@ def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
     """
     if remat not in ("none", "full"):
         raise ValueError(f"remat={remat!r}: 'none' or 'full'")
-    _check(shard_ctx)
-    device = resolve_device(device)
+    device = _ctx_device(shard_ctx, device)
     tokens = tokens.to(device)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    top = _top(params, shard_ctx, device)
+    x = top["embed"][tokens]
     positions = _positions(B, S, device)
 
     def period_body(x, period_params):
+        period_params = _gather_fsdp(period_params, shard_ctx, device)
         aux_total = torch.zeros((), dtype=torch.float32, device=device)
         for i, kind in enumerate(cfg.pattern):
             x, aux = _apply_slot_train(
@@ -338,7 +370,7 @@ def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
         else:
             x, aux = period_body(x, period_params)
         aux_sum = aux_sum + aux
-    return _head(cfg, params, x).float(), {"moe_aux": aux_sum}
+    return _head(cfg, top, x).float(), {"moe_aux": aux_sum}
 
 
 # ---------------------------------------------------------------------------
@@ -474,12 +506,13 @@ def forward_decode(cfg: ArchConfig, params, token, caches, pos, *,
                    shard_ctx=None, device=None):
     """token (B, 1) integer; ``pos`` an int (or 0-d tensor); caches from
     ``init_decode_cache``/``prefill``, updated in place and returned."""
-    _check(shard_ctx)
-    device = resolve_device(device)
+    device = _ctx_device(shard_ctx, device)
     pos = int(pos)
-    x = params["embed"][token.to(device)]
+    top = _top(params, shard_ctx, device)
+    x = top["embed"][token.to(device)]
     for index in range(cfg.num_periods):
-        period_params = _at(params["period"], index)
+        period_params = _gather_fsdp(_at(params["period"], index),
+                                     shard_ctx, device)
         for i, kind in enumerate(cfg.pattern):
             sp = period_params[f"slot{i}"]
             cache = _at(caches[f"slot{i}"], index)
@@ -498,7 +531,7 @@ def forward_decode(cfg: ArchConfig, params, token, caches, pos, *,
             else:
                 x = _decode_recurrent(cfg, kind, sp[kind], x, cache)
             x, _ = _apply_ffn(cfg, sp, x)
-    return _head(cfg, params, x).float(), caches
+    return _head(cfg, top, x).float(), caches
 
 
 # ---------------------------------------------------------------------------
@@ -525,15 +558,16 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
     periods).  ``sattn`` slots take the dense masked fallback, as in the
     reference, with a full-length cache (global tokens must survive);
     the recurrent slots' caches are their states after the prompt."""
-    _check(shard_ctx)
-    device = resolve_device(device)
+    device = _ctx_device(shard_ctx, device)
     tokens = tokens.to(device)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    top = _top(params, shard_ctx, device)
+    x = top["embed"][tokens]
     positions = _positions(B, S, device)
     per_period = []
     for index in range(cfg.num_periods):
-        period_params = _at(params["period"], index)
+        period_params = _gather_fsdp(_at(params["period"], index),
+                                     shard_ctx, device)
         new_caches = {}
         for i, kind in enumerate(cfg.pattern):
             sp = period_params[f"slot{i}"]
@@ -589,4 +623,4 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
     caches = {slot: {name: torch.stack([c[slot][name] for c in per_period])
                      for name in per_period[0][slot]}
               for slot in per_period[0]}
-    return _head(cfg, params, x).float(), caches
+    return _head(cfg, top, x).float(), caches

@@ -7,25 +7,110 @@ float32 gradients accumulate over a loop of the microbatches (the
 reference's ``lax.scan``); the loss is their mean and ``nll`` the last
 microbatch's, as in the reference.  The step returns new parameter and
 optimizer-state trees, as the reference's functional step does.
+
+On a mesh (``shard_ctx``) the parameters and optimizer state are trees
+of ``ShardedTensor`` s and each microbatch splits further into its data
+groups (``data_groups``, the reference's ``_constrain`` of the batch),
+run in turn on one controller, each on its own device with the weights
+gathered per period.  The groups' gradients are born on the parameters'
+blocks, which is where the reference's reduce-scatter puts them
+(its ``grad_shardings``): the step sums them in float32 over every
+(microbatch, group) piece in order and divides by their count, the
+arithmetic of ``microbatches * groups`` microbatches, so a (2, 2)
+mesh's step is the unsharded ``microbatches=2`` step's.  One piece
+takes its gradients as they come, with no float32 copy.
+``AdamW.update`` then runs on the blocks; its global grad norm sums the
+blocks' squares, whose order differs from the whole leaves' in the last
+bits.
 """
 from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from ..distributed.sharding import LogicalMesh, gather, is_sharded
 from ..kernels.ops import resolve_device
 from ..models.model import Model
 from ..optim.adamw import AdamW, AdamWState
-from ..pytree import tree_leaves, tree_map, tree_unflatten
+from ..pytree import (tree_leaves, tree_map, tree_map_with_path,
+                      tree_unflatten)
 
 
 def _on(device, batch):
-    """The batch's arrays (numpy or tensors) as tensors on ``device``."""
+    """The batch's arrays (numpy, tensors, or tensors placed by
+    ``batch_shardings``) as tensors on ``device``."""
     def move(x):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
+        if is_sharded(x):
+            return gather(x, device)
         return x.to(device)
     return {name: move(x) for name, x in batch.items()}
+
+
+def data_groups(shard_ctx, batch: int, device) -> List[Tuple[Any, slice]]:
+    """(device, rows) of each data group of a ``batch``-row batch: the
+    counterpart of the reference's ``_constrain(x, shard_ctx, ("DP",
+    ...))``, whose only split with a single-controller counterpart is the
+    batch's (the ``"model"`` entries split compute under GSPMD).  With
+    ``n`` = the product of the ``dp`` axes dividing ``batch``, group
+    ``g`` takes rows ``g*B/n .. (g+1)*B/n`` on the device of its first
+    chip (the lowest chip whose ``dp`` coordinates, row-major, are
+    ``g``); otherwise (and with no ``shard_ctx``) one group, all rows,
+    on ``device``: the reference leaves a dim that does not divide
+    unconstrained, so every data chip computes the whole batch, which
+    the port computes once."""
+    if shard_ctx is None:
+        return [(device, slice(0, batch))]
+    mesh, dp = shard_ctx["mesh"], tuple(shard_ctx["dp"])
+    sizes = mesh.sizes
+    n = math.prod(sizes[a] for a in dp)
+    if n == 1 or batch % n or batch == 0:
+        return [(device, slice(0, batch))]
+    owner: Dict[int, Any] = {}
+    for chip in range(mesh.size):
+        at = mesh.coords(chip)
+        g = 0
+        for a in dp:
+            g = g * sizes[a] + at[a]
+        owner.setdefault(g, mesh.devices[chip])
+    size = batch // n
+    return [(str(owner[g]), slice(g * size, (g + 1) * size))
+            for g in range(n)]
+
+
+def _pieces(batch, microbatches: int, shard_ctx, device):
+    """(device, rows) of every (microbatch, data group) piece of the
+    batch, microbatch-major."""
+    B = next(iter(batch.values())).shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into "
+                         f"{microbatches} microbatches")
+    size = B // microbatches
+    out = []
+    for i in range(microbatches):
+        base = i * size
+        groups = ([(device, slice(0, size))] if shard_ctx is None
+                  else data_groups(shard_ctx, size, device))
+        out += [(dev, slice(base + rows.start, base + rows.stop))
+                for dev, rows in groups]
+    return out
+
+
+def _check_placements(params, placements) -> None:
+    """``grad_shardings`` must name the parameters' own placements: the
+    gradients are born on the parameters' blocks."""
+    def leaf(path, p, want):
+        have = p.placement if is_sharded(p) else None
+        if have != want:
+            raise ValueError(f"grad_shardings{path}: gradients are born on "
+                             f"the parameter's placement {have}, not "
+                             f"{want}")
+        return p
+    tree_map_with_path(leaf, params, placements, is_leaf=is_sharded)
 
 
 def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
@@ -33,28 +118,40 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
                     shard_ctx=None, causal_skip: bool = False,
                     grad_shardings=None, grad_transform=None, device=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics) on ``device`` (the card unless ``"cpu"``), metrics ``loss``,
-    ``grad_norm`` and ``nll`` as float32 tensors.  ``grad_transform``
-    (optional) maps the gradient tree before the optimizer, e.g. a
-    closure over ``optim.compression``'s error-feedback transform.
-    ``shard_ctx`` and ``grad_shardings`` raise: the sharding slice."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings: per-parameter gradient shardings wait for the "
-            "port's sharding slice (distributed/sharding.py's param "
-            "shardings); the port's train step runs on one card")
+    metrics) on ``device`` (the card unless ``"cpu"``; on a mesh, the
+    data groups' devices), metrics ``loss``, ``grad_norm`` and ``nll``
+    as float32 tensors.  ``shard_ctx = {"mesh", "dp"}`` takes sharded
+    parameter and optimizer-state trees; ``grad_shardings`` (a tree of
+    placements, on a mesh only), the reference's reduce-scatter target,
+    is checked to be the parameters' placements, where the gradients
+    already are.  ``grad_transform`` (optional) maps the gradient tree
+    before the optimizer, e.g. a closure over ``optim.compression``'s
+    error-feedback transform."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    device = resolve_device(device)
-
-    def value_and_grad(params, batch):
+    if shard_ctx is not None:
+        mesh = shard_ctx["mesh"]
+        if not isinstance(mesh, LogicalMesh):
+            raise TypeError(f"shard_ctx['mesh'] must be a LogicalMesh, got "
+                            f"{type(mesh).__name__}")
+        if not mesh.single_device:
+            raise ValueError(
+                "the sharded step adds every block's gradient square into "
+                "one norm on one device: its chips must share a device")
+        device = resolve_device(mesh.devices[0])
+    elif grad_shardings is not None:
+        raise ValueError("grad_shardings places gradients on a mesh: it "
+                         "needs shard_ctx")
+    else:
+        device = resolve_device(device)
+    def value_and_grad(params, batch, dev):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, aux = model.loss_fn(
                 tree_unflatten(params, leaves), batch, remat=remat,
                 chunk_q=chunk_q, shard_ctx=shard_ctx,
-                causal_skip=causal_skip, device=device)
+                causal_skip=causal_skip, device=dev)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -62,26 +159,28 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
             tree_unflatten(params, grads)
 
     def compute_grads(params, batch):
-        if microbatches == 1:
-            return value_and_grad(params, batch)
-        B = next(iter(batch.values())).shape[0]
-        if B % microbatches:
-            raise ValueError(f"batch {B} does not split into "
-                             f"{microbatches} microbatches")
-        size = B // microbatches
+        pieces = _pieces(batch, microbatches, shard_ctx, device)
+        if len(pieces) == 1:
+            return value_and_grad(params, batch, pieces[0][0])
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
-        loss_sum = 0.0
-        for i in range(microbatches):
-            mbatch = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            loss, aux, grads = value_and_grad(params, mbatch)
+        loss_sum, nlls = 0.0, []
+        for dev, rows in pieces:
+            piece = {k: v[rows].to(dev) for k, v in batch.items()}
+            loss, aux, grads = value_and_grad(params, piece, dev)
             acc = tree_map(lambda a, g: a + g.float(), acc, grads)
-            loss_sum = loss_sum + loss
-        grads = tree_map(lambda g: g / microbatches, acc)
-        return loss_sum / microbatches, aux, grads
+            loss_sum = loss_sum + loss.to(device)
+            nlls.append(aux["nll"].to(device))
+        # nll: the last microbatch's, over its data groups
+        per = len(pieces) // microbatches
+        aux = {"nll": sum(nlls[-per:]) / per}
+        grads = tree_map(lambda g: g / len(pieces), acc)
+        return loss_sum / len(pieces), aux, grads
 
     def train_step(params, opt_state: AdamWState, batch):
         loss, aux, grads = compute_grads(params, _on(device, batch))
+        if grad_shardings is not None:
+            _check_placements(params, grad_shardings)
         if grad_transform is not None:
             grads = grad_transform(grads)
         updates, opt_state, gnorm = optimizer.update(grads, opt_state,

@@ -10,7 +10,7 @@ to the reference's loss curve (the packages draw different initial
 weights, and the reference's driver fails under its host mesh on this
 jax): a resume from a checkpoint equals the uninterrupted run bit for
 bit, the loss falls, an injected straggler restores the last checkpoint
-and a data- or model-parallel mesh raises.
+and a mesh with an empty axis raises.
 """
 import json
 
@@ -224,13 +224,15 @@ def test_watchdog_window_bounds_history():
 # -- meshes ---------------------------------------------------------------------
 
 def test_meshes_are_one_card_or_raise():
+    # one card holds any (data, model) mesh of chips; an empty axis raises
     m = mesh.make_host_mesh(device="cpu")
     assert m.size == 1 and m.single_device
     assert mesh.make_chip_mesh(3, device="cpu").size == 3
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        mesh.make_host_mesh(data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        mesh.make_production_mesh()
+    m = mesh.make_host_mesh(data=2, device="cpu")
+    assert m.shape == (2, 1) and m.single_device
+    with pytest.raises(ValueError, match="must be >= 1"):
+        mesh.make_host_mesh(data=0, device="cpu")
+    assert mesh.make_production_mesh().shape == (16, 16)
 
 
 # -- the training driver ------------------------------------------------------------
@@ -291,11 +293,15 @@ def test_sattn_preflight_and_spmm_preflight_run(capsys):
 
 
 def test_parallel_meshes_raise():
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        _run("qwen3-14b", data_parallel=2)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    # data- and model-parallel meshes train (tests/test_torch_elastic.py
+    # holds their resume); a mesh with an empty axis raises
+    with pytest.raises(ValueError, match="must be >= 1"):
+        _run("qwen3-14b", data_parallel=0)
+    with pytest.raises(ValueError, match="must be >= 1"):
         train.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
-                    "--steps", "1", "--tp", "2"])
+                    "--steps", "1", "--tp", "0"])
+    _, losses = _run("qwen3-14b", steps=2, data_parallel=2, model_parallel=2)
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_cli_runs_on_the_cpu(capsys):

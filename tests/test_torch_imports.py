@@ -81,12 +81,37 @@ def test_every_slice_module_is_covered():
                  "repro_torch.train", "repro_torch.train.train_step",
                  "repro_torch.ft", "repro_torch.ft.checkpoint",
                  "repro_torch.ft.watchdog", "repro_torch.launch.mesh",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.ft.elastic",
+                 "repro_torch.launch.dryrun", "repro_torch.analysis"):
         assert name in modules, name
     for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
                 "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu",
                 "spmm_gather_ring.cuh", "occupancy.cuh"):
         assert (PORT / "kernels" / "csrc" / src).is_file(), src
+
+
+def test_mesh_slice_names_are_ported():
+    # the names the mesh slice ports, each where the reference has it
+    import importlib
+    for module, names in (
+            ("repro_torch.distributed.sharding",
+             ("AxisEnv", "resolve_spec", "param_pspec", "cache_pspec",
+              "param_shardings", "batch_shardings", "decode_shardings",
+              "logits_sharding", "replicated", "chip_row_sharding")),
+            ("repro_torch.distributed.collectives", ("compressed_psum",)),
+            ("repro_torch.ft.elastic", ("ElasticPlan", "plan_remesh",
+                                        "build_mesh", "remesh_state")),
+            ("repro_torch.analysis.memmodel", ("hbm_traffic",
+                                               "memory_seconds")),
+            ("repro_torch.analysis.roofline", ("model_flops_for_cell",
+                                               "peak_flops")),
+            ("repro_torch.launch.dryrun", ("dryrun_cell", "main"))):
+        mod = importlib.import_module(module)
+        for name in names:
+            assert hasattr(mod, name), (module, name)
+        bad = imported_roots(PORT.parent / (module.replace(".", "/")
+                                            + ".py")) & set(FORBIDDEN)
+        assert not bad, (module, bad)
 
 
 def test_port_sources_import_no_jax_or_reference():

@@ -371,9 +371,12 @@ def test_sharding_hints_and_recurrent_slots_raise():
     cfg = reduced(get_config("qwen2.5-32b"))
     params = Model(cfg).init(device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    # shard_ctx takes a LogicalMesh (tests/test_torch_mesh_step.py runs
+    # it); anything else raises
+    with pytest.raises(TypeError, match="LogicalMesh"):
         transformer.forward_train(cfg, params, tok, remat="none",
-                                  shard_ctx={"mesh": None}, device="cpu")
+                                  shard_ctx={"mesh": None, "dp": ("data",)},
+                                  device="cpu")
     # a hybrid ("mamba", "attn") stack initialises and runs now
     hybrid = dataclasses.replace(cfg, pattern=("mamba", "attn"),
                                  num_layers=4)
