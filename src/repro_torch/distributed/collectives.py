@@ -19,6 +19,14 @@ participant gathers all payloads and scales of its group along the axis
 to its own device (4x fewer payload bytes than a float32 ring
 all-reduce), dequantises and sums them.  As in the reference, nothing in
 training calls it.
+
+The model axis's collectives (the Megatron split,
+``distributed/model_split.py``): :func:`model_sum` is the all-reduce
+of the chips' partial sums, moved to one device and added in chip
+order (its backward, autograd's, copies the gradient back to each
+chip), and :func:`vocab_max`, :func:`vocab_sumexp` and
+:func:`vocab_target` are the reductions a cross-entropy needs over
+logits split by vocabulary.
 """
 from __future__ import annotations
 
@@ -158,3 +166,45 @@ def wire_bytes_ratio(shape: Tuple[int, ...]) -> float:
     f32_ar = 2 * n * 4          # reduce-scatter + all-gather halves
     int8_ag = n * 1 + 4
     return f32_ar / int8_ag
+
+
+def model_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The model-axis all-reduce: each chip's partial moved to
+    ``device`` and added in chip order (one part comes back as it is)."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
+
+
+def vocab_max(shards: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The largest logit of each row over the chips' vocabulary shards
+    (..., V_m), on ``device``: each chip's max, then the max of those.
+    It only shifts the exponentials, so it carries no gradient."""
+    out = None
+    for s in shards:
+        m = torch.amax(s.detach(), dim=-1).to(device)
+        out = m if out is None else torch.maximum(out, m)
+    return out
+
+
+def vocab_sumexp(shards: Sequence[torch.Tensor], top: torch.Tensor,
+                 device) -> torch.Tensor:
+    """Σ exp(logit - top) of each row over every shard: each chip sums
+    its own, then the chips' sums add in chip order."""
+    return model_sum([torch.sum(torch.exp(s - top.to(s.device)[..., None]),
+                                dim=-1) for s in shards], device)
+
+
+def vocab_target(shards: Sequence[torch.Tensor], starts: Sequence[int],
+                 labels: torch.Tensor, device) -> torch.Tensor:
+    """The logit of each row's label, from the chip whose shard (columns
+    ``starts[m]`` on) holds it; the other chips give 0."""
+    parts = []
+    for s, lo in zip(shards, starts):
+        local = labels.to(s.device).long() - lo
+        mine = (local >= 0) & (local < s.shape[-1])
+        picked = torch.gather(s, -1, local.clamp(0, s.shape[-1] - 1)[..., None])
+        parts.append(torch.where(mine, picked[..., 0],
+                                 picked.new_zeros(())))
+    return model_sum(parts, device)

@@ -28,10 +28,14 @@ share ``cuda:0`` or the CPU (the counterpart of the reference's
   assembles it on one device from its blocks (the all-gather) with
   differentiable ops, so gradients land on the blocks.
 
-GSPMD's compute split over the ``model`` axis (Megatron) has no
-single-controller counterpart here: the model axis shards storage
-(parameters, gradients, optimizer state), and each data group computes
-with gathered weights (``models/transformer.py``).
+The model axis splits compute as GSPMD's Megatron split does
+(``distributed/model_split.py``): the chip at model coordinate ``m``
+computes with its own block of every leaf the rules split over ``tp``.
+:func:`model_dim` names the dim a placement splits over ``model``,
+:func:`owned_range` the global range of each dim the chips at model
+coordinate ``m`` hold, and :func:`gather_slice` assembles any part of
+a global tensor from the blocks that hold it: over :func:`owned_range`,
+a model coordinate's own part, gathered over the data axis only.
 """
 from __future__ import annotations
 
@@ -541,6 +545,71 @@ def gather(sharded: ShardedTensor, device) -> torch.Tensor:
         return rows[0] if n == 1 else torch.cat(rows, dim)
 
     return assemble(blocks, 0)
+
+
+Range = Tuple[int, int]
+
+
+def model_dim(placement: Placement, ndim: int) -> Optional[int]:
+    """The dim that ``placement`` splits over the ``model`` axis alone,
+    or None.  A dim split over ``model`` together with another axis
+    raises: no rule makes one, and the compute split takes whole blocks
+    of one dim."""
+    spec = tuple(placement.spec)[:ndim]
+    for d, e in enumerate(spec):
+        axes = _axes(e)
+        if "model" in axes:
+            if len(axes) > 1:
+                raise ValueError(f"dim {d} splits over {axes}: the model "
+                                 f"axis computes whole blocks of one dim")
+            return d
+    return None
+
+
+def owned_range(placement: Placement, shape: Sequence[int],
+                model: int) -> Tuple[Range, ...]:
+    """The global (start, stop) range of each dim of a ``shape`` tensor
+    that the chips at model coordinate ``model`` hold between them: the
+    ``model``-th block of the dim split over ``model``, every other dim
+    whole."""
+    shape = tuple(shape)
+    d = model_dim(placement, len(shape))
+    out = [(0, n) for n in shape]
+    if d is not None:
+        n = shape[d] // placement.mesh.sizes["model"]
+        out[d] = (model * n, (model + 1) * n)
+    return tuple(out)
+
+
+def gather_slice(sharded: ShardedTensor, index: Sequence[Range],
+                 device) -> torch.Tensor:
+    """The part ``index`` (one (start, stop) range per dim) of the global
+    tensor on ``device``: the blocks that hold it, cut to it, moved
+    there and concatenated dim by dim, differentiably as :func:`gather`
+    (a block read whole and already on ``device`` comes back
+    uncopied)."""
+    if sharded.ndim == 0:
+        return sharded.blocks[0].to(device)
+    grid = sharded.placement.grid(sharded.ndim)
+    part = sharded.placement.shard_shape(tuple(sharded.shape))
+    pieces = []
+    for (lo, hi), n in zip(index, part):
+        if not 0 <= lo < hi:
+            raise ValueError(f"empty or negative range {(lo, hi)}")
+        pieces.append([(i, max(lo, i * n) - i * n, min(hi, (i + 1) * n)
+                        - i * n) for i in range(lo // n, (hi - 1) // n + 1)])
+
+    def assemble(dim, at, cut):
+        if dim == len(grid):
+            block = sharded.blocks[int(np.ravel_multi_index(at, grid))]
+            if any((a, b) != (0, n) for (a, b), n in zip(cut, part)):
+                block = block[tuple(slice(a, b) for a, b in cut)]
+            return block.to(device)
+        rows = [assemble(dim + 1, at + (i,), cut + ((a, b),))
+                for i, a, b in pieces[dim]]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim)
+
+    return assemble(0, (), ())
 
 
 def is_sharded(x) -> bool:

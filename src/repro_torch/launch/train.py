@@ -4,7 +4,9 @@ mitigation, on the card (``device=None``) or the CPU (``"cpu"``), over a
 ``(data_parallel, model_parallel)`` mesh of chips on that device
 (``launch.mesh.make_host_mesh``): parameters, optimizer state and batch
 placed by ``distributed.sharding``'s rules, the data groups run in turn
-(``train.train_step``).  The model axis shards storage, not compute.
+(``train.train_step``), each over its model chips: ``--tp`` splits
+compute as GSPMD's Megatron split does (heads, ``d_ff``, experts and
+vocabulary per chip, ``distributed/model_split.py``).
 
 Before step 0 it validates the kernels the run leans on: a config with
 ``sattn`` slots pushes one head of its own mask through the default
@@ -234,8 +236,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp", type=int, default=1,
                     help="data axis of the mesh: the batch splits over it")
     ap.add_argument("--tp", type=int, default=1,
-                    help="model axis of the mesh: it shards parameter and "
-                         "optimizer storage, not compute")
+                    help="model axis of the mesh: each model chip "
+                         "computes its own heads, d_ff columns, experts "
+                         "and vocabulary rows")
     ap.add_argument("--spmm-chips", type=int, default=0,
                     help="validate the sharded fused SpMM path on this "
                          "many chips before training (0 = skip)")

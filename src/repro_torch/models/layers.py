@@ -10,12 +10,21 @@ and attention scores are accumulated in float32 as the reference's
 over them), so the (S x S) score matrix is never held whole.  The dense
 attention and the FFN products are plain ``torch.einsum``: the reference
 computes them outside any Pallas kernel.
+
+The attention layers and the SwiGLU MLP take a ``split``
+(``distributed.model_split.ModelSplit``, one data group's model chips):
+each chip computes its own query heads (with the KV heads they read)
+or ``d_ff`` columns from its part of the weights, and the chips'
+partial outputs add on the group's device before the residual.  With
+no split the block is one computation over the plain weights given.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..distributed.model_split import ModelSplit, kv_heads
 
 NEG_INF = -1e30
 
@@ -167,70 +176,138 @@ def attn_project_qkv(p, x, cfg_heads, cfg_kv_heads, head_dim, *, qk_norm,
     return q, k, v
 
 
+def attn_chips(split: ModelSplit, p, num_heads: int, num_kv_heads: int):
+    """For each chip that computes an attention block: ``(m, leaves,
+    idx)``, chip ``m``'s leaves (``wq``/``bq``/``wo`` of its query heads,
+    ``wk``/``wv``/``bk``/``bv`` of the KV heads those read, the norms
+    whole) and ``idx`` (``kv_heads``: None, or each local query head's
+    KV head, for :func:`per_head`).  ``wq`` (D, H, hd) and ``wo`` (H, hd,
+    D) carry the head on a dim of its own, so a split of it is whole
+    heads."""
+    chips = split.chips_for(p["wq"], 1)
+    if split.chips_for(p["wo"], 0) != chips:
+        raise ValueError("wq and wo must split the same heads")
+    for m in split.each(chips):
+        heads = split.owned(p["wq"], 1, m)
+        kv, idx = kv_heads(*heads, num_heads // num_kv_heads)
+        leaves = {"wq": split.take(p["wq"], m, 1, [heads]),
+                  "wk": split.take(p["wk"], m, 1, [kv]),
+                  "wv": split.take(p["wv"], m, 1, [kv]),
+                  "wo": split.take(p["wo"], m, 0, [heads])}
+        if "bq" in p:
+            leaves["bq"] = split.take(p["bq"], m, 0, [heads])
+            leaves["bk"] = split.take(p["bk"], m, 0, [kv])
+            leaves["bv"] = split.take(p["bv"], m, 0, [kv])
+        for name in ("q_norm", "k_norm"):
+            if name in p:
+                leaves[name] = split.take(p[name], m)
+        yield m, leaves, idx
+
+
+def per_head(t, idx):
+    """``t`` (B, S, KV, hd) with one KV head per query head when the
+    chip's query heads do not fall on its KV heads in equal groups."""
+    return t if idx is None else t[:, :, idx]
+
+
 def self_attention_layer(p, x, *, positions, head_dim, num_heads,
                          num_kv_heads, rope_theta, causal=True,
                          window=None, qk_norm=False, norm_eps=1e-5,
                          kv_override=None, chunk_q: int = 512,
-                         causal_skip: bool = False):
+                         causal_skip: bool = False,
+                         split: Optional[ModelSplit] = None):
     """Pre-norm self-attention block: x + attn(norm(x)).
 
     kv_override: (k, v, kv_positions) for decode-with-cache paths.
+    ``split``: the model chips, each on its own heads; a split of more
+    than one chip takes no ``kv_override`` (a decode cache holds every
+    KV head, a chip only its own).
     """
-    h = rms_norm(x, p["ln"], norm_eps)
-    q, k, v = attn_project_qkv(p, h, num_heads, num_kv_heads, head_dim,
-                               qk_norm=qk_norm, norm_eps=norm_eps)
-    q = apply_rope(q, positions, rope_theta)
-    if kv_override is None:
-        k = apply_rope(k, positions, rope_theta)
-        kv_positions = positions
-    else:
-        k, v, kv_positions = kv_override(k, v)
-    if causal_skip and causal and kv_override is None:
-        out = gqa_attention_causal_skip(
-            q, k, v, q_positions=positions, kv_positions=kv_positions,
-            window=window, chunk_q=chunk_q)
-    else:
-        out = gqa_attention(q, k, v, q_positions=positions,
-                            kv_positions=kv_positions, causal=causal,
-                            window=window, chunk_q=chunk_q)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return x + out
+    split = split or ModelSplit(x.device)
+    if split.tp > 1 and kv_override is not None:
+        raise ValueError("the model split runs the training forward: no "
+                         "decode cache")
+    h = rms_norm(x, split.take(p["ln"]), norm_eps)
+    parts = []
+    for m, lp, idx in attn_chips(split, p, num_heads, num_kv_heads):
+        hm, pos = split.to(h, m), split.to(positions, m)
+        q, k, v = attn_project_qkv(lp, hm, num_heads, num_kv_heads,
+                                   head_dim, qk_norm=qk_norm,
+                                   norm_eps=norm_eps)
+        q = apply_rope(q, pos, rope_theta)
+        if kv_override is None:
+            k = apply_rope(k, pos, rope_theta)
+            kv_positions = pos
+        else:
+            k, v, kv_positions = kv_override(k, v)
+        k, v = per_head(k, idx), per_head(v, idx)
+        if causal_skip and causal and kv_override is None:
+            out = gqa_attention_causal_skip(
+                q, k, v, q_positions=pos, kv_positions=kv_positions,
+                window=window, chunk_q=chunk_q)
+        else:
+            out = gqa_attention(q, k, v, q_positions=pos,
+                                kv_positions=kv_positions, causal=causal,
+                                window=window, chunk_q=chunk_q)
+        parts.append(torch.einsum("bshk,hkd->bsd", out,
+                                  lp["wo"].to(x.dtype)))
+    return x + split.sum(parts)
 
 
 def cross_attention_layer(p, x, kv_src, *, head_dim, num_heads,
                           num_kv_heads, qk_norm=False, norm_eps=1e-5,
-                          chunk_q: int = 512):
+                          chunk_q: int = 512,
+                          split: Optional[ModelSplit] = None):
     """Cross-attention block (llama-3.2-vision image layers): queries from
     the text stream, keys/values from image embeddings; no causal mask,
-    no RoPE; gated residual (tanh gate, init 0) as in llama-3.2."""
-    h = rms_norm(x, p["ln"], norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(x.dtype))
-    kv = rms_norm(kv_src, p["ln_kv"], norm_eps)
-    k = torch.einsum("bsd,dhk->bshk", kv, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv, p["wv"].to(x.dtype))
-    if qk_norm:
-        q = rms_norm(q, p["q_norm"], norm_eps)
-        k = rms_norm(k, p["k_norm"], norm_eps)
-    B, Sq = q.shape[:2]
-    Sk = k.shape[1]
-    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
-    kpos = torch.zeros((B, Sk), dtype=torch.int32, device=x.device)
-    out = gqa_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
-                        causal=False, chunk_q=chunk_q)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    gate = torch.tanh(p["gate"].float()).to(x.dtype)
-    return x + gate * out
+    no RoPE; gated residual (tanh gate, init 0) as in llama-3.2, the
+    gate on the chips' summed output."""
+    split = split or ModelSplit(x.device)
+    h = rms_norm(x, split.take(p["ln"]), norm_eps)
+    kv = rms_norm(kv_src, split.take(p["ln_kv"]), norm_eps)
+    parts = []
+    for m, lp, idx in attn_chips(split, p, num_heads, num_kv_heads):
+        hm, kvm = split.to(h, m), split.to(kv, m)
+        q = torch.einsum("bsd,dhk->bshk", hm, lp["wq"].to(x.dtype))
+        k = torch.einsum("bsd,dhk->bshk", kvm, lp["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", kvm, lp["wv"].to(x.dtype))
+        if qk_norm:
+            q = rms_norm(q, lp["q_norm"], norm_eps)
+            k = rms_norm(k, lp["k_norm"], norm_eps)
+        k, v = per_head(k, idx), per_head(v, idx)
+        B, Sq = q.shape[:2]
+        Sk = k.shape[1]
+        qpos = torch.zeros((B, Sq), dtype=torch.int32, device=q.device)
+        kpos = torch.zeros((B, Sk), dtype=torch.int32, device=q.device)
+        out = gqa_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
+                            causal=False, chunk_q=chunk_q)
+        parts.append(torch.einsum("bshk,hkd->bsd", out,
+                                  lp["wo"].to(x.dtype)))
+    gate = torch.tanh(split.take(p["gate"]).float()).to(x.dtype)
+    return x + gate * split.sum(parts)
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def swiglu_mlp(p, x, *, norm_eps=1e-5):
-    """Pre-norm SwiGLU FFN block: x + W_down(silu(W_gate h) * W_up h)."""
-    h = rms_norm(x, p["ln"], norm_eps)
-    g = torch.einsum("bsd,df->bsf", h, p["w_gate"].to(x.dtype))
-    u = torch.einsum("bsd,df->bsf", h, p["w_up"].to(x.dtype))
-    act = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    out = torch.einsum("bsf,fd->bsd", act, p["w_down"].to(x.dtype))
-    return x + out
+def swiglu_mlp(p, x, *, norm_eps=1e-5, split: Optional[ModelSplit] = None):
+    """Pre-norm SwiGLU FFN block: x + W_down(silu(W_gate h) * W_up h);
+    under ``split`` each chip takes its ``d_ff`` columns of W_gate/W_up
+    and rows of W_down."""
+    split = split or ModelSplit(x.device)
+    h = rms_norm(x, split.take(p["ln"]), norm_eps)
+    chips = split.chips_for(p["w_gate"], 1)
+    parts = []
+    for m in split.each(chips):
+        cols = [split.owned(p["w_gate"], 1, m)]
+        hm = split.to(h, m)
+        g = torch.einsum("bsd,df->bsf", hm,
+                         split.take(p["w_gate"], m, 1, cols).to(x.dtype))
+        u = torch.einsum("bsd,df->bsf", hm,
+                         split.take(p["w_up"], m, 1, cols).to(x.dtype))
+        act = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+        parts.append(torch.einsum(
+            "bsf,fd->bsd", act,
+            split.take(p["w_down"], m, 0, cols).to(x.dtype)))
+    return x + split.sum(parts)

@@ -13,6 +13,13 @@ A = -exp(A_log) reaches -N, and a product of underflowed factors stays
 0 where a quotient would be inf or NaN.  Decode is the O(1) single-step
 update (``_conv_step`` and one affine step).  The scan is plain torch:
 the reference computes it outside any Pallas kernel.
+
+Under a model split (``distributed.model_split``, the training forward)
+each model chip runs the block on its own ``d_inner`` channels: its
+slice of the x half and of the z half of ``in_proj``, its conv, scan
+and ``A``/``D``/``dt`` channels, and ``out_proj``'s rows to a partial
+output.  ``x_proj`` splits by rows, so the chips' dt/B/C are partial
+sums: they add once, inside the block, before the scan.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.model_split import ModelSplit
 from .layers import rms_norm
 
 
@@ -61,7 +69,8 @@ def _causal_conv(xp, w, S: int):
 def mamba_block(p: Dict, x: torch.Tensor, *, state_dim: int,
                 conv_width: int, chunk: int = 256, norm_eps: float = 1e-5,
                 init_state: Optional[Dict] = None,
-                return_state: bool = False):
+                return_state: bool = False,
+                split: Optional[ModelSplit] = None):
     """Pre-norm Mamba block: x + out_proj(ssm(conv(in_proj(norm(x))))).
 
     p: ln (D,), in_proj (D, 2*Di), conv_w (K, Di), conv_b (Di,),
@@ -72,70 +81,94 @@ def mamba_block(p: Dict, x: torch.Tensor, *, state_dim: int,
     1 with ``init_state``) advances the conv buffer; a longer input pads
     with zeros and ignores any incoming conv state, as the reference
     does.  ``return_state`` adds ``{"ssm": (B, Di, N) float32, "conv":
-    (B, K-1, Di)}``.
+    (B, K-1, Di)}``.  ``split`` (no state) runs the model chips on their
+    channels.
     """
+    split = split or ModelSplit(x.device)
+    if split.tp > 1 and (init_state is not None or return_state):
+        raise ValueError("the model split runs the training forward: no "
+                         "recurrent state in or out")
     B, S, D = x.shape
     Di = p["in_proj"].shape[1] // 2
     N = state_dim
     R = p["dt_proj"].shape[0]
 
-    h = rms_norm(x, p["ln"], norm_eps)
-    xz = torch.einsum("bsd,de->bse", h, p["in_proj"].to(h.dtype))
-    xi, z = torch.chunk(xz, 2, dim=-1)                       # (B,S,Di) each
+    h = rms_norm(x, split.take(p["ln"]), norm_eps)
+    chips = split.chips_for(p["conv_w"], 1)
+    ranges = [split.owned(p["conv_w"], 1, m) for m in chips]
 
-    # causal depthwise conv (width K)
-    if init_state is not None and S == 1:
-        conv_buf, xc = _conv_step(init_state["conv"], xi[:, 0],
-                                  p["conv_w"].to(xi.dtype),
-                                  p["conv_b"].to(xi.dtype))
-        xc = xc[:, None]
-    else:
-        pad = xi.new_zeros((B, conv_width - 1, Di))
-        xp = torch.cat([pad, xi], dim=1)
-        xc = _causal_conv(xp, p["conv_w"].to(xi.dtype), S) \
-            + p["conv_b"].to(xi.dtype)
-        # the reference assigns conv_buf twice; the second one stands
-        conv_buf = xp[:, -(conv_width - 1):]
-    xc = F.silu(xc.float()).to(xi.dtype)
+    # per chip: its x and z channels, the conv, and its x_proj partial
+    convs, proj_parts = [], []
+    for m, (lo, hi) in zip(split.each(chips), ranges):
+        w_in = split.take(p["in_proj"], m, 1, [(lo, hi), (Di + lo, Di + hi)])
+        xz = torch.einsum("bsd,de->bse", split.to(h, m), w_in.to(h.dtype))
+        xi, z = torch.chunk(xz, 2, dim=-1)                   # (B,S,Di_m)
+        conv_w = split.take(p["conv_w"], m, 1, [(lo, hi)]).to(xi.dtype)
+        conv_b = split.take(p["conv_b"], m, 0, [(lo, hi)]).to(xi.dtype)
 
-    # input-dependent SSM parameters
-    proj = torch.einsum("bsd,dr->bsr", xc, p["x_proj"].to(xc.dtype))
+        # causal depthwise conv (width K)
+        if init_state is not None and S == 1:
+            conv_buf, xc = _conv_step(init_state["conv"], xi[:, 0], conv_w,
+                                      conv_b)
+            xc = xc[:, None]
+        else:
+            pad = xi.new_zeros((B, conv_width - 1, hi - lo))
+            xp = torch.cat([pad, xi], dim=1)
+            xc = _causal_conv(xp, conv_w, S) + conv_b
+            # the reference assigns conv_buf twice; the second one stands
+            conv_buf = xp[:, -(conv_width - 1):]
+        xc = F.silu(xc.float()).to(xi.dtype)
+        convs.append((xc, z))
+        # input-dependent SSM parameters: a partial sum over channels
+        proj_parts.append(torch.einsum(
+            "bsd,dr->bsr", xc,
+            split.take(p["x_proj"], m, 0, [(lo, hi)]).to(xc.dtype)))
+    proj = split.sum(proj_parts)
     dt_low, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
-    dt = F.softplus(
-        torch.einsum("bsr,rd->bsd", dt_low, p["dt_proj"].to(xc.dtype))
-        .float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())                       # (Di,N)
-    a = torch.exp(dt[..., None] * A)                         # (B,S,Di,N)
-    b = (dt[..., None] * Bm[:, :, None, :].float()
-         * xc[..., None].float())                            # (B,S,Di,N)
 
-    h0 = (init_state["ssm"] if init_state is not None
-          else torch.zeros((B, Di, N), dtype=torch.float32, device=x.device))
+    parts = []
+    for m, (lo, hi), (xc, z) in zip(split.each(chips), ranges, convs):
+        cols = [(lo, hi)]
+        dtl, Bc, Cc = (split.to(t, m) for t in (dt_low, Bm, Cm))
+        dt = F.softplus(
+            torch.einsum("bsr,rd->bsd", dtl,
+                         split.take(p["dt_proj"], m, 1, cols).to(xc.dtype))
+            .float() + split.take(p["dt_bias"], m, 0, cols).float())
+        A = -torch.exp(split.take(p["A_log"], m, 0, cols).float())  # (Di,N)
+        a = torch.exp(dt[..., None] * A)                     # (B,S,Di,N)
+        b = (dt[..., None] * Bc[:, :, None, :].float()
+             * xc[..., None].float())                        # (B,S,Di,N)
 
-    if S == 1:
-        states = a[:, 0] * h0 + b[:, 0]
-        y = torch.einsum("bdn,bn->bd", states, Cm[:, 0].float())[:, None]
-        h_last = states
-    elif S <= chunk:
-        states, h_last = _ssm_chunk(h0, a, b)
-        y = torch.einsum("bsdn,bsn->bsd", states, Cm.float())
-    else:
-        if S % chunk:
-            raise ValueError(f"mamba_block: S={S} > chunk={chunk} must be a "
-                             f"multiple of it")
-        h_last, ys = h0, []
-        for c0 in range(0, S, chunk):
-            states, h_last = _ssm_chunk(h_last, a[:, c0:c0 + chunk],
-                                        b[:, c0:c0 + chunk])
-            ys.append(torch.einsum("bsdn,bsn->bsd", states,
-                                   Cm[:, c0:c0 + chunk].float()))
-            del states
-        y = torch.cat(ys, dim=1)
+        h0 = (init_state["ssm"] if init_state is not None
+              else torch.zeros((B, hi - lo, N), dtype=torch.float32,
+                               device=xc.device))
 
-    y = y + xc.float() * p["D"].float()
-    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(y.dtype))
-    res = x + out
+        if S == 1:
+            states = a[:, 0] * h0 + b[:, 0]
+            y = torch.einsum("bdn,bn->bd", states, Cc[:, 0].float())[:, None]
+            h_last = states
+        elif S <= chunk:
+            states, h_last = _ssm_chunk(h0, a, b)
+            y = torch.einsum("bsdn,bsn->bsd", states, Cc.float())
+        else:
+            if S % chunk:
+                raise ValueError(f"mamba_block: S={S} > chunk={chunk} must "
+                                 f"be a multiple of it")
+            h_last, ys = h0, []
+            for c0 in range(0, S, chunk):
+                states, h_last = _ssm_chunk(h_last, a[:, c0:c0 + chunk],
+                                            b[:, c0:c0 + chunk])
+                ys.append(torch.einsum("bsdn,bsn->bsd", states,
+                                       Cc[:, c0:c0 + chunk].float()))
+                del states
+            y = torch.cat(ys, dim=1)
+
+        y = y + xc.float() * split.take(p["D"], m, 0, cols).float()
+        y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+        parts.append(torch.einsum(
+            "bse,ed->bsd", y,
+            split.take(p["out_proj"], m, 0, cols).to(y.dtype)))
+    res = x + split.sum(parts)
     if return_state:
         return res, {"ssm": h_last, "conv": conv_buf}
     return res

@@ -1,5 +1,7 @@
 """Model facade: config -> init / loss / serve entry points + input specs
-(port of ``src/repro/models/model.py``).
+(port of ``src/repro/models/model.py``).  Under ``shard_ctx`` the loss
+is a vocabulary-parallel cross-entropy over the model chips' logit
+shards.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.  ``param_shapes`` and ``input_specs`` return tensors
@@ -14,18 +16,40 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..distributed import collectives
 from . import transformer
+
+
+def _mean_nll(nll, mask=None):
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def cross_entropy_loss(logits, labels, mask=None):
     """logits (B,S,V) f32, labels (B,S) integer. Mean NLL over tokens."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
-    if mask is not None:
-        nll = nll * mask
-        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+    return _mean_nll(logz - gold, mask)
+
+
+def vocab_parallel_cross_entropy(shards, starts, labels, mask=None, *,
+                                 device):
+    """:func:`cross_entropy_loss` over logits split by vocabulary across
+    the model chips (shard ``m``: columns ``starts[m]`` on, on its
+    chip), the reference's ``("DP", None, "model")`` logits: the row
+    max over the chips, the chips' sums of exponentials, and the label's
+    logit from the chip that holds it, reduced on ``device``; the
+    shards are never assembled."""
+    if len(shards) == 1:
+        return cross_entropy_loss(shards[0], labels.to(shards[0].device),
+                                  None if mask is None
+                                  else mask.to(shards[0].device))
+    top = collectives.vocab_max(shards, device)
+    logz = top + torch.log(collectives.vocab_sumexp(shards, top, device))
+    gold = collectives.vocab_target(shards, starts, labels, device)
+    return _mean_nll(logz - gold, None if mask is None else mask.to(device))
 
 
 @dataclasses.dataclass
@@ -45,16 +69,15 @@ class Model:
                 chunk_q: int = 512, shard_ctx=None, causal_skip: bool = False,
                 backend: str = "auto", staging: Optional[str] = None,
                 device=None):
-        logits, aux = transformer.forward_train(
+        shards, starts, aux = transformer.forward_train_parts(
             self.cfg, params, batch["tokens"],
             image_embeds=batch.get("image_embeds"), remat=remat,
             chunk_q=chunk_q, shard_ctx=shard_ctx,
             causal_skip=causal_skip, backend=backend, staging=staging,
             device=device)
-        mask = batch.get("loss_mask")
-        loss = cross_entropy_loss(
-            logits, batch["labels"].to(logits.device),
-            None if mask is None else mask.to(logits.device))
+        loss = vocab_parallel_cross_entropy(
+            shards, starts, batch["labels"], batch.get("loss_mask"),
+            device=aux["moe_aux"].device)
         total = loss + 1e-2 * aux["moe_aux"]
         return total, {"nll": loss, **aux}
 

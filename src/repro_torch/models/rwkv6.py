@@ -12,6 +12,14 @@ its chunk body, so the backward recomputes a chunk's states instead of
 keeping one per position.  Decode is the O(1) single-step update.  The
 recurrence is plain torch: the reference computes it outside any Pallas
 kernel.
+
+Under a model split (``distributed.model_split``, the training forward)
+the time-mix runs each model chip on its own heads (``w_[rkvg]``
+columns, ``u``/``w0``/``gn_*`` by head, ``w_o`` rows to a partial
+output) after the shared token shift and LoRA modulations, which stay
+whole and are computed once; the channel-mix sums ``w_v``'s partials
+over the chips before the receptance gate, each chip then gating its
+own ``w_r`` columns of the sum.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.model_split import ModelSplit
 from .layers import layer_norm
 
 
@@ -52,12 +61,22 @@ def _wkv_chunk(state, r, k, v, w, u):
     return state, torch.stack(outs, dim=1)                   # (B,C,H,N)
 
 
+def _no_state(split: ModelSplit, init_state, return_state) -> None:
+    if split.tp > 1 and (init_state is not None or return_state):
+        raise ValueError("the model split runs the training forward: no "
+                         "recurrent state in or out")
+
+
 def time_mix(p: Dict, x, *, num_heads: int, head_dim: int,
              chunk: int = 256, norm_eps: float = 1e-5,
-             init_state: Optional[Dict] = None, return_state: bool = False):
+             init_state: Optional[Dict] = None, return_state: bool = False,
+             split: Optional[ModelSplit] = None):
+    split = split or ModelSplit(x.device)
+    _no_state(split, init_state, return_state)
     B, S, D = x.shape
     H, N = num_heads, head_dim
-    h = layer_norm(x, p["ln_w"], p["ln_b"], norm_eps)
+    h = layer_norm(x, split.take(p["ln_w"]), split.take(p["ln_b"]),
+                   norm_eps)
 
     x_prev_last = (init_state["x_prev_tm"] if init_state is not None
                    else h.new_zeros((B, D)))
@@ -65,53 +84,67 @@ def time_mix(p: Dict, x, *, num_heads: int, head_dim: int,
     dx = hp - h
 
     def mixed(name):
-        mu = p[f"mu_{name}"].to(h.dtype)
-        lora = _lora(h.float(), p[f"lora_{name}_a"],
-                     p[f"lora_{name}_b"]).to(h.dtype)
+        mu = split.take(p[f"mu_{name}"]).to(h.dtype)
+        lora = _lora(h.float(), split.take(p[f"lora_{name}_a"]),
+                     split.take(p[f"lora_{name}_b"])).to(h.dtype)
         return h + dx * (mu + lora)
 
-    def proj(name):
-        return torch.einsum("bsd,dhn->bshn", mixed(name),
-                            p[f"w_{name}"].to(h.dtype))
+    # data-dependent decay (the Finch mechanism): the LoRA part, whole
+    wlora = _lora(mixed("w").float(), split.take(p["lora_w_a"]),
+                  split.take(p["lora_w_b"])).reshape(B, S, H, N)
+    inputs = {name: mixed(name) for name in ("r", "k", "v", "g")}
+    chips = split.chips_for(p["w_r"], 1)
+    parts = []
+    for m in split.each(chips):
+        heads = [split.owned(p["w_r"], 1, m)]
+        lo, hi = heads[0]
 
-    r, k, v, g = proj("r"), proj("k"), proj("v"), proj("g")
-    # data-dependent decay (the Finch mechanism)
-    wraw = (p["w0"].float()
-            + _lora(mixed("w").float(), p["lora_w_a"],
-                    p["lora_w_b"]).reshape(B, S, H, N))
-    w = torch.exp(-torch.exp(wraw))                          # (B,S,H,N) in (0,1)
+        def proj(name):
+            return torch.einsum("bsd,dhn->bshn", split.to(inputs[name], m),
+                                split.take(p[f"w_{name}"], m, 1,
+                                           heads).to(h.dtype))
 
-    rf, kf, vf = (t.float() for t in (r, k, v))
-    u = p["u"].float()                                       # (H,N)
-    state = (init_state["wkv"] if init_state is not None
-             else torch.zeros((B, H, N, N), dtype=torch.float32,
-                              device=x.device))
+        def by_head(name):
+            return split.take(p[name], m, 0, heads).float()
 
-    if S <= chunk:
-        state, out = _wkv_chunk(state, rf, kf, vf, w, u)
-    else:
-        if S % chunk:
-            raise ValueError(f"time_mix: S={S} > chunk={chunk} must be a "
-                             f"multiple of it")
-        outs = []
-        for c0 in range(0, S, chunk):
-            part = tuple(t[:, c0:c0 + chunk] for t in (rf, kf, vf, w))
-            if torch.is_grad_enabled():
-                state, o = checkpoint(_wkv_chunk, state, *part, u,
-                                      use_reentrant=False)
-            else:
-                state, o = _wkv_chunk(state, *part, u)
-            outs.append(o)
-        out = torch.cat(outs, dim=1)
+        r, k, v, g = proj("r"), proj("k"), proj("v"), proj("g")
+        wl = wlora if (lo, hi) == (0, H) else wlora[:, :, lo:hi]
+        wraw = by_head("w0") + split.to(wl, m)
+        w = torch.exp(-torch.exp(wraw))                  # (B,S,Hl,N) in (0,1)
 
-    # per-head group norm (biased variance), then gate
-    mu = torch.mean(out, dim=-1, keepdim=True)
-    var = torch.var(out, dim=-1, keepdim=True, correction=0)
-    out = (out - mu) * torch.rsqrt(var + norm_eps)
-    out = out * p["gn_w"].float() + p["gn_b"].float()
-    out = out.to(x.dtype) * F.silu(g.float()).to(x.dtype)
-    out = torch.einsum("bshn,hnd->bsd", out, p["w_o"].to(x.dtype))
-    res = x + out
+        rf, kf, vf = (t.float() for t in (r, k, v))
+        u = by_head("u")                                 # (Hl,N)
+        state = (init_state["wkv"] if init_state is not None
+                 else torch.zeros((B, hi - lo, N, N), dtype=torch.float32,
+                                  device=r.device))
+
+        if S <= chunk:
+            state, out = _wkv_chunk(state, rf, kf, vf, w, u)
+        else:
+            if S % chunk:
+                raise ValueError(f"time_mix: S={S} > chunk={chunk} must be "
+                                 f"a multiple of it")
+            outs = []
+            for c0 in range(0, S, chunk):
+                part = tuple(t[:, c0:c0 + chunk] for t in (rf, kf, vf, w))
+                if torch.is_grad_enabled():
+                    state, o = checkpoint(_wkv_chunk, state, *part, u,
+                                          use_reentrant=False)
+                else:
+                    state, o = _wkv_chunk(state, *part, u)
+                outs.append(o)
+            out = torch.cat(outs, dim=1)
+
+        # per-head group norm (biased variance), then gate
+        mu = torch.mean(out, dim=-1, keepdim=True)
+        var = torch.var(out, dim=-1, keepdim=True, correction=0)
+        out = (out - mu) * torch.rsqrt(var + norm_eps)
+        out = out * by_head("gn_w") + by_head("gn_b")
+        out = out.to(x.dtype) * F.silu(g.float()).to(x.dtype)
+        parts.append(torch.einsum("bshn,hnd->bsd", out,
+                                  split.take(p["w_o"], m, 0,
+                                             heads).to(x.dtype)))
+    res = x + split.sum(parts)
     if return_state:
         return res, {"wkv": state, "x_prev_tm": h[:, -1]}
     return res
@@ -119,22 +152,43 @@ def time_mix(p: Dict, x, *, num_heads: int, head_dim: int,
 
 def channel_mix(p: Dict, x, *, norm_eps: float = 1e-5,
                 init_state: Optional[Dict] = None,
-                return_state: bool = False):
+                return_state: bool = False,
+                split: Optional[ModelSplit] = None):
+    split = split or ModelSplit(x.device)
+    _no_state(split, init_state, return_state)
     B, S, D = x.shape
-    h = layer_norm(x, p["ln_w"], p["ln_b"], norm_eps)
+    h = layer_norm(x, split.take(p["ln_w"]), split.take(p["ln_b"]),
+                   norm_eps)
     x_prev_last = (init_state["x_prev_cm"] if init_state is not None
                    else h.new_zeros((B, D)))
     hp = _token_shift(h, x_prev_last)
     dx = hp - h
-    hk = h + dx * p["mu_k"].to(h.dtype)
-    hr = h + dx * p["mu_r"].to(h.dtype)
-    kk = torch.einsum("bsd,df->bsf", hk, p["w_k"].to(h.dtype))
-    kk = torch.square(torch.relu(kk.float())).to(h.dtype)
-    vv = torch.einsum("bsf,fd->bsd", kk, p["w_v"].to(h.dtype))
-    rr = torch.sigmoid(
-        torch.einsum("bsd,de->bse", hr, p["w_r"].to(h.dtype)).float()
-    ).to(h.dtype)
-    res = x + rr * vv
+    hk = h + dx * split.take(p["mu_k"]).to(h.dtype)
+    hr = h + dx * split.take(p["mu_r"]).to(h.dtype)
+    chips = split.chips_for(p["w_k"], 1)
+    parts = []
+    for m in split.each(chips):
+        cols = [split.owned(p["w_k"], 1, m)]
+        kk = torch.einsum("bsd,df->bsf", split.to(hk, m),
+                          split.take(p["w_k"], m, 1, cols).to(h.dtype))
+        kk = torch.square(torch.relu(kk.float())).to(h.dtype)
+        parts.append(torch.einsum(
+            "bsf,fd->bsd", kk, split.take(p["w_v"], m, 0, cols).to(h.dtype)))
+    vv = split.sum(parts)
+    # the receptance gate multiplies the summed output: each chip gates
+    # its own w_r columns of the sum
+    chips = split.chips_for(p["w_r"], 1)
+    gated = []
+    for m in split.each(chips):
+        lo, hi = split.owned(p["w_r"], 1, m)
+        rr = torch.sigmoid(
+            torch.einsum("bsd,de->bse", split.to(hr, m),
+                         split.take(p["w_r"], m, 1,
+                                    [(lo, hi)]).to(h.dtype)).float()
+        ).to(h.dtype)
+        vm = vv if (lo, hi) == (0, D) else vv[..., lo:hi]
+        gated.append(split.to(rr * split.to(vm, m), None))
+    res = x + (gated[0] if len(gated) == 1 else torch.cat(gated, dim=-1))
     if return_state:
         return res, {"x_prev_cm": h[:, -1]}
     return res
@@ -143,17 +197,22 @@ def channel_mix(p: Dict, x, *, norm_eps: float = 1e-5,
 def rwkv_block(p: Dict, x, *, num_heads: int, head_dim: int,
                chunk: int = 256, norm_eps: float = 1e-5,
                init_state: Optional[Dict] = None,
-               return_state: bool = False):
+               return_state: bool = False,
+               split: Optional[ModelSplit] = None):
     """time_mix then channel_mix; ``return_state`` adds ``{"wkv": (B, H,
-    N, N) float32, "x_prev_tm", "x_prev_cm": (B, D)}``."""
+    N, N) float32, "x_prev_tm", "x_prev_cm": (B, D)}``; ``split`` (no
+    state) runs both over the model chips."""
     if return_state:
         x, st_tm = time_mix(p["tm"], x, num_heads=num_heads,
                             head_dim=head_dim, chunk=chunk,
                             norm_eps=norm_eps, init_state=init_state,
-                            return_state=True)
+                            return_state=True, split=split)
         x, st_cm = channel_mix(p["cm"], x, norm_eps=norm_eps,
-                               init_state=init_state, return_state=True)
+                               init_state=init_state, return_state=True,
+                               split=split)
         return x, {**st_tm, **st_cm}
     x = time_mix(p["tm"], x, num_heads=num_heads, head_dim=head_dim,
-                 chunk=chunk, norm_eps=norm_eps, init_state=init_state)
-    return channel_mix(p["cm"], x, norm_eps=norm_eps, init_state=init_state)
+                 chunk=chunk, norm_eps=norm_eps, init_state=init_state,
+                 split=split)
+    return channel_mix(p["cm"], x, norm_eps=norm_eps, init_state=init_state,
+                       split=split)

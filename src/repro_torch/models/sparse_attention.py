@@ -8,7 +8,10 @@ fused SDDMM → online softmax → S·V artifact
 (:func:`~repro_torch.core.compile_sparse_attention`).  The (batch, head)
 instances all share one structure, so they share one artifact; each is
 one fused launch, with the score matrix never in device memory.  The
-layer loops over (batch, head) as the reference does.
+layer loops over (batch, head) as the reference does; under a model
+split (``distributed.model_split``) each model chip loops over its own
+heads only, so K6 is launched per chip on its own heads, against the
+one shared artifact.
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
                                 rope_theta=1e4, qk_norm=False,
                                 norm_eps=1e-5, backend="auto",
                                 device: Optional[str] = None,
-                                staging: Optional[str] = None):
+                                staging: Optional[str] = None, split=None):
     """Pre-norm sparse self-attention block: x + sattn(norm(x)).
 
     ``p`` holds ``ln`` (D,), ``wq`` (D, H, hd), ``wk``/``wv``
@@ -79,27 +82,38 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
     ``device`` is resolved as for every entry point (the card unless
     ``"cpu"``) and joins the artifact's cache key; ``staging`` is the
     artifact's (``None`` = the card's ``"dma"``: K6; ``"resident"``:
-    K5).
+    K5).  ``split`` (a ``ModelSplit``): each model chip projects, attends
+    and applies ``wo`` for its own heads on its own device, and the
+    partial outputs add on the group's.
     """
+    from ..distributed.model_split import ModelSplit
     from ..kernels.ops import resolve_device
     device = resolve_device(device)
+    split = split or ModelSplit(device)
     B, S, _ = x.shape
-    h = layers.rms_norm(x, p["ln"], norm_eps)
-    q, k, v = layers.attn_project_qkv(p, h, num_heads, num_kv_heads,
-                                      head_dim, qk_norm=qk_norm,
-                                      norm_eps=norm_eps)
-    q = layers.apply_rope(q, positions, rope_theta)
-    k = layers.apply_rope(k, positions, rope_theta)
-    a, art = _mask_and_artifact(S, head_dim, int(window), int(num_global),
-                                backend, device, staging)
-    G = num_heads // num_kv_heads
-    outs = []
-    for b in range(B):
-        per_head = [art(a.vals, q[b, :, hh, :].float(),
-                        k[b, :, hh // G, :].float(),
-                        v[b, :, hh // G, :].float())
-                    for hh in range(num_heads)]
-        outs.append(torch.stack(per_head, dim=1))          # (S, H, hd)
-    out = torch.stack(outs, dim=0).to(x.dtype)             # (B, S, H, hd)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return x + out
+    h = layers.rms_norm(x, split.take(p["ln"]), norm_eps)
+    parts = []
+    for m, lp, idx in layers.attn_chips(split, p, num_heads, num_kv_heads):
+        dev = resolve_device(split.on(m))
+        hm, pos = split.to(h, m), split.to(positions, m)
+        q, k, v = layers.attn_project_qkv(lp, hm, num_heads, num_kv_heads,
+                                          head_dim, qk_norm=qk_norm,
+                                          norm_eps=norm_eps)
+        q = layers.apply_rope(q, pos, rope_theta)
+        k = layers.apply_rope(k, pos, rope_theta)
+        k, v = layers.per_head(k, idx), layers.per_head(v, idx)
+        a, art = _mask_and_artifact(S, head_dim, int(window),
+                                    int(num_global), backend, dev, staging)
+        H, G = q.shape[2], q.shape[2] // k.shape[2]
+        outs = []
+        for b in range(B):
+            per_head = [art(a.vals, q[b, :, hh, :].float(),
+                            k[b, :, hh // G, :].float(),
+                            v[b, :, hh // G, :].float())
+                        for hh in range(H)]
+            outs.append(torch.stack(per_head, dim=1))      # (S, H, hd)
+        split.count_attn(m, B * H)
+        out = torch.stack(outs, dim=0).to(x.dtype)         # (B, S, H, hd)
+        parts.append(torch.einsum("bshk,hkd->bsd", out,
+                                  lp["wo"].to(x.dtype)))
+    return x + split.sum(parts)

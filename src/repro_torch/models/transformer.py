@@ -21,18 +21,33 @@ FFNs dense SwiGLU or MoE.
 
 ``shard_ctx = {"mesh": LogicalMesh, "dp": batch axes}`` runs the stack
 over parameters that are a tree of ``ShardedTensor`` s on a mesh of
-single-controller chips (``distributed/sharding.py``): inside each
-period's body (so ``remat="full"`` regathers in the recompute and live
-gathered memory stays at one period) ``_gather_fsdp`` gathers the
-period's parameters from their blocks onto the compute device with
-differentiable ops, so gradients land on the blocks.  The stack
-computes the whole batch it is given; the data axes' split of the
-batch (the reference's ``_constrain``) is the train step's
-(``train_step.data_groups``).  The model axis shards storage only:
-GSPMD's Megatron compute split over ``model`` has no single-controller
-counterpart here.  The reference's XLA-only layout variants
+single-controller chips (``distributed/sharding.py``).  ``forward_train``
+runs the rows it is given as one data group (``shard_ctx["group"]``,
+default 0; the data axes' split of the batch, the reference's
+``_constrain``, is the train step's, ``train_step.data_groups``) on
+that group's model chips, the Megatron split of GSPMD under the
+reference's ``tp`` rules (``distributed/model_split.py``): inside each
+period's body (so ``remat="full"`` regathers in the recompute) each
+block asks which chips compute it, and chip ``m`` gathers over the data
+axis only its own part of each leaf (its heads, ``d_ff`` columns,
+experts, ``d_inner`` channels) with differentiable ops, so gradients
+land on the blocks, and computes a partial output; the partials add in
+chip order on the group's device at the reference's all-reduce points
+(after ``wo``, ``w_down``, the experts' ``combine``, ``out_proj``,
+``w_o``, rwkv's ``w_v``, and mamba's ``x_proj`` inside its block).  A
+leaf whose rule fell back to replication (a dim ``model`` does not
+divide) is computed once.  The embedding splits by vocabulary rows (a
+masked lookup and the sum) and the head by vocabulary columns, so
+``forward_train_parts`` returns the logits as the chips' vocabulary
+shards, which ``Model.loss_fn`` reduces without assembling them;
+``forward_train`` concatenates them.  ``shard_ctx["tally"]``
+(``model_split.SplitTally``) counts each chip's gathered bytes and
+attention calls and the sums.  ``prefill`` and ``forward_decode``
+gather each period's weights whole onto the compute device
+(``_gather_fsdp``) and compute every head there; their caches keep the
+placement they are given.  The reference's XLA-only layout variants
 (``gather_fsdp``, ``moe_shard``, ``bf16_ar``: sharding hints and an
-``optimization_barrier``) have no eager counterpart either.
+``optimization_barrier``) have no eager counterpart.
 
 Three entry points, each on the card unless the caller passes
 ``device="cpu"``:
@@ -52,6 +67,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.model_split import ModelSplit
 from ..distributed.sharding import LogicalMesh, gather, is_sharded
 from ..kernels.ops import resolve_device
 from ..pytree import tree_map
@@ -63,8 +79,9 @@ UNFILLED_POS = 2 ** 30
 
 
 def _gather_fsdp(tree, shard_ctx, device):
-    """Every sharded leaf of ``tree`` gathered onto ``device`` (the
-    per-layer ZeRO-3 "gather at use"); plain tensors pass unchanged."""
+    """Every sharded leaf of ``tree`` gathered whole onto ``device`` (the
+    per-layer ZeRO-3 "gather at use" of prefill and decode); plain
+    tensors pass unchanged."""
     if shard_ctx is None:
         return tree
     return tree_map(lambda x: gather(x, device) if is_sharded(x) else x,
@@ -267,21 +284,22 @@ def _top(params, shard_ctx, device):
 # Slot application
 # ---------------------------------------------------------------------------
 
-def _apply_ffn(cfg, slot_params, x):
+def _apply_ffn(cfg, slot_params, x, split=None):
     aux = {}
     if "ffn_dense" in slot_params:
         x = layers.swiglu_mlp(slot_params["ffn_dense"], x,
-                              norm_eps=cfg.norm_eps)
+                              norm_eps=cfg.norm_eps, split=split)
     elif "ffn_moe" in slot_params:
         x, aux = moe.moe_ffn(slot_params["ffn_moe"], x,
                              num_experts=cfg.num_experts, top_k=cfg.top_k,
                              capacity_factor=cfg.capacity_factor,
-                             norm_eps=cfg.norm_eps)
+                             norm_eps=cfg.norm_eps, split=split)
     return x, aux
 
 
 def _apply_slot_train(cfg: ArchConfig, kind: str, slot_params, x, positions,
-                      image_embeds, chunk_q, *, causal_skip=False, backend="auto", staging=None,
+                      image_embeds, chunk_q, *, split: ModelSplit,
+                      causal_skip=False, backend="auto", staging=None,
                       device=None):
     if kind == "attn":
         x = layers.self_attention_layer(
@@ -289,7 +307,8 @@ def _apply_slot_train(cfg: ArchConfig, kind: str, slot_params, x, positions,
             head_dim=cfg.head_dim, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
             causal=True, window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-            norm_eps=cfg.norm_eps, chunk_q=chunk_q, causal_skip=causal_skip)
+            norm_eps=cfg.norm_eps, chunk_q=chunk_q, causal_skip=causal_skip,
+            split=split)
     elif kind == "sattn":
         x = sparse_attention.sparse_self_attention_layer(
             slot_params["sattn"], x, positions=positions,
@@ -299,22 +318,64 @@ def _apply_slot_train(cfg: ArchConfig, kind: str, slot_params, x, positions,
             num_global=cfg.sparse_attn_global,
             rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
             norm_eps=cfg.norm_eps, backend=backend, staging=staging,
-            device=device)
+            device=device, split=split)
     elif kind == "xattn":
         x = layers.cross_attention_layer(
             slot_params["xattn"], x, image_embeds, head_dim=cfg.head_dim,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, chunk_q=chunk_q)
-    elif kind in ("mamba", "rwkv"):
-        x = _recurrent(cfg, kind, slot_params[kind], x)[0]
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, chunk_q=chunk_q,
+            split=split)
+    elif kind == "mamba":
+        x = mamba.mamba_block(slot_params[kind], x, state_dim=cfg.mamba_state,
+                              conv_width=cfg.mamba_conv,
+                              norm_eps=cfg.norm_eps, split=split)
+    elif kind == "rwkv":
+        x = rwkv6.rwkv_block(slot_params[kind], x, num_heads=cfg.num_heads,
+                             head_dim=cfg.head_dim, norm_eps=cfg.norm_eps,
+                             split=split)
     else:
         raise ValueError(kind)
-    return _apply_ffn(cfg, slot_params, x)
+    return _apply_ffn(cfg, slot_params, x, split)
 
 
 def _head(cfg, params, x):
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+
+
+def _embed(split: ModelSplit, embed, tokens):
+    """Token embeddings, by vocabulary rows over the model chips where
+    the rules split them: each chip looks up the tokens its rows hold
+    (zeros elsewhere), and the chips' lookups add."""
+    chips = split.chips_for(embed, 0)
+    if len(chips) == 1:
+        return split.take(embed, chips[0])[split.to(tokens, chips[0])]
+    parts = []
+    for m in split.each(chips):
+        lo, hi = split.owned(embed, 0, m)
+        rows = split.take(embed, m, 0, [(lo, hi)])
+        local = split.to(tokens, m).long() - lo
+        mine = (local >= 0) & (local < hi - lo)
+        e = rows[local.clamp(0, hi - lo - 1)]
+        parts.append(torch.where(mine[..., None], e, e.new_zeros(())))
+    return split.sum(parts)
+
+
+def _head_parts(cfg, split: ModelSplit, top, x):
+    """The final norm (once) and the head by vocabulary columns over the
+    model chips: (each chip's float32 logits (B, S, V_m) on its device,
+    each shard's first column)."""
+    x = layers.rms_norm(x, split.take(top["final_norm"]), cfg.norm_eps)
+    head = top["lm_head"]
+    chips = split.chips_for(head, 1)
+    shards, starts = [], []
+    for m in split.each(chips):
+        lo, hi = split.owned(head, 1, m)
+        w = split.take(head, m, 1, [(lo, hi)])
+        shards.append(torch.einsum("bsd,dv->bsv", split.to(x, m),
+                                   w.to(x.dtype)).float())
+        starts.append(lo)
+    return shards, starts
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -326,35 +387,32 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # Train forward
 # ---------------------------------------------------------------------------
 
-def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
-                  remat: str = "full", chunk_q: int = 512, shard_ctx=None, causal_skip: bool = False,
-                  backend: str = "auto", staging: Optional[str] = None,
-                  device=None):
-    """tokens (B, S) -> (logits (B, S, V) float32, {"moe_aux": scalar}).
-
-    ``remat`` is ``"full"`` (checkpoint each period when grad is on) or
-    ``"none"``.  ``backend``/``staging`` are the ``sattn`` slots'
-    attention artifact knobs (``"auto"`` is ``pallas_bcsr`` on the card,
-    and ``staging`` ``None`` its ``"dma"``: one K6 launch per (batch,
-    head) a layer).
-    """
+def forward_train_parts(cfg: ArchConfig, params, tokens, *,
+                        image_embeds=None, remat: str = "full",
+                        chunk_q: int = 512, shard_ctx=None,
+                        causal_skip: bool = False, backend: str = "auto",
+                        staging: Optional[str] = None, device=None):
+    """:func:`forward_train` with the logits left as the model chips'
+    vocabulary shards: ``(shards, starts, aux)``, shard ``m`` the
+    float32 logits (B, S, V_m) of columns ``starts[m]`` on, on its chip's
+    device (one shard, all columns, where the head is not split)."""
     if remat not in ("none", "full"):
         raise ValueError(f"remat={remat!r}: 'none' or 'full'")
     device = _ctx_device(shard_ctx, device)
+    split = ModelSplit.of(shard_ctx, device)
     tokens = tokens.to(device)
     B, S = tokens.shape
-    top = _top(params, shard_ctx, device)
-    x = top["embed"][tokens]
+    top = {k: v for k, v in params.items() if k != "period"}
+    x = _embed(split, top["embed"], tokens)
     positions = _positions(B, S, device)
 
     def period_body(x, period_params):
-        period_params = _gather_fsdp(period_params, shard_ctx, device)
         aux_total = torch.zeros((), dtype=torch.float32, device=device)
         for i, kind in enumerate(cfg.pattern):
             x, aux = _apply_slot_train(
                 cfg, kind, period_params[f"slot{i}"], x, positions,
-                image_embeds, chunk_q, causal_skip=causal_skip, backend=backend, staging=staging,
-                device=device)
+                image_embeds, chunk_q, split=split, causal_skip=causal_skip,
+                backend=backend, staging=staging, device=device)
             if aux:
                 aux_total = aux_total + aux["moe_lb_loss"] \
                     + 1e-3 * aux["moe_z_loss"]
@@ -370,7 +428,32 @@ def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
         else:
             x, aux = period_body(x, period_params)
         aux_sum = aux_sum + aux
-    return _head(cfg, top, x).float(), {"moe_aux": aux_sum}
+    shards, starts = _head_parts(cfg, split, top, x)
+    return shards, starts, {"moe_aux": aux_sum}
+
+
+def forward_train(cfg: ArchConfig, params, tokens, *, image_embeds=None,
+                  remat: str = "full", chunk_q: int = 512, shard_ctx=None, causal_skip: bool = False,
+                  backend: str = "auto", staging: Optional[str] = None,
+                  device=None):
+    """tokens (B, S) -> (logits (B, S, V) float32, {"moe_aux": scalar}).
+
+    ``remat`` is ``"full"`` (checkpoint each period when grad is on) or
+    ``"none"``.  ``backend``/``staging`` are the ``sattn`` slots'
+    attention artifact knobs (``"auto"`` is ``pallas_bcsr`` on the card,
+    and ``staging`` ``None`` its ``"dma"``: one K6 launch per (batch,
+    head) a layer, per model chip on its own heads under ``shard_ctx``).
+    Under ``shard_ctx`` the logits are the vocabulary shards
+    concatenated on the group's device.
+    """
+    shards, _, aux = forward_train_parts(
+        cfg, params, tokens, image_embeds=image_embeds, remat=remat,
+        chunk_q=chunk_q, shard_ctx=shard_ctx, causal_skip=causal_skip,
+        backend=backend, staging=staging, device=device)
+    if len(shards) == 1:
+        return shards[0], aux
+    dev = _ctx_device(shard_ctx, device)
+    return torch.cat([t.to(dev) for t in shards], dim=-1), aux
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +588,10 @@ def _decode_recurrent(cfg, kind, p, x, cache):
 def forward_decode(cfg: ArchConfig, params, token, caches, pos, *,
                    shard_ctx=None, device=None):
     """token (B, 1) integer; ``pos`` an int (or 0-d tensor); caches from
-    ``init_decode_cache``/``prefill``, updated in place and returned."""
+    ``init_decode_cache``/``prefill``, updated in place and returned.
+    Under ``shard_ctx`` each period's weights are gathered whole onto
+    the compute device, which computes every head: decode does not
+    split over ``model``, and the caches keep their placement."""
     device = _ctx_device(shard_ctx, device)
     pos = int(pos)
     top = _top(params, shard_ctx, device)
@@ -557,7 +643,10 @@ def prefill(cfg: ArchConfig, params, tokens, cache_len: int, *,
     """tokens (B, S) -> (logits (B, S, V) float32, caches stacked over
     periods).  ``sattn`` slots take the dense masked fallback, as in the
     reference, with a full-length cache (global tokens must survive);
-    the recurrent slots' caches are their states after the prompt."""
+    the recurrent slots' caches are their states after the prompt.
+    Under ``shard_ctx`` each period's weights are gathered whole onto
+    the compute device, which computes every head: prefill does not
+    split over ``model``."""
     device = _ctx_device(shard_ctx, device)
     tokens = tokens.to(device)
     B, S = tokens.shape

@@ -11,17 +11,23 @@ optimizer-state trees, as the reference's functional step does.
 On a mesh (``shard_ctx``) the parameters and optimizer state are trees
 of ``ShardedTensor`` s and each microbatch splits further into its data
 groups (``data_groups``, the reference's ``_constrain`` of the batch),
-run in turn on one controller, each on its own device with the weights
-gathered per period.  The groups' gradients are born on the parameters'
-blocks, which is where the reference's reduce-scatter puts them
-(its ``grad_shardings``): the step sums them in float32 over every
+run in turn on one controller.  Each group runs its model chips in turn
+(``models/transformer.py``, the Megatron split of
+``distributed/model_split.py``): every chip gathers over the data axis
+only its own part of each period's weights and computes its heads,
+``d_ff`` columns, experts or channels, and the chips' partial sums add
+on the group's device.  The groups' gradients are born on the
+parameters' blocks, which is where the reference's reduce-scatter puts
+them (its ``grad_shardings``): the step sums them in float32 over every
 (microbatch, group) piece in order and divides by their count, the
-arithmetic of ``microbatches * groups`` microbatches, so a (2, 2)
-mesh's step is the unsharded ``microbatches=2`` step's.  One piece
-takes its gradients as they come, with no float32 copy.
-``AdamW.update`` then runs on the blocks; its global grad norm sums the
-blocks' squares, whose order differs from the whole leaves' in the last
-bits.
+arithmetic of ``microbatches * groups`` microbatches.  With one model
+chip a group computes as the unsharded step does, so a (2, 1) mesh's
+step is the unsharded ``microbatches=2`` step's loss bit for bit; with
+more, the partial sums' order differs from the whole products' in the
+last bits.  One piece takes its gradients as they come, with no float32
+copy.  ``AdamW.update`` then runs on the blocks; its global grad norm
+sums the blocks' squares, whose order differs from the whole leaves' in
+the last bits.
 """
 from __future__ import annotations
 
@@ -51,25 +57,25 @@ def _on(device, batch):
     return {name: move(x) for name, x in batch.items()}
 
 
-def data_groups(shard_ctx, batch: int, device) -> List[Tuple[Any, slice]]:
-    """(device, rows) of each data group of a ``batch``-row batch: the
-    counterpart of the reference's ``_constrain(x, shard_ctx, ("DP",
-    ...))``, whose only split with a single-controller counterpart is the
-    batch's (the ``"model"`` entries split compute under GSPMD).  With
-    ``n`` = the product of the ``dp`` axes dividing ``batch``, group
-    ``g`` takes rows ``g*B/n .. (g+1)*B/n`` on the device of its first
-    chip (the lowest chip whose ``dp`` coordinates, row-major, are
-    ``g``); otherwise (and with no ``shard_ctx``) one group, all rows,
-    on ``device``: the reference leaves a dim that does not divide
-    unconstrained, so every data chip computes the whole batch, which
-    the port computes once."""
+def data_groups(shard_ctx, batch: int,
+                device) -> List[Tuple[int, Any, slice]]:
+    """(group, device, rows) of each data group of a ``batch``-row
+    batch: the counterpart of the reference's ``_constrain(x, shard_ctx,
+    ("DP", ...))`` of the batch.  With ``n`` = the product of the ``dp``
+    axes dividing ``batch``, group ``g`` takes rows ``g*B/n ..
+    (g+1)*B/n`` on the device of its first chip (the lowest chip whose
+    ``dp`` coordinates, row-major, are ``g``); otherwise (and with no
+    ``shard_ctx``) one group, 0, all rows, on ``device``: the reference
+    leaves a dim that does not divide unconstrained, so every data chip
+    computes the whole batch, which the port computes once.  Each group
+    computes on its own model chips (``shard_ctx["group"]``)."""
     if shard_ctx is None:
-        return [(device, slice(0, batch))]
+        return [(0, device, slice(0, batch))]
     mesh, dp = shard_ctx["mesh"], tuple(shard_ctx["dp"])
     sizes = mesh.sizes
     n = math.prod(sizes[a] for a in dp)
     if n == 1 or batch % n or batch == 0:
-        return [(device, slice(0, batch))]
+        return [(0, device, slice(0, batch))]
     owner: Dict[int, Any] = {}
     for chip in range(mesh.size):
         at = mesh.coords(chip)
@@ -78,13 +84,13 @@ def data_groups(shard_ctx, batch: int, device) -> List[Tuple[Any, slice]]:
             g = g * sizes[a] + at[a]
         owner.setdefault(g, mesh.devices[chip])
     size = batch // n
-    return [(str(owner[g]), slice(g * size, (g + 1) * size))
+    return [(g, str(owner[g]), slice(g * size, (g + 1) * size))
             for g in range(n)]
 
 
 def _pieces(batch, microbatches: int, shard_ctx, device):
-    """(device, rows) of every (microbatch, data group) piece of the
-    batch, microbatch-major."""
+    """(group, device, rows) of every (microbatch, data group) piece of
+    the batch, microbatch-major."""
     B = next(iter(batch.values())).shape[0]
     if B % microbatches:
         raise ValueError(f"batch {B} does not split into "
@@ -93,10 +99,8 @@ def _pieces(batch, microbatches: int, shard_ctx, device):
     out = []
     for i in range(microbatches):
         base = i * size
-        groups = ([(device, slice(0, size))] if shard_ctx is None
-                  else data_groups(shard_ctx, size, device))
-        out += [(dev, slice(base + rows.start, base + rows.stop))
-                for dev, rows in groups]
+        out += [(g, dev, slice(base + rows.start, base + rows.stop))
+                for g, dev, rows in data_groups(shard_ctx, size, device)]
     return out
 
 
@@ -120,8 +124,9 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) on ``device`` (the card unless ``"cpu"``; on a mesh, the
     data groups' devices), metrics ``loss``, ``grad_norm`` and ``nll``
-    as float32 tensors.  ``shard_ctx = {"mesh", "dp"}`` takes sharded
-    parameter and optimizer-state trees; ``grad_shardings`` (a tree of
+    as float32 tensors.  ``shard_ctx = {"mesh", "dp"}`` (and optionally
+    a ``"tally"``, ``model_split.SplitTally``) takes sharded parameter
+    and optimizer-state trees; ``grad_shardings`` (a tree of
     placements, on a mesh only), the reference's reduce-scatter target,
     is checked to be the parameters' placements, where the gradients
     already are.  ``grad_transform`` (optional) maps the gradient tree
@@ -144,13 +149,14 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
                          "needs shard_ctx")
     else:
         device = resolve_device(device)
-    def value_and_grad(params, batch, dev):
+    def value_and_grad(params, batch, group, dev):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
+        ctx = None if shard_ctx is None else {**shard_ctx, "group": group}
         with torch.enable_grad():
             loss, aux = model.loss_fn(
                 tree_unflatten(params, leaves), batch, remat=remat,
-                chunk_q=chunk_q, shard_ctx=shard_ctx,
+                chunk_q=chunk_q, shard_ctx=ctx,
                 causal_skip=causal_skip, device=dev)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -161,13 +167,13 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
     def compute_grads(params, batch):
         pieces = _pieces(batch, microbatches, shard_ctx, device)
         if len(pieces) == 1:
-            return value_and_grad(params, batch, pieces[0][0])
+            return value_and_grad(params, batch, *pieces[0][:2])
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         loss_sum, nlls = 0.0, []
-        for dev, rows in pieces:
+        for group, dev, rows in pieces:
             piece = {k: v[rows].to(dev) for k, v in batch.items()}
-            loss, aux, grads = value_and_grad(params, piece, dev)
+            loss, aux, grads = value_and_grad(params, piece, group, dev)
             acc = tree_map(lambda a, g: a + g.float(), acc, grads)
             loss_sum = loss_sum + loss.to(device)
             nlls.append(aux["nll"].to(device))

@@ -9,11 +9,15 @@ driver and the int8 wire all-reduce (``repro_torch.ft.elastic``,
 - ``remesh_state`` round trips bit for bit between meshes.
 - A checkpoint saved sharded is the whole tree on disk: it restores on
   a (1, 1) mesh and unsharded exactly, and the reference restores it.
-- ``run_training`` on a (2, 2) mesh, stopped at step 2 and resumed on a
-  (2, 1) mesh: the data grouping is unchanged, so the losses are the
-  uninterrupted (2, 2) run's bit for bit; the final params differ at
-  most by the grad norm's last-bit block-order differences (1e-6 of each
-  leaf's magnitude).
+- ``run_training`` on a (2, 2) mesh, stopped at step 2 and resumed on
+  (2, 2): the losses and final params are the uninterrupted run's bit
+  for bit.  Resumed on a (2, 1) mesh: the data grouping is unchanged,
+  but the model axis no longer splits heads, ``d_ff`` and vocabulary,
+  so the partial sums' order changes: the losses within rtol = atol =
+  1e-5 of the uninterrupted run's, and the final params by
+  ``test_torch_mesh_step_ref.py``'s rule over the two steps run apart
+  (within 1e-5 where the clipped gradient of the uninterrupted run's
+  last step |g'| >= 10 eps, within 2 lr a step elsewhere).
 - ``compressed_psum`` over four CPU chips: each participant's int8
   payload and float32 scale are the reference's ``_quantize``'s exactly,
   and the sum is within the reference test's bound, C · scale · 0.51.
@@ -157,21 +161,63 @@ def _run(**kw):
     return train.run_training(cfg, **kw)
 
 
-def test_run_training_stops_on_2x2_and_resumes_on_2x1(tmp_path):
+class _LastStep:
+    """Keeps the gradients and grad norm of the last step that
+    ``run_training`` takes while it is active."""
+
+    def __init__(self, monkeypatch):
+        make = train.make_train_step
+
+        def kept(*args, **kw):
+            step = make(*args, grad_transform=self.keep, **kw)
+
+            def run(params, state, batch):
+                params, state, metrics = step(params, state, batch)
+                self.grad_norm = float(metrics["grad_norm"])
+                return params, state, metrics
+            return run
+        monkeypatch.setattr(train, "make_train_step", kept)
+
+    def keep(self, grads):
+        self.grads = grads
+        return grads
+
+
+def test_run_training_stops_on_2x2_and_resumes_on_2x1(tmp_path,
+                                                        monkeypatch):
+    last = _LastStep(monkeypatch)
     full_p, full = _run(data_parallel=2, model_parallel=2)
+    grads = tree_leaves(sharding.gather_tree(last.grads, "cpu"))
+    scale = min(1.0, 1.0 / (last.grad_norm + 1e-9))
     _, first = _run(data_parallel=2, model_parallel=2, stop_at=2,
                     ckpt_dir=tmp_path, ckpt_every=100)
     assert ckpt.latest_step(tmp_path) == 2
     res_p, rest = _run(data_parallel=2, model_parallel=1, ckpt_dir=tmp_path,
                        ckpt_every=100)
-    assert first + rest == full
+    assert first == full[:2]
+    np.testing.assert_allclose(first + rest, full, rtol=1e-5, atol=1e-5)
     assert full[-1] < full[0]
-    for a, b in zip(tree_leaves(res_p), tree_leaves(full_p)):
-        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    lr = 3e-4                        # run_training's peak learning rate
+    for a, b, g in zip(tree_leaves(res_p), tree_leaves(full_p), grads):
+        firm = g.abs() * scale >= 10 * 1e-8
+        diff = (a - b).abs()
+        assert bool((diff[firm] <= 1e-5 + 1e-5 * b.abs()[firm]).all())
+        assert bool((diff[~firm] <= 2 * 2 * lr + 1e-5).all())
     # the CLI takes the mesh
     assert train.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
                        "--steps", "2", "--batch", "4", "--seq", "16",
                        "--dp", "2", "--tp", "2"]) == 0
+
+
+def test_run_training_stops_on_2x2_and_resumes_on_2x2(tmp_path):
+    full_p, full = _run(data_parallel=2, model_parallel=2)
+    _, first = _run(data_parallel=2, model_parallel=2, stop_at=2,
+                    ckpt_dir=tmp_path, ckpt_every=100)
+    res_p, rest = _run(data_parallel=2, model_parallel=2, ckpt_dir=tmp_path,
+                       ckpt_every=100)
+    assert first + rest == full
+    for a, b in zip(tree_leaves(res_p), tree_leaves(full_p)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", ((16, 32), (7,), (3, 4, 5)))

@@ -82,7 +82,8 @@ def test_every_slice_module_is_covered():
                  "repro_torch.ft", "repro_torch.ft.checkpoint",
                  "repro_torch.ft.watchdog", "repro_torch.launch.mesh",
                  "repro_torch.launch.train", "repro_torch.ft.elastic",
-                 "repro_torch.launch.dryrun", "repro_torch.analysis"):
+                 "repro_torch.launch.dryrun", "repro_torch.analysis",
+                 "repro_torch.distributed.model_split"):
         assert name in modules, name
     for src in ("attn_trips.cuh", "attn_fused.cu", "attn_fused_staged.cu",
                 "sddmm.cu", "spmm_ell_segment.cu", "spmm_bcsr.cu",
@@ -99,6 +100,15 @@ def test_mesh_slice_names_are_ported():
               "param_shardings", "batch_shardings", "decode_shardings",
               "logits_sharding", "replicated", "chip_row_sharding")),
             ("repro_torch.distributed.collectives", ("compressed_psum",)),
+            # the model axis's compute split
+            ("repro_torch.distributed.sharding",
+             ("model_dim", "owned_range", "gather_slice")),
+            ("repro_torch.distributed.collectives",
+             ("model_sum", "vocab_max", "vocab_sumexp", "vocab_target")),
+            ("repro_torch.distributed.model_split",
+             ("ModelSplit", "SplitTally", "kv_heads")),
+            ("repro_torch.models.transformer", ("forward_train_parts",)),
+            ("repro_torch.models.model", ("vocab_parallel_cross_entropy",)),
             ("repro_torch.ft.elastic", ("ElasticPlan", "plan_remesh",
                                         "build_mesh", "remesh_state")),
             ("repro_torch.analysis.memmodel", ("hbm_traffic",

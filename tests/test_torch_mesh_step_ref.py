@@ -17,12 +17,12 @@ near 0 can flip).
 
 The same (2, 2) step against the port's unsharded ``microbatches=2``
 step from the same weights, state and batch: the data groups'
-arithmetic is the microbatches', so the loss is bit for bit.  The grad
-norm sums the blocks' squares, in another order than the whole leaves',
-and may differ in the last bits (rtol 1e-6); through the clip scale that
-reaches the updated parameters and moments, held at 1e-6 of each leaf's
-largest magnitude (AdamW's first step is nearly invariant to the
-scale).
+arithmetic is the microbatches', but each group splits its heads,
+``d_ff``, experts and vocabulary over its two model chips, whose partial
+sums add in another order than the whole products (and the loss's
+cross-entropy reduces over vocabulary shards), so loss and grad norm
+are held at rtol = atol = 1e-5, the gradients and moments at 1e-5, and
+the updated parameters by the rule above.
 
 The reference's jamba step compiles for most of a minute on the CPU, so
 the architectures are split over three files
@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.models import Model as RefModel
 from repro.optim import adamw as ref_adamw
@@ -48,20 +49,18 @@ from torch_model_fixtures import tokens, weights
 from torch_mesh_fixtures import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-REL = 1e-6
 
 
-def _leaves_close(got, want):
-    """Every leaf of ``got`` (gathered) within REL of ``want``'s largest
-    magnitude."""
-    got = tree_leaves(sharding.gather_tree(got, "cpu"))
-    want = tree_leaves(want)
-    assert len(got) == len(want)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape and a.dtype == b.dtype
-        d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.
-        top = float(b.float().abs().max()) if b.numel() else 0.
-        assert d <= REL * top, (d, top)
+def params_close(got, want, grads, grad_norm, lr, eps):
+    """The parameter rule: each updated element within 1e-5 where the
+    clipped gradient |g'| >= 10 eps, within 2 lr elsewhere."""
+    scale = min(1.0, 1.0 / (grad_norm + 1e-9))
+    for a, b, g in zip(got, want, grads):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        firm = np.abs(np.asarray(g)) * scale >= 10 * eps
+        diff = np.abs(a - b)
+        assert np.all(diff[firm] <= 1e-5 + 1e-5 * np.abs(b[firm]))
+        assert np.all(diff[~firm] <= 2 * lr + 1e-5)
 
 
 def _capture(into):
@@ -102,15 +101,22 @@ def check_against_reference(arch):
     params, state, metrics = step(sp, opt.init(sp), batch)
 
     # the port's unsharded microbatches=2 step
+    u_grads = []
     unsharded = make_train_step(model, opt, chunk_q=8, microbatches=2,
+                                grad_transform=_capture(u_grads),
                                 device="cpu")
     p_u, state_u, m_u = unsharded(tp, opt.init(tp), batch)
-    assert float(metrics["loss"]) == float(m_u["loss"])
-    np.testing.assert_allclose(float(metrics["grad_norm"]),
-                               float(m_u["grad_norm"]), rtol=REL, atol=0)
-    for got, want in ((params, p_u), (state.mu, state_u.mu),
+    for name in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[name]), float(m_u[name]),
+                                   **TOL)
+    for got, want in ((t_grads[0], u_grads[0]), (state.mu, state_u.mu),
                       (state.nu, state_u.nu)):
-        _leaves_close(got, want)
+        for a, b in zip(tree_leaves(sharding.gather_tree(got, "cpu")),
+                        tree_leaves(want)):
+            torch.testing.assert_close(a, b, **TOL)
+    params_close(tree_leaves(sharding.gather_tree(params, "cpu")),
+                 tree_leaves(p_u), tree_leaves(u_grads[0]),
+                 float(m_u["grad_norm"]), lr, eps)
     for a, b in zip(tree_leaves(params, sharding.is_sharded),
                     tree_leaves(sp, sharding.is_sharded)):
         assert a.placement == b.placement
@@ -123,14 +129,10 @@ def check_against_reference(arch):
     assert len(got_g) == len(want_g)
     for a, b in zip(got_g, want_g):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
-    scale = min(1.0, 1.0 / (float(r_metrics["grad_norm"]) + 1e-9))
-    for got, want, g in zip(tree_leaves(sharding.gather_tree(params, "cpu")),
-                            jax.tree.leaves(r_params), want_g):
-        got, want = got.float().numpy(), np.asarray(want, np.float32)
-        firm = np.abs(np.asarray(g)) * scale >= 10 * eps
-        diff = np.abs(got - want)
-        assert np.all(diff[firm] <= 1e-5 + 1e-5 * np.abs(want[firm]))
-        assert np.all(diff[~firm] <= 2 * lr + 1e-5)
+    params_close([t.float().numpy() for t in
+                  tree_leaves(sharding.gather_tree(params, "cpu"))],
+                 jax.tree.leaves(r_params), want_g,
+                 float(r_metrics["grad_norm"]), lr, eps)
 
 
 @pytest.mark.parametrize("arch", ARCH_FILES[0])
