@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
     python3 chip_smoke.py --ab-parent DIR [--ab-ptxas]
+    python3 chip_smoke.py --cards 4    # four CUDA cards
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -264,11 +265,47 @@ well it only prints K1-K7's, K9's and K10's ptxas registers and spills
 beside the parent's and fails unless all but K1's and K10's
 (redesigned) are the parent's.
 
+With ``--cards 4`` (it exits non-zero, saying so on stderr, unless
+four cards are visible) it runs none of the phases above either.  It prints every card's ``nvidia-smi`` name and power limit and
+whether each card can reach each other's memory, builds the kernels and
+runs, with every chip on a card of its own:
+(o1) K8 over ``chip_mesh(4)``: the sharded fixtures (C = 1..4 x X
+     replicated/rows x resident/staged), then ``compile_spmm(a, 128,
+     mesh=)`` on both 2^20-row instances with the default ``x_sharding``
+     (``"rows"``: the exact-panel exchange crosses cards), with
+     ``"replicated"`` and on ``pallas_ell``, and
+     ``compile_sparse_attention`` on the longformer mask (S = 32768, one
+     head): one launch a card a forward (counted by card), each output
+     and the default's dvals and dX bit for bit the unsharded forward's,
+     the per-chip tables on their cards from compile time on; each
+     wrapper, its exchange and the forwards by the host clock with every
+     card synchronised, each card's kernel by CUDA events there, the
+     bytes ``Tensor.to`` moves between cards, each card's peak, beside
+     the same artifact over 4 chips of one card and the unsharded one.
+(o2) (l1)'s longformer-1.4b step on ``make_host_mesh(2, 2, cards=4)``
+     and on the one-card (2, 2) mesh from the same weights: loss, grad
+     norm, parameters and both moments bit for bit; K6 launches by card
+     and by chip, bytes gathered a chip a period and moved between cards,
+     the model-axis sums, each chip's forward and backward and each
+     card's spans (``SplitTally``), each card's peak, the wall time.
+(o3) ``run_training`` on reduced longformer at --dp 2 --tp 2 --cards 4,
+     uninterrupted and stopped at RUN_STOP, then resumed on
+     ``plan_remesh(2, model_parallel=1)`` over ``cuda:0..1``: losses and
+     parameters bit for bit the same runs on one card's meshes.
+(o4) ``compressed_psum`` over 4 cards, bit for bit over 4 chips of one
+     card.
+(o5) matmuls on ``cuda:0`` then ``cuda:1``, with and without a 4-byte
+     copy between them: whether a copy between cards orders their work.
+A part that fails is printed and the next part runs; the run then exits
+non-zero with no result line.  It ends with K8's JSON line (its three
+wrappers' launches over the cards) and the default run's last line.
+
 It writes nothing into the repo but the kernel builds under ``build/``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import itertools
 import json
@@ -380,10 +417,11 @@ def mixed_dense(seed: int, m: int = 48, n: int = 64) -> np.ndarray:
     return dense
 
 
-def card_line() -> str:
-    """nvidia-smi's own line for the card: its name and power limit."""
+def card_line(index: int = 0) -> str:
+    """nvidia-smi's own line for card ``index``: its name and power
+    limit."""
     return subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
 
@@ -1596,12 +1634,14 @@ def sharded_knobs(c, staging: str, cap=None) -> dict:
     return kw
 
 
-def phase_sharded_fixtures() -> None:
+def phase_sharded_fixtures(mesh_of=shard_mesh,
+                           chip_counts=(1, 2, 3, 4)) -> None:
     """The three sharded wrappers against their plain versions on small
     fixtures (rtol = atol = 1e-5), and each one's workspaces, gathered
     through the GLOBAL ``inv_perm``, against the unsharded kernel's
-    forward bit for bit: C in {1, 2, 3, 4}, both placements of X (SpMM),
-    both stagings, the default slot and a 64-entry one."""
+    forward bit for bit: C in ``chip_counts`` on ``mesh_of(C)`` (C chips
+    of the card, or one card a chip), both placements of X (SpMM), both
+    stagings, the default slot and a 64-entry one."""
     from repro_torch import kernels
     from repro_torch.core import (CSRMatrix, JitCache,
                                   compile_sparse_attention, compile_spmm,
@@ -1638,9 +1678,9 @@ def phase_sharded_fixtures() -> None:
         y0 = compile_spmm(a, D_MAIN, backend=backend, staging="resident",
                           cache=JitCache())(a.vals, x)
         for chips, staging, x_sharding in itertools.product(
-                (1, 2, 3, 4), ("resident", "dma"), ("replicated", "rows")):
+                chip_counts, ("resident", "dma"), ("replicated", "rows")):
             c = compile_spmm(a, D_MAIN, backend=backend, staging=staging,
-                             mesh=shard_mesh(chips), x_sharding=x_sharding,
+                             mesh=mesh_of(chips), x_sharding=x_sharding,
                              validate="full", cache=JitCache())
             sw = c.sharded_workspace
             seen["empty_chip"] |= bool(np.any(np.diff(sw.bounds) == 0))
@@ -1681,11 +1721,11 @@ def phase_sharded_fixtures() -> None:
         y0 = compile_sparse_attention(a, dh, dv, backend=backend,
                                       staging="resident",
                                       cache=JitCache())(a.vals, q, k, v)
-        for chips, staging in itertools.product((1, 2, 3, 4),
+        for chips, staging in itertools.product(chip_counts,
                                                 ("resident", "dma")):
             c = compile_sparse_attention(a, dh, dv, backend=backend,
                                          staging=staging,
-                                         mesh=shard_mesh(chips),
+                                         mesh=mesh_of(chips),
                                          validate="full", cache=JitCache())
             operands, knobs = c.sharded_operands(a.vals, q, k, v)
             outs = []
@@ -1708,6 +1748,37 @@ def phase_sharded_fixtures() -> None:
     if missing:
         raise SystemExit(f"chip_smoke: sharded fixtures never reached "
                          f"{missing}")
+
+
+def sharded_dispatches(c) -> dict:
+    """The dispatch counts of one forward of sharded SpMM artifact
+    ``c``: a launch a chip under each key that applies."""
+    key = "bcsr_fused" if c.backend == "pallas_bcsr" else "ell_fused"
+    chips = c.n_chips
+    want = {key: chips, key + "_sharded": 1}
+    if c.staging == "dma":
+        want[key + "_dma"] = chips
+    if c.x_sharding == "rows":
+        want[key + "_xshard"] = chips
+    if c.sharded_workspace.merge_width > 1:
+        want[key + "_merged"] = chips
+    return want
+
+
+def attn_chip_bounds(a, sw, dh: int, dv: int) -> list:
+    """Each chip's bound for its rows of sharded attention: (ms, "bytes"
+    or "operations"), its Q, K, V, output and nonzeros once over the HBM
+    rate or its operations over the fp32 rate, the larger."""
+    out = []
+    for chip in range(sw.n_chips):
+        rows_c = int(sw.bounds[chip + 1] - sw.bounds[chip])
+        nnz_c = int(sw.shard_plans[chip].nnz)
+        t_bytes = (4 * (rows_c * dh + a.n * dh + a.n * dv + rows_c * dv)
+                   + 8 * nnz_c) / HBM_BYTES_PER_S * 1e3
+        t_ops = nnz_c * (2 * dh + 2 * dv) / FP32_FLOPS_PER_S * 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
 
 
 def sharded_bound(c, operands, chip_x) -> tuple:
@@ -1734,7 +1805,7 @@ def sharded_bound(c, operands, chip_x) -> tuple:
     total = sum(t for t, _ in per_chip) + 2 * xbytes / HBM_BYTES_PER_S * 1e3
     kind = ("bytes" if all(k == "bytes" for _, k in per_chip)
             else "operations")
-    return total, kind, [t for t, _ in per_chip], xbytes
+    return total, kind, per_chip, xbytes
 
 
 def measure_sharded(c, c0, a, x, label: str) -> dict:
@@ -1801,7 +1872,7 @@ def measure_sharded(c, c0, a, x, label: str) -> dict:
         f"{fwd_ms:.4f} ms against the unsharded forward {fwd0_ms:.4f} ms; "
         f"plain {plain_ms:.4f} ms; torch.sparse.mm {library_ms:.4f} ms; "
         f"K8 bound {bound_ms:.4f} ms ({bound_by}; chips "
-        f"{', '.join(f'{t:.4f}' for t in chip_bounds)} + exchange); peak "
+        f"{', '.join(f'{t:.4f}' for t, _ in chip_bounds)} + exchange); peak "
         f"memory over the resident inputs: sharded {peaks[0]:.3f} GiB, "
         f"unsharded {peaks[1]:.3f} GiB; max |kernel - plain| {err:.3g}; "
         f"B={sw.num_blocks} per chip, windows {list(sw.chip_span)}")
@@ -1858,15 +1929,8 @@ def phase_sharded(instances: dict, compiled: dict, grad: tuple,
         before = (kernel.launches, wrapper.launches)
         ops.reset_dispatch_counts()
         outputs[label] = c(a.vals, x)
-        want = {key: SHARD_CHIPS, key + "_sharded": 1}
-        if c.staging == "dma":
-            want[key + "_dma"] = SHARD_CHIPS
-        if c.x_sharding == "rows":
-            want[key + "_xshard"] = SHARD_CHIPS
-        if c.sharded_workspace.merge_width > 1:
-            want[key + "_merged"] = SHARD_CHIPS
-        assert dict(ops.DISPATCH_COUNTS) == want, (label,
-                                                   dict(ops.DISPATCH_COUNTS))
+        assert dict(ops.DISPATCH_COUNTS) == sharded_dispatches(c), \
+            (label, dict(ops.DISPATCH_COUNTS))
         assert (kernel.launches - before[0], wrapper.launches - before[1]) \
             == (SHARD_CHIPS, SHARD_CHIPS), (label, name)
     torch.cuda.synchronize()
@@ -1955,21 +2019,14 @@ def phase_sharded_attention(a, q, k, v, y0, c0, library_ms: float) -> dict:
     torch.testing.assert_close(got, want_y, rtol=1e-5, atol=1e-5)
     err = (got - want_y).abs().max().item()
     del got, want_y
-    chip_ms, chip_bounds = [], []
-    dh, dv = q.shape[1], v.shape[1]
+    chip_ms = []
     for chip in range(mesh.size):
         args = [t[chip] for t in operands[:6]] + [operands[6][chip],
                                                   operands[7], operands[8]]
         chip_ms.append(time_ms(lambda: k6(
             *args, bm=c.bm, bk=c.bk, mw=sw.merge_width,
             span=sw.chip_span[chip], cspan=sw.chip_cspan[chip])))
-        rows_c = int(sw.bounds[chip + 1] - sw.bounds[chip])
-        nnz_c = int(sw.shard_plans[chip].nnz)
-        t_bytes = (4 * (rows_c * dh + a.n * dh + a.n * dv + rows_c * dv)
-                   + 8 * nnz_c) / HBM_BYTES_PER_S * 1e3
-        t_ops = nnz_c * (2 * dh + 2 * dv) / FP32_FLOPS_PER_S * 1e3
-        chip_bounds.append((max(t_bytes, t_ops),
-                            "bytes" if t_bytes >= t_ops else "operations"))
+    chip_bounds = attn_chip_bounds(a, sw, q.shape[1], v.shape[1])
     bound_ms = sum(t for t, _ in chip_bounds)
     bound_by = ("operations" if all(k == "operations" for _, k in chip_bounds)
                 else "bytes")
@@ -2697,6 +2754,15 @@ def attn_bound(a, dh: int, dv: int):
     return max(t_bytes, t_ops), kind, t_bytes, t_ops
 
 
+def bool_mask(a) -> torch.Tensor:
+    """The mask ``a`` as a dense boolean matrix on the card (SDPA's)."""
+    rows = torch.from_numpy(np.repeat(np.arange(a.m), a.row_lengths)).cuda()
+    cols = torch.from_numpy(a.col_indices.astype(np.int64)).cuda()
+    dense = torch.zeros((a.m, a.n), dtype=torch.bool, device="cuda")
+    dense[rows, cols] = True
+    return dense
+
+
 def phase_attention() -> tuple:
     """compile_sparse_attention on the longformer-1.4b mask, one head;
     returns the kernels' report rows and, for the sharded attention
@@ -2768,11 +2834,7 @@ def phase_attention() -> tuple:
     del ref
 
     # the library yardstick: dense SDPA with the mask as a boolean matrix
-    rows = torch.from_numpy(np.repeat(np.arange(a.m), a.row_lengths)).cuda()
-    cols = torch.from_numpy(a.col_indices.astype(np.int64)).cuda()
-    dense_mask = torch.zeros((a.m, a.n), dtype=torch.bool, device="cuda")
-    dense_mask[rows, cols] = True
-    del rows, cols
+    dense_mask = bool_mask(a)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -4278,6 +4340,19 @@ class _MeshSpans(_Spans):
         return parts
 
 
+def l1_inputs() -> tuple:
+    """(l1)'s configuration, model, seeded weights on the card and
+    batch: longformer-1.4b at full width, fp32, MESH_BATCH x MESH_SEQ."""
+    from repro_torch.models import Model
+    cfg = model_config("longformer-1.4b", dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    params = model.init(gen)
+    tok = torch.randint(2, cfg.vocab_size, (MESH_BATCH, MESH_SEQ + 1),
+                        device="cuda", generator=gen)
+    return cfg, model, params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
 def mesh_step_at_size() -> dict:
     """(l1) one sharded AdamW step of longformer-1.4b at full width on a
     (2, 2) mesh of the card's chips, each data group split over its two
@@ -4293,17 +4368,10 @@ def mesh_step_at_size() -> dict:
     from repro_torch.distributed import sharding
     from repro_torch.distributed.model_split import SplitTally
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import Model
     from repro_torch.optim import AdamW
     from repro_torch.train import make_train_step
 
-    cfg = model_config("longformer-1.4b", dtype="float32")
-    model = Model(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(41)
-    params = model.init(gen)
-    tok = torch.randint(2, cfg.vocab_size, (MESH_BATCH, MESH_SEQ + 1),
-                        device="cuda", generator=gen)
-    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    cfg, model, params, batch = l1_inputs()
     initial = _host(params)                 # the unsharded step's start
     mesh = make_host_mesh(data=MESH_SHAPE[0], model=MESH_SHAPE[1])
     p_shard = sharding.param_shardings(model.param_shapes(), mesh)
@@ -5208,6 +5276,712 @@ def ab_segment(parent, a, x) -> None:
         raise SystemExit("chip_smoke: K9 differs from the parent's or K1")
 
 
+# -- --cards 4: the mesh over cards ----------------------------------------
+#
+# (o1) K8 over chip_mesh(4), one card a chip: the small fixtures, then
+# compile_spmm(a, 128, mesh=) on both 2^20-row instances with the default
+# x_sharding ("rows" on a mesh over cards: the exact-panel exchange
+# crosses NVLink) and "replicated", and compile_sparse_attention on the
+# longformer mask; (o2) the (l1) step on make_host_mesh(2, 2, cards=4)
+# and on the one-card (2, 2) mesh in the same call; (o3) run_training at
+# --dp 2 --tp 2 --cards 4 stopped and resumed on plan_remesh(2,
+# model_parallel=1) over cuda:0..1, against the same runs on one card;
+# (o4) compressed_psum over 4 cards against one card's chips
+
+NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, each way (a card's links)
+
+
+class _Wire:
+    """While active, adds up the bytes every ``Tensor.to`` copies from
+    one CUDA card to another: ``moved[(src, dst)]``, and ``graded``, the
+    copies whose source carries a gradient (autograd sends each such
+    gradient back over the same wire; those copies are not counted)."""
+
+    def __enter__(self):
+        self.moved = collections.Counter()
+        self.graded = 0
+        self.orig = orig = torch.Tensor.to
+
+        def to(t, *args, **kw):
+            out = orig(t, *args, **kw)
+            if out.device != t.device and t.is_cuda and out.is_cuda:
+                n = out.numel() * out.element_size()
+                self.moved[(t.device.index, out.device.index)] += n
+                if t.requires_grad and torch.is_grad_enabled():
+                    self.graded += n
+            return out
+        torch.Tensor.to = to
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.to = self.orig
+        return False
+
+    def total(self) -> int:
+        return sum(self.moved.values())
+
+    def link(self, card: int) -> int:
+        """The larger of the bytes ``card`` sent and received."""
+        out = sum(n for (s_, _), n in self.moved.items() if s_ == card)
+        into = sum(n for (_, d), n in self.moved.items() if d == card)
+        return max(out, into)
+
+
+class _CardLaunches(_Patched):
+    """Counts, by card, the launches of the named kernel functions while
+    active (the card of the last tensor argument, where a wrapper
+    launches); each function's own ``launches`` counter passes through."""
+
+    def __enter__(self):
+        self.by_card = collections.Counter()
+        return super().__enter__()
+
+    def wrap(self, target, orig):
+        tally = self.by_card
+
+        class Counted:
+            def __call__(self, *args, **kw):
+                card = next(t.device.index for t in reversed(args)
+                            if isinstance(t, torch.Tensor))
+                tally[card] += 1
+                return orig(*args, **kw)
+
+            @property
+            def launches(self):
+                return orig.launches
+
+            @launches.setter
+            def launches(self, n):
+                orig.launches = n
+        return Counted()
+
+    def cards(self, n: int) -> list:
+        return [self.by_card[i] for i in range(n)]
+
+
+def wall_ms(fn, devices, reps: int = 10) -> float:
+    """Median host milliseconds of ``fn()`` over ``reps`` runs, every
+    card of ``devices`` synchronised before and after each (after two
+    warm-up runs): a call whose work spans cards."""
+    from repro_torch.distributed.sharding import synchronize
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        synchronize(devices)
+        t0 = time.perf_counter()
+        fn()
+        synchronize(devices)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def card_peaks(fn, devices) -> list:
+    """Each card's peak GiB over what it held when ``fn()`` started."""
+    from repro_torch.distributed.sharding import synchronize
+    synchronize(devices)
+    base = []
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+        base.append(torch.cuda.memory_allocated(d))
+    fn()
+    synchronize(devices)
+    return [(torch.cuda.max_memory_allocated(d) - b) / 2 ** 30
+            for d, b in zip(devices, base)]
+
+
+def chip_kernel_ms(kernel, operands, mesh, knobs: list) -> list:
+    """Each chip's kernel alone, on its card, by CUDA events there."""
+    out = []
+    for chip, dev in enumerate(mesh.devices):
+        args = [t[chip] if isinstance(t, (tuple, list)) else t
+                for t in operands]
+        with torch.cuda.device(dev):
+            out.append(time_ms(lambda: kernel(*args, **knobs[chip])))
+    return out
+
+
+def cards_bound(chip_bounds: list, wire: "_Wire") -> tuple:
+    """The least time for work split over the cards: each card's bound
+    (its chip's bytes or operations, or the bytes its links carry over
+    NVLINK_BYTES_PER_S, the larger), the slowest card's."""
+    per = []
+    for card, (t, kind) in enumerate(chip_bounds):
+        t_link = wire.link(card) / NVLINK_BYTES_PER_S * 1e3
+        per.append((t, kind) if t >= t_link else (t_link, "bytes"))
+    return max(per)
+
+
+def cards_spmm(instances: dict, n: int) -> dict:
+    """(o1) compile_spmm over ``chip_mesh(n)`` at size: one launch a
+    card a forward, every output and the default's dvals and dX bit for
+    bit the unsharded forward's; times beside the one-card n-chip mesh's
+    and the JSON rows of K8's SpMM wrappers."""
+    from repro_torch import kernels
+    from repro_torch.core import JitCache, chip_mesh, compile_spmm
+    from repro_torch.distributed import sharded_x
+    from repro_torch.kernels import ops
+
+    mesh, one = chip_mesh(n), shard_mesh(n)
+    devices = list(mesh.devices)
+    cache = JitCache()
+    runs = {"a": ("uniform", "auto", None),
+            "a/replicated": ("uniform", "auto", "replicated"),
+            "a/pallas_ell": ("uniform", "pallas_ell", None),
+            "b": ("banded", "auto", None)}
+    arts, flat, local = {}, {}, {}
+    for label, (inst, backend, xs) in runs.items():
+        a, _ = instances[inst]
+        t0 = time.perf_counter()
+        c = compile_spmm(a, D_MAIN, backend=backend, x_sharding=xs,
+                         mesh=mesh, cache=cache)
+        assert c.staging == "dma" and c.x_sharding == (xs or "rows"), label
+        arts[label] = c
+        flat[label] = compile_spmm(a, D_MAIN, backend=backend, cache=cache)
+        local[label] = compile_spmm(a, D_MAIN, backend=backend,
+                                    x_sharding=c.x_sharding, mesh=one,
+                                    cache=cache)
+        log(f"cards/o1 {label}: compile_spmm over {n} cards "
+            f"{time.perf_counter() - t0:.2f} s (with its unsharded and "
+            f"one-card twins): {c.backend}/{c.staging}/{c.x_sharding}, "
+            f"rows per card "
+            f"{np.diff(c.sharded_workspace.bounds).tolist()}")
+        # the per-chip tables lie on their cards from compile time on
+        sw = c._sharded
+        for chip, dev in enumerate(mesh.devices):
+            assert all(t[chip].device == dev for t in (
+                sw.blk_tag, sw.blk_off, sw.blk_coff, sw.blk_L,
+                sw.cols_flat, sw.gather_flat)), label
+
+    # the path, counted: zeroed just before, read just after
+    for name in SPMM_KERNELS + SHARDED_KERNELS:
+        getattr(kernels, name).launches = 0
+    outputs = {}
+    targets = [(f"repro_torch.kernels.{m}", f) for m, f in (
+        ("spmm_ell_fused", "spmm_ell_fused_staged"),
+        ("spmm_bcsr_fused", "spmm_bcsr_fused_staged"))]
+    for label, c in arts.items():
+        a, x = instances[runs[label][0]]
+        ops.reset_dispatch_counts()
+        with _CardLaunches(*targets) as by_card:
+            outputs[label] = c(a.vals, x)
+        assert dict(ops.DISPATCH_COUNTS) == sharded_dispatches(c), \
+            (label, dict(ops.DISPATCH_COUNTS))
+        assert by_card.cards(n) == [1] * n, (label, by_card.by_card)
+    torch.cuda.synchronize()
+    launches = {name: getattr(kernels, name).launches
+                for name in SPMM_KERNELS + SHARDED_KERNELS}
+    log(f"cards/o1 path launches: {launches}; one a card a forward")
+    for label, y in outputs.items():
+        a, x = instances[runs[label][0]]
+        assert y.device == mesh.devices[0] and bool(torch.isfinite(y).all())
+        assert torch.equal(y, flat[label](a.vals, x)), label
+    log(f"cards/o1: every forward over {n} cards bit-identical to the "
+        f"unsharded forward ({', '.join(outputs)})")
+    del outputs
+
+    # dvals and dX through the default (rows) artifact on (a)
+    a, x = instances["uniform"]
+    g = torch.randn(a.m, D_MAIN, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    grads = []
+    for c in (arts["a"], flat["a"]):
+        vals = a.vals.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        (c(vals, xx) * g).sum().backward()
+        grads.append((vals.grad, xx.grad))
+        del vals, xx
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    t = arts["a"]._transpose
+    log(f"cards/o1 a: dvals and dX of (A·X * G).sum() over {n} cards "
+        f"bit-identical to the unsharded artifact's (transposed artifact "
+        f"{t.backend}/{t.staging}/{t.x_sharding} over {t.mesh.size} cards)")
+    del grads, g
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for label, c in arts.items():
+        a, x = instances[runs[label][0]]
+        name = ("spmm_ell_fused_sharded" if c.backend == "pallas_ell"
+                else "spmm_bcsr_fused_sharded")
+        wrapper = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        _, kernel, _ = kernel_pair(c.backend, c.staging)
+        operands, knobs = c.sharded_operands(a.vals, x)
+        kw = dict(knobs, **sharded_knobs(c, c.staging))
+        sw = c._sharded
+        got = wrapper(*operands, **kw)
+        want = plain(*operands, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = (got - want).abs().max().item()
+        del got, want
+
+        def exchange():
+            return sharded_x(operands[-1], mesh, sw.x_sharding, sw.x_send,
+                             sw.x_recv)
+        chip_x = exchange()
+        _, _, chip_bounds, xbytes = sharded_bound(c, operands, chip_x)
+        per = dict(bm=c.bm, mw=sw.merge_width)
+        if c.backend == "pallas_bcsr":
+            per["bk"] = c.bk
+        chip_ms = chip_kernel_ms(
+            kernel, list(operands[:-1]) + [chip_x], mesh,
+            [dict(per, span=sw.chip_span[i], cspan=sw.chip_cspan[i])
+             for i in range(n)])
+        with _Wire() as wire:
+            exchange()
+        x_wire = wire.total()
+        del chip_x
+        with _Wire() as wire:
+            wrapper(*operands, **kw)
+        with _Wire() as fwd_wire:
+            c(a.vals, x)
+        bound_ms, bound_by = cards_bound(chip_bounds, wire)
+        exchange_ms = wall_ms(exchange, devices) \
+            if sw.x_sharding == "rows" else 0.0
+        ms = wall_ms(lambda: wrapper(*operands, **kw), devices)
+        fwd_ms = wall_ms(lambda: c(a.vals, x), devices)
+        one_ms = wall_ms(lambda: local[label](a.vals, x), devices)
+        flat_ms = wall_ms(lambda: flat[label](a.vals, x), devices)
+        plain_ms = wall_ms(lambda: plain(*operands, **kw), devices, reps=3)
+        peaks = card_peaks(lambda: c(a.vals, x), devices)
+        one_peak = card_peaks(lambda: local[label](a.vals, x), devices)[0]
+        a_sparse = _sparse_csr(a)
+        library_ms = time_ms(lambda: torch.sparse.mm(a_sparse, x))
+        del a_sparse
+        log(f"cards/o1 {label} ({c.backend}/{c.staging}/{sw.x_sharding}): "
+            f"{name} {ms:.4f} ms over {n} cards (host clock, every card "
+            f"synchronised; the kernel on each card "
+            f"{', '.join(f'{t:.4f}' for t in chip_ms)} ms by its CUDA "
+            f"events); exchange {exchange_ms:.4f} ms moving "
+            f"{x_wire / 1e6:.1f} MB between cards ({xbytes / 2 ** 20:.1f} "
+            f"MiB of touched panels); the wrapper's copies between cards "
+            f"{wire.total() / 1e6:.1f} MB, the forward's "
+            f"{fwd_wire.total() / 1e6:.1f} MB "
+            f"({ {f'{s_}->{d}': round(v / 1e6, 1) for (s_, d), v in sorted(fwd_wire.moved.items())} }"
+            f" MB); forward over {n} cards {fwd_ms:.4f} ms against "
+            f"{n} chips of one card {one_ms:.4f} ms and the unsharded "
+            f"forward {flat_ms:.4f} ms (same clock); plain {plain_ms:.4f} "
+            f"ms; torch.sparse.mm {library_ms:.4f} ms (CUDA events, one "
+            f"card); bound {bound_ms:.4f} ms ({bound_by}; cards "
+            f"{', '.join(f'{t:.4f}' for t, _ in chip_bounds)} ms of HBM, "
+            f"links at {NVLINK_BYTES_PER_S / 1e9:.0f} GB/s each way); peak "
+            f"memory over the resident inputs by card "
+            f"{[round(p, 3) for p in peaks]} GiB, {n} chips of one card "
+            f"{one_peak:.3f} GiB; max |kernel - plain| {err:.3g}")
+        if label in ("a", "a/pallas_ell"):
+            rows[name] = dict(name=name, route="cuda", **KERNELS[name],
+                              launches=launches[name], max_abs_err=err,
+                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
+    return rows
+
+
+def cards_attention(n: int) -> dict:
+    """(o1) compile_sparse_attention on the longformer-1.4b mask (S =
+    ATTN_SEQ, one head) over ``chip_mesh(n)``: one K6 launch a card, bit
+    for bit the unsharded default forward; its JSON row."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (JitCache, chip_mesh,
+                                  compile_sparse_attention)
+    from repro_torch.kernels import ops
+    from repro_torch.models.sparse_attention import sparse_attention_mask
+
+    cfg = get_config("longformer-1.4b")
+    dh = dv = cfg.head_dim
+    a = sparse_attention_mask(ATTN_SEQ, cfg.sparse_attn_window,
+                              cfg.sparse_attn_global)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(a.m, dh, device="cuda", generator=gen)
+    k = torch.randn(a.n, dh, device="cuda", generator=gen)
+    v = torch.randn(a.n, dv, device="cuda", generator=gen)
+    mesh = chip_mesh(n)
+    devices = list(mesh.devices)
+    cache = JitCache()
+    t0 = time.perf_counter()
+    c = compile_sparse_attention(a, dh, dv, mesh=mesh, cache=cache)
+    c0 = compile_sparse_attention(a, dh, dv, cache=cache)
+    c1 = compile_sparse_attention(a, dh, dv, mesh=shard_mesh(n),
+                                  cache=cache)
+    sw = c.sharded_workspace
+    log(f"cards/o1 attention: compile_sparse_attention over {n} cards "
+        f"{time.perf_counter() - t0:.2f} s (with its unsharded and "
+        f"one-card twins): {c.backend}/{c.staging}, rows per card "
+        f"{np.diff(sw.bounds).tolist()}")
+    assert c.backend == "pallas_bcsr" and c.staging == "dma"
+    k6, k8 = kernels.attn_fused_staged, kernels.attn_fused_sharded
+    k6.launches = k8.launches = 0
+    ops.reset_dispatch_counts()
+    with _CardLaunches(("repro_torch.kernels.attn_fused",
+                        "attn_fused_staged")) as by_card:
+        y = c(a.vals, q, k, v)
+    torch.cuda.synchronize()
+    launches = k8.launches
+    want = {"attn_fused": n, "attn_fused_sharded": 1, "attn_fused_dma": n}
+    if sw.merge_width > 1:
+        want["attn_fused_merged"] = n
+    assert dict(ops.DISPATCH_COUNTS) == want, dict(ops.DISPATCH_COUNTS)
+    assert (k6.launches, k8.launches) == (n, n)
+    assert by_card.cards(n) == [1] * n, by_card.by_card
+    assert torch.equal(y, c0(a.vals, q, k, v))
+    log(f"cards/o1 attention: {n} attn_fused_staged launches, one a card, "
+        f"output bit-identical to the unsharded default forward")
+    del y
+    operands, knobs = c.sharded_operands(a.vals, q, k, v)
+    kw = dict(knobs, **sharded_knobs(c, "dma"))
+    got = k8(*operands, **kw)
+    want_y = kernels.attn_fused_sharded_plain(*operands, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want_y, rtol=1e-5, atol=1e-5)
+    err = (got - want_y).abs().max().item()
+    del got, want_y
+    chip_bounds = attn_chip_bounds(a, sw, dh, dv)
+    # each card's K and V: replicated by the wrapper
+    kv = [operands[7].to(dev) for dev in devices]
+    vv = [operands[8].to(dev) for dev in devices]
+    chip_ms = chip_kernel_ms(
+        k6, list(operands[:7]) + [kv, vv], mesh,
+        [dict(bm=c.bm, bk=c.bk, mw=sw.merge_width, span=sw.chip_span[i],
+              cspan=sw.chip_cspan[i]) for i in range(n)])
+    del kv, vv
+    with _Wire() as wire:
+        k8(*operands, **kw)
+    bound_ms, bound_by = cards_bound(chip_bounds, wire)
+    ms = wall_ms(lambda: k8(*operands, **kw), devices)
+    fwd_ms = wall_ms(lambda: c(a.vals, q, k, v), devices)
+    one_ms = wall_ms(lambda: c1(a.vals, q, k, v), devices)
+    flat_ms = wall_ms(lambda: c0(a.vals, q, k, v), devices)
+    plain_ms = wall_ms(lambda: kernels.attn_fused_sharded_plain(
+        *operands, **kw), devices, reps=3)
+    peaks = card_peaks(lambda: c(a.vals, q, k, v), devices)
+
+    dense_mask = bool_mask(a)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[None, None], k[None, None], v[None, None],
+        attn_mask=dense_mask)[0, 0], reps=5)
+    del dense_mask
+    log(f"cards/o1 attention: attn_fused_sharded {ms:.4f} ms over {n} "
+        f"cards (host clock, every card synchronised; K6 on each card "
+        f"{', '.join(f'{t:.4f}' for t in chip_ms)} ms by its CUDA "
+        f"events); the wrapper's copies between cards "
+        f"{wire.total() / 1e6:.1f} MB (K and V to each card, the rows "
+        f"back); forward over {n} cards {fwd_ms:.4f} ms against {n} chips "
+        f"of one card {one_ms:.4f} ms and the unsharded forward "
+        f"{flat_ms:.4f} ms (same clock); plain {plain_ms:.4f} ms; "
+        f"scaled_dot_product_attention {library_ms:.4f} ms (one card); "
+        f"bound {bound_ms:.4f} ms ({bound_by}; cards "
+        f"{', '.join(f'{t:.4f}' for t, _ in chip_bounds)} ms); peak memory "
+        f"by card {[round(p, 3) for p in peaks]} GiB; max |kernel - plain| "
+        f"{err:.3g}")
+    return dict(name="attn_fused_sharded", route="cuda",
+                **KERNELS["attn_fused_sharded"], launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def cards_step(n: int) -> dict:
+    """(o2) (l1)'s longformer-1.4b step on ``make_host_mesh(2, 2,
+    cards=n)`` and on the one-card (2, 2) mesh from the same weights,
+    state and batch, both under deterministic algorithms: loss, grad
+    norm, parameters and both moments bit for bit; K6 launches, bytes
+    gathered and crossing cards, the model-axis sums, each chip's and
+    card's spans, each card's peak and the step's wall time."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.model_split import SplitTally
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    _, model, params, batch = l1_inputs()
+    cfg = model.cfg
+    initial = _host(params)
+    del params
+    torch.cuda.empty_cache()
+    opt = AdamW(learning_rate=TRAIN_LR)
+    top = sum(math.prod(initial[k].shape) * 4
+              for k in ("embed", "final_norm", "lm_head"))
+    runs = {}
+    for cards in (n, 1):
+        mesh = make_host_mesh(data=MESH_SHAPE[0], model=MESH_SHAPE[1],
+                              cards=cards)
+        devices = list(dict.fromkeys(mesh.devices))
+        p_shard = sharding.param_shardings(model.param_shapes(), mesh)
+        sp = sharding.shard_tree(initial, p_shard)
+        state = opt.init(sp)
+        sbatch = sharding.shard_tree(batch, sharding.batch_shardings(
+            batch, mesh))
+        tally = SplitTally(mesh, timed=True)
+        step = make_train_step(model, opt, remat="full",
+                               shard_ctx={"mesh": mesh, "dp": ("data",),
+                                          "tally": tally},
+                               grad_shardings=p_shard)
+        sharding.synchronize(devices)
+        base = []
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+            base.append(torch.cuda.memory_allocated(d))
+        with _Deterministic() as det, \
+                _PlainCalls(("repro_torch.kernels.attn_fused",
+                             "_Carry")) as plain, \
+                _CardLaunches(("repro_torch.kernels.ops",
+                               "attn_fused_staged")) as k6, \
+                _Wire() as wire:
+            # every host wait inside the step warns (and is counted)
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                sp, state, metrics = step(sp, state, sbatch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            sharding.synchronize(devices)
+            wall = (time.perf_counter() - t0) * 1e3
+        syncs = collections.Counter(
+            f"{Path(r.filename).name}:{r.lineno}" for r in det.records
+            if "synchroniz" in str(r.message))
+        peaks = [torch.cuda.max_memory_allocated(d) / 2 ** 30
+                 for d in devices]
+        held = [b / 2 ** 30 for b in base]
+        assert plain.calls == 0, plain.calls
+        (fwd, bwd), sum_ms = tally.chip_ms(), tally.sum_ms()
+        card_ms = tally.card_ms()
+        m = {k: float(v) for k, v in metrics.items()}
+        firsts = {c for c in range(mesh.size)
+                  if mesh.coords(c)["model"] == 0}
+        per_period = [(b - (top if c in firsts else 0))
+                      / (2 * cfg.num_periods)
+                      for c, b in enumerate(tally.gathered)]
+        log(f"cards/o2 longformer-1.4b step on {MESH_SHAPE} over {cards} "
+            f"card(s) ({[str(d) for d in mesh.devices]}), fp32, global "
+            f"batch {MESH_BATCH}, S = {MESH_SEQ}, remat full, deterministic "
+            f"algorithms: wall {wall:.1f} ms (host clock, every card "
+            f"synchronised); loss {m['loss']!r}, grad norm "
+            f"{m['grad_norm']!r}; K6 launches by card "
+            f"{k6.cards(cards)}, by chip {tally.attn}; bytes gathered a "
+            f"chip a period {[round(b / 1e6, 3) for b in per_period]} MB "
+            f"(the embedding, final norm and head, {top / 1e6:.1f} MB, "
+            f"once a group besides); Tensor.to copies between cards "
+            f"{wire.total() / 1e9:.3f} GB "
+            f"({ {f'{s_}->{d}': round(v / 1e9, 3) for (s_, d), v in sorted(wire.moved.items())} }"
+            f" GB), {wire.graded / 1e9:.3f} GB of them carrying a "
+            f"gradient back (not counted); model-axis sums {tally.sums} "
+            f"in {sum_ms:.4f} ms; by chip, forward and recompute "
+            f"{[round(v, 1) for v in fwd]} ms, backward "
+            f"{[round(v, 1) for v in bwd]} ms (CUDA events on each "
+            f"chip's card); by card, in its chips' spans and sums "
+            f"{ {str(d): round(v, 1) for d, v in card_ms.items()} } ms; "
+            f"peak memory by card {[round(p, 2) for p in peaks]} GiB "
+            f"(params, moments and batch held before the step "
+            f"{[round(h, 2) for h in held]} GiB); host waits on a card "
+            f"inside the step {sum(syncs.values())} "
+            f"({dict(syncs.most_common(6))}); ops without a "
+            f"deterministic CUDA form: {det.warned or 'none'}")
+        assert tally.attn == [384] * mesh.size, tally.attn
+        if cards == n:
+            assert k6.cards(n) == [384 * mesh.size // n] * n, k6.by_card
+        runs[cards] = dict(metrics=m, wall=wall, peaks=peaks,
+                           trees=(_host(sp), _host(state.mu),
+                                  _host(state.nu)))
+        del sp, state, metrics, sbatch, step, tally
+        gc.collect()
+        torch.cuda.empty_cache()
+    del initial
+    four, one = runs[n], runs[1]
+    diffs = [_leaf_diffs(a, b) for a, b in zip(four["trees"], one["trees"])]
+    log(f"cards/o2 {n} cards against one card: loss "
+        f"{four['metrics']['loss']!r} vs {one['metrics']['loss']!r}, grad "
+        f"norm {four['metrics']['grad_norm']!r} vs "
+        f"{one['metrics']['grad_norm']!r}; leaves bit for bit: "
+        + "; ".join(f"{k} {s_} of {t}" for k, (s_, t, _) in
+                    zip(("params", "mu", "nu"), diffs))
+        + f"; wall {four['wall']:.1f} ms vs {one['wall']:.1f} ms; largest "
+        f"card peak {max(four['peaks']):.2f} GiB vs {one['peaks'][0]:.2f} "
+        f"GiB on one card; cards {', '.join(card_line(i) for i in range(n))}")
+    assert four["metrics"] == one["metrics"], (four["metrics"],
+                                               one["metrics"])
+    assert all(s_ == t for s_, t, _ in diffs), diffs
+    assert max(four["peaks"]) < one["peaks"][0]
+    return {"wall": four["wall"], "one_wall": one["wall"]}
+
+
+def cards_resume(n: int) -> None:
+    """(o3) ``run_training`` on reduced longformer at --dp 2 --tp 2 over
+    ``n`` cards: uninterrupted, and stopped at RUN_STOP, then resumed
+    from the checkpoint on ``plan_remesh(2, model_parallel=1)`` over the
+    surviving cuda:0..1; the same three runs on one card's meshes; losses
+    and final parameters bit for bit."""
+    import tempfile
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.ft import elastic
+    from repro_torch.ft.watchdog import Watchdog
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = reduced(get_config("longformer-1.4b"))
+    kw = dict(steps=RUN_STEPS, global_batch=RUN_BATCH, seq_len=RUN_SEQ,
+              log_every=RUN_STEPS)
+    plan = elastic.plan_remesh(2, model_parallel=1)
+    later = elastic.build_mesh(plan, devices=["cuda:0", "cuda:1"])
+    assert later.devices == make_host_mesh(
+        data=plan.mesh_shape[0], model=plan.mesh_shape[1], cards=2).devices
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, _Deterministic():
+        for cards, after in ((n, 2), (1, 1)):
+            full_p, full = train.run_training(
+                cfg, data_parallel=2, model_parallel=2, cards=cards,
+                watchdog=Watchdog(min_deadline_s=600), **kw)
+            _, first = train.run_training(
+                cfg, data_parallel=2, model_parallel=2, cards=cards,
+                stop_at=RUN_STOP, ckpt_dir=f"{tmp}/{cards}",
+                ckpt_every=100, watchdog=Watchdog(min_deadline_s=600), **kw)
+            res_p, rest = train.run_training(
+                cfg, data_parallel=plan.mesh_shape[0],
+                model_parallel=plan.mesh_shape[1], cards=after,
+                ckpt_dir=f"{tmp}/{cards}", ckpt_every=100,
+                watchdog=Watchdog(min_deadline_s=600), **kw)
+            out[cards] = (full, first, rest, _host(full_p), _host(res_p))
+    four, one = out[n], out[1]
+    same = [_leaf_diffs(a, b) for a, b in zip(four[3:], one[3:])]
+    log(f"cards/o3 run_training {cfg.name}, {RUN_STEPS} steps at batch "
+        f"{RUN_BATCH}, S = {RUN_SEQ}: (2, 2) over {n} cards losses "
+        f"{[f'{v:.6f}' for v in four[0]]}; stopped at {RUN_STOP} and "
+        f"resumed on {plan.mesh_shape} over cuda:0..1: "
+        f"{[f'{v:.6f}' for v in four[1] + four[2]]}; against one card's "
+        f"(2, 2) and {plan.mesh_shape}: uninterrupted "
+        f"{'bit for bit' if four[0] == one[0] else 'DIFFERENT'}, stopped "
+        f"{'bit for bit' if four[1] == one[1] else 'DIFFERENT'}, resumed "
+        f"{'bit for bit' if four[2] == one[2] else 'DIFFERENT'}; final "
+        f"params bit for bit in {same[0][0]} of {same[0][1]} leaves "
+        f"(uninterrupted) and {same[1][0]} of {same[1][1]} (resumed) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    assert four[:3] == one[:3], (four[:3], one[:3])
+    assert all(s_ == t for s_, t, _ in same), same
+    assert four[1] == four[0][:RUN_STOP]
+
+
+def cards_psum(n: int) -> None:
+    """(o4) ``compressed_psum`` over ``n`` cards, a part on each, bit for
+    bit the same call on ``n`` chips of one card; each sum on its own
+    card."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rng = np.random.default_rng(43)
+    parts = [torch.from_numpy((rng.standard_normal((4096, 1024)) * (1 + c))
+                              .astype(np.float32)) for c in range(n)]
+    mesh = make_host_mesh(data=n, model=1, cards=n)
+    with _Wire() as wire:
+        sums = collectives.compressed_psum(
+            [p.to(d) for p, d in zip(parts, mesh.devices)], mesh,
+            axis="data")
+    one = collectives.compressed_psum([p.cuda() for p in parts],
+                                      make_host_mesh(data=n, model=1),
+                                      axis="data")
+    assert [s.device for s in sums] == list(mesh.devices)
+    same = all(torch.equal(s.cpu(), o.cpu()) for s, o in zip(sums, one))
+    log(f"cards/o4 compressed_psum over {n} cards, parts of "
+        f"{tuple(parts[0].shape)}: every card's sum "
+        f"{'bit for bit' if same else 'DIFFERENT'} the one-card chips'; "
+        f"{wire.total() / 1e6:.1f} MB crossed cards (int8 payloads and "
+        f"scales, and the parts placed)")
+    assert same
+
+
+def cards_copy_order() -> None:
+    """(o5) Whether a copy between cards orders their work, as the (o2)
+    step's chips ran in turn: 16 fp32 4096² matmuls on ``cuda:0``, then
+    16 on ``cuda:1``, with and without a 4-byte copy from ``cuda:0`` to
+    ``cuda:1`` enqueued between them (PyTorch runs a copy between cards
+    behind the source card's queue and makes the destination's stream
+    wait for it).  Host clock, both cards synchronised, medians of 5."""
+    devices = ["cuda:0", "cuda:1"]
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    mats = [torch.randn(4096, 4096, device="cuda", generator=gen).to(d)
+            for d in devices]
+    flag = torch.zeros(1, device=devices[0])
+
+    def work(m):
+        for _ in range(16):
+            torch.mm(m, m)
+
+    runs = {"cuda:0 alone": lambda: work(mats[0]),
+            "both cards": lambda: (work(mats[0]), work(mats[1])),
+            "both, a copy between": lambda: (work(mats[0]),
+                                             flag.to(devices[1]),
+                                             work(mats[1]))}
+    ms = {k: wall_ms(fn, devices, reps=5) for k, fn in runs.items()}
+    log("cards/o5 copy order (16 fp32 4096² matmuls a card, host clock): "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f"; card {card_line(1)}")
+
+
+def cards_main(args) -> int:
+    """--cards 4: none of the default phases; (o1)-(o5) over four
+    cards."""
+    n = args.cards
+    visible = torch.cuda.device_count()
+    if visible < n:
+        print(f"chip_smoke: --cards {n} needs {n} visible cards; "
+              f"{visible} visible", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+
+    def done(name: str) -> None:
+        log(f"{name}: done {time.perf_counter() - t_start:.1f} s into the run")
+
+    phase_device()
+    for i in range(n):
+        log(f"card {i}: {card_line(i)}")
+    log("peer access: " + "; ".join(
+        f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+        for i in range(n) for j in range(n) if i != j))
+    phase_build()
+    done("build")
+    from repro_torch.core import chip_mesh
+    failed = []
+
+    def part(name, fn, *args):
+        """``fn(*args)``; a failure is printed and the next part runs,
+        and the run then exits non-zero with no result line."""
+        import traceback
+        try:
+            return fn(*args)
+        except Exception:
+            failed.append(name)
+            print(f"chip_smoke: part {name} failed:\n"
+                  f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+            return None
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+            done(name)
+
+    def spmm():
+        phase_sharded_fixtures(mesh_of=chip_mesh,
+                               chip_counts=tuple(range(1, n + 1)))
+        return cards_spmm(make_instances(), n)
+
+    rows = part("o1 spmm", spmm) or {}
+    rows["attn_fused_sharded"] = part("o1 attention", cards_attention, n)
+    step = part("o2", cards_step, n)
+    part("o3", cards_resume, n)
+    part("o4", cards_psum, n)
+    part("o5", cards_copy_order)
+    if failed:
+        print(f"chip_smoke: --cards {n}: {failed} failed", file=sys.stderr)
+        return 1
+    log(f"total {time.perf_counter() - t_start:.1f} s; the step over {n} "
+        f"cards {step['wall']:.1f} ms, on one card {step['one_wall']:.1f} ms")
+    print(json.dumps({"kernels": [rows[k] for k in SHARDED_KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def ab_main(args) -> int:
     """K1, K2, K5, K6, K7, K9 and K10 against the parent tree's
     wrappers, or only K1-K7's, K9's and K10's ptxas lines
@@ -5232,12 +6006,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port's main path on one H100 and check it; "
                     "with --ab-parent, time K1/K2/K5/K6/K7/K9/K10 beside "
-                    "another tree's instead.")
+                    "another tree's instead; with --cards 4, run the mesh "
+                    "over four cards.")
     ap.add_argument("--ab-parent", type=Path, metavar="DIR",
                     help="a tree (a commit unpacked with git archive) whose "
                          "K1, K2, K5, K6, K7, K9 and K10 are timed beside "
                          "this one's through its own wrappers, in turns A B "
                          "B A, bit for bit")
+    ap.add_argument("--cards", type=int, choices=[4],
+                    help="run none of the default phases: K8, the "
+                         "sharded training step, run_training's resume "
+                         "and compressed_psum over four cards, each "
+                         "against the same work on one card")
     ap.add_argument("--ab-ptxas", action="store_true",
                     help="with --ab-parent: only compare K1-K7's, K9's and "
                          "K10's ptxas registers and spills (all but K1's and "
@@ -5251,6 +6031,8 @@ def main() -> int:
         ap.error("--ab-ptxas needs --ab-parent")
     if args.ab_parent is not None:
         return ab_main(args)
+    if args.cards is not None:
+        return cards_main(args)
     from repro_torch.core import JitCache
     t_start = time.perf_counter()
 

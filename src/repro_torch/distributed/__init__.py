@@ -7,7 +7,8 @@
 #                decode_shardings, logits_sharding, replicated,
 #                chip_row_sharding), Placement, ShardedTensor, shard, gather
 #                model_dim, owned_range, gather_slice (a model
-#                coordinate's part of a leaf)
+#                coordinate's part of a leaf); spread (chips laid out
+#                over cards), synchronize (every card of a mesh)
 #   collectives  exact_panel_exchange, sharded_x, wire_bytes_ratio,
 #                compressed_psum (the int8 wire all-reduce), int8_wire;
 #                model_sum (the model axis's all-reduce) and the
@@ -26,7 +27,7 @@ from .sharding import (AxisEnv, ChipMesh, LogicalMesh, Placement,
                        logits_sharding, model_dim, owned_range, param_pspec,
                        param_shardings, place_on_chips, replicated,
                        resolve_chip_mesh, resolve_spec, run_on_chips, shard,
-                       shard_tree)
+                       shard_tree, spread, synchronize)
 
 __all__ = ["AxisEnv", "ChipMesh", "LogicalMesh", "ModelSplit", "Placement",
            "ShardedTensor", "SplitTally", "aligned16", "batch_shardings",

@@ -42,12 +42,14 @@ class SplitTally:
     the model-axis sums of more than one part (``sums``).  With
     ``timed``, pairs of CUDA events around each such sum (``sum_spans``)
     and a ``timeline`` of CUDA events, in the order the host records
-    them on the one stream: the start and end of each chip's part of a
-    block (a block computed once counts on the group's first chip), and
-    in the backward, a mark where the gradient of each leaf part a chip
+    them, each on its own device's stream: the start and end of each
+    chip's part of a block, on the chip's device (a block computed once
+    counts on the group's first chip), and in the backward, a mark on
+    the gradient's device where the gradient of each leaf part a chip
     took, or of a sum, is complete."""
 
     def __init__(self, mesh: sharding.LogicalMesh, timed: bool = False):
+        self.devices = mesh.devices
         self.gathered = [0] * mesh.size
         self.attn = [0] * mesh.size
         self.sums = 0
@@ -57,35 +59,71 @@ class SplitTally:
 
     def sum_ms(self) -> float:
         """The timed sums' milliseconds in all (synchronises)."""
-        torch.cuda.synchronize()
+        sharding.synchronize(self.devices)
         return sum(a.elapsed_time(b) for a, b in self.sum_spans)
+
+    def _spans(self):
+        """Each span of the timeline a chip owns: ``(kind, chip,
+        device, ms)``, pairing an event only with the one before it on
+        its own device (synchronises).  The forward's spans run from a
+        chip part's start to its device's next event; the backward
+        walks the marks: the time up to a mark of chip ``c`` since its
+        device's last event is ``c``'s (the autograd engine runs a
+        later-made node first, so one chip's part of an attention, FFN
+        or head block runs whole before the next's; the recurrent slots'
+        chained loops interleave), the time up to a sum's mark or a
+        mark taken outside a chip's part is no chip's.  On one device
+        that is every event paired with the next."""
+        sharding.synchronize(self.devices)
+        last = {}
+        for kind, chip, ev in self.timeline:
+            before = last.get(ev.device)
+            last[ev.device] = (kind, chip, ev)
+            if before is None:
+                continue
+            if before[0] == "start":
+                yield "forward", before[1], ev.device, \
+                    before[2].elapsed_time(ev)
+            elif kind == "grad" and chip is not None:
+                yield "backward", chip, ev.device, \
+                    before[2].elapsed_time(ev)
 
     def chip_ms(self) -> Tuple[List[float], List[float]]:
         """Each chip's milliseconds (synchronises): ``(forward,
         backward)``.  The forward is its parts' spans, the recompute's
-        included.  The backward walks the marks: the time up to a mark
-        of chip ``c`` is ``c``'s (the autograd engine runs a later-made
-        node first, so one chip's part of an attention, FFN or head
-        block runs whole before the next's; the recurrent slots'
-        chained loops interleave), the time up to a sum's mark or a
-        mark taken outside a chip's part is no chip's.  The loss's own
-        forward and backward count with the head's last chip."""
-        torch.cuda.synchronize()
+        included; the backward its marks' spans (``_spans``).  The
+        loss's own forward and backward count with the head's last
+        chip."""
         fwd = [0.0] * len(self.attn)
         bwd = [0.0] * len(self.attn)
-        for (kind, chip, a), (nkind, nchip, b) in zip(self.timeline,
-                                                      self.timeline[1:]):
-            if kind == "start":
-                fwd[chip] += a.elapsed_time(b)
-            elif nkind == "grad" and nchip is not None:
-                bwd[nchip] += a.elapsed_time(b)
+        for kind, chip, _, ms in self._spans():
+            (fwd if kind == "forward" else bwd)[chip] += ms
         return fwd, bwd
 
+    def card_ms(self) -> dict:
+        """Each device's milliseconds inside its chips' spans and the
+        sums recorded on it (synchronises)."""
+        out = dict.fromkeys(self.devices, 0.0)
+        for _, _, dev, ms in self._spans():
+            out[dev] += ms
+        for a, b in self.sum_spans:
+            out[a.device] += a.elapsed_time(b)
+        return out
 
-def _event():
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
+
+class _Event:
+    """A CUDA timing event recorded on ``device``'s current stream."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.event = torch.cuda.Event(enable_timing=True)
+        self.event.record(torch.cuda.current_stream(self.device))
+
+    def elapsed_time(self, later: "_Event") -> float:
+        return self.event.elapsed_time(later.event)
+
+
+_event = _Event
 
 
 def _merged(ranges: Sequence[Range]) -> List[Range]:
@@ -180,7 +218,7 @@ class ModelSplit:
         if self._timed() and t.grad_fn is not None:
             timeline = self.tally.timeline
             t.register_hook(
-                lambda g: timeline.append(("grad", chip, _event())))
+                lambda g: timeline.append(("grad", chip, _event(g.device))))
         return t
 
     def each(self, chips):
@@ -190,10 +228,10 @@ class ModelSplit:
         for m in chips:
             self._body = self.chip(m)
             if timeline is not None:
-                timeline.append(("start", self._body, _event()))
+                timeline.append(("start", self._body, _event(self.on(m))))
             yield m
             if timeline is not None:
-                timeline.append(("end", self._body, _event()))
+                timeline.append(("end", self._body, _event(self.on(m))))
             self._body = None
 
     def on(self, m) -> str:
@@ -235,10 +273,10 @@ class ModelSplit:
         device (one part: itself)."""
         if self.tally is None or len(parts) == 1:
             return self._mark(model_sum(parts, self.device), None)
-        start = _event() if self.tally.timed else None
+        start = _event(self.device) if self.tally.timed else None
         out = model_sum(parts, self.device)
         if self.tally.timed:
-            self.tally.sum_spans.append((start, _event()))
+            self.tally.sum_spans.append((start, _event(self.device)))
         self.tally.sums += 1
         return self._mark(out, None)
 

@@ -5,7 +5,9 @@ and of ``chip_mesh`` / ``resolve_chip_mesh`` in
 Two meshes live here, both single-controller: one process drives every
 chip, and a chip is a torch device, which may repeat, so four chips can
 share ``cuda:0`` or the CPU (the counterpart of the reference's
-``--xla_force_host_platform_device_count`` virtual devices).
+``--xla_force_host_platform_device_count`` virtual devices), or lie on
+four cards, where what moves between chips crosses NVLink as ``.to``
+copies (:func:`spread` lays chips out over cards).
 
 * :class:`ChipMesh` is the sharded fused path's 1-D ``("chips",)`` mesh
   (K8).  :func:`place_on_chips` is the counterpart of
@@ -274,6 +276,28 @@ class LogicalMesh:
         """Chip ``chip``'s coordinate on each axis."""
         return dict(zip(self.axis_names,
                         (int(i) for i in np.unravel_index(chip, self.shape))))
+
+
+def spread(devices: Sequence, n_chips: int) -> Tuple[torch.device, ...]:
+    """Each of ``n_chips`` chips' device, the chips laid out row-major
+    over ``devices``: every device takes a contiguous run of ``n_chips /
+    len(devices)`` chips (four chips over ``cuda:0..3``: one a card; over
+    ``cuda:0..1``: a (2, 2) mesh's data groups one a card, each group's
+    model chips sharing it).  Raises where the devices do not divide the
+    chips."""
+    devs = tuple(_mesh_device(d) for d in devices)
+    if not devs or n_chips < 1 or n_chips % len(devs):
+        raise ValueError(f"{len(devs)} device(s) do not divide {n_chips} "
+                         f"chips into equal runs")
+    run = n_chips // len(devs)
+    return tuple(devs[c // run] for c in range(n_chips))
+
+
+def synchronize(devices) -> None:
+    """Wait for every CUDA device among ``devices`` (each once)."""
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def logical_mesh(shape: Sequence[int], axis_names: Sequence[str],

@@ -15,9 +15,11 @@ When a pod (or host) is lost, the controller:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
-from ..distributed.sharding import LogicalMesh, logical_mesh, shard_tree
+from ..distributed.sharding import (LogicalMesh, logical_mesh, shard_tree,
+                                    spread)
 from ..kernels.ops import resolve_device
 
 
@@ -47,14 +49,17 @@ def plan_remesh(available_devices: int, *, model_parallel: int,
 
 
 def build_mesh(plan: ElasticPlan, devices=None) -> LogicalMesh:
-    """The plan's mesh over the first ``prod(mesh_shape)`` of
-    ``devices``; by default every chip on the card, as
-    ``launch.mesh.make_host_mesh`` builds it."""
-    n = 1
-    for s in plan.mesh_shape:
-        n *= s
+    """The plan's mesh over the surviving ``devices`` (e.g. the cards
+    left, ``cuda:0..k``): one chip a device over the first
+    ``prod(mesh_shape)`` of them (``sharding.spread``, which lays out
+    ``launch.mesh.make_host_mesh``'s cards too), raising where fewer
+    survive, as the reference does; by default every chip on the card,
+    as ``make_host_mesh`` builds it."""
+    n = math.prod(plan.mesh_shape)
     if devices is None:
         devices = (resolve_device(None),) * n
+    elif len(devices) >= n:
+        devices = spread(list(devices)[:n], n)
     return logical_mesh(plan.mesh_shape, plan.axis_names, devices)
 
 

@@ -6,8 +6,9 @@ blown deadline marks the step failed, and the driver restores from the
 last checkpoint.  The deadline logic is real and the failure is injected
 by tests (through ``fault_injector`` and an injectable clock).  The
 watchdog times what ``fn`` does on the host: a step on the card must end
-in a read that waits for the device (``run_training``'s does), or the
-deadline times kernel launches rather than steps.
+in a read that waits for the device, and a step over several cards must
+wait for each (``run_training``'s does both), or the deadline times
+kernel launches rather than steps.
 """
 from __future__ import annotations
 

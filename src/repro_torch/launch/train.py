@@ -1,8 +1,10 @@
 """End-to-end training driver (port of ``src/repro/launch/train.py``):
 data pipeline -> train step -> checkpoint/restart + watchdog straggler
 mitigation, on the card (``device=None``) or the CPU (``"cpu"``), over a
-``(data_parallel, model_parallel)`` mesh of chips on that device
-(``launch.mesh.make_host_mesh``): parameters, optimizer state and batch
+``(data_parallel, model_parallel)`` mesh of chips on that device, or
+with ``cards`` > 1 laid out over that many cards, each a contiguous run
+of chips (``launch.mesh.make_host_mesh``; ``--cards 4`` on ``--dp 2 --tp
+2`` gives each chip a card): parameters, optimizer state and batch
 placed by ``distributed.sharding``'s rules, the data groups run in turn
 (``train.train_step``), each over its model chips: ``--tp`` splits
 compute as GSPMD's Megatron split does (heads, ``d_ff``, experts and
@@ -13,8 +15,8 @@ Before step 0 it validates the kernels the run leans on: a config with
 lowering (K6 on the card) against ``ref`` (``sparse_attn_preflight``),
 and ``--spmm-chips`` runs the sharded fused SpMM (K8 over K1-K4) against
 ``ref`` (``spmm_shard_preflight``).  Each step ends in a read of its
-loss, so the watchdog times the whole step on the card, not its
-launches.  Initial weights come from a generator seeded with ``seed`` on
+loss and waits for every card of the mesh, so the watchdog times the
+whole step, not its launches.  Initial weights come from a generator seeded with ``seed`` on
 the run's device: the port's own draws, not the reference's (JAX's RNG).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
@@ -23,6 +25,8 @@ the run's device: the port's own draws, not the reference's (JAX's RNG).
       --smoke --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch longformer-1.4b \\
       --smoke --device cpu --steps 3 --batch 4 --dp 2 --tp 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch longformer-1.4b \\
+      --smoke --steps 3 --batch 4 --dp 2 --tp 2 --cards 4
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import torch
 from ..configs import get_config, reduced
 from ..data.pipeline import PipelineConfig, TokenPipeline
 from ..distributed.sharding import (batch_shardings, gather_tree,
-                                    param_shardings, shard_tree)
+                                    param_shardings, shard_tree,
+                                    synchronize)
 from ..ft import checkpoint as ckpt
 from ..ft.watchdog import StepTimeout, Watchdog
 from ..kernels.ops import resolve_device
@@ -118,7 +123,7 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                  ckpt_dir=None, ckpt_every: int = 20, lr: float = 3e-4,
                  microbatches: int = 1, remat: str = "full",
                  data_parallel: int = 1, model_parallel: int = 1,
-                 spmm_chips: int = 0, spmm_backend: str = "pallas_ell",
+                 cards: int = 1, spmm_chips: int = 0, spmm_backend: str = "pallas_ell",
                  spmm_x_sharding: str = "auto", spmm_autotune: bool = False,
                  log_every: int = 10, fault_injector=None,
                  watchdog: Watchdog = None, seed: int = 0,
@@ -131,7 +136,7 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
     when there is none).  The returned params are gathered whole."""
     device = resolve_device(device)
     mesh = make_host_mesh(data=data_parallel, model=model_parallel,
-                          device=device)
+                          device=device, cards=cards)
     model = Model(cfg)
     if spmm_chips:
         spmm_shard_preflight(spmm_chips, spmm_backend, spmm_x_sharding,
@@ -152,10 +157,12 @@ def run_training(cfg, *, steps: int, global_batch: int, seq_len: int,
                               grad_shardings=p_shard)
 
     def step_synced(params, opt_state, batch):
-        # the float() reads wait for the device: the watchdog times the
-        # whole step
+        # the float() reads wait for the metrics' card and synchronize
+        # for the others: the watchdog times the whole step
         params, opt_state, metrics = step_fn(params, opt_state, batch)
-        return params, opt_state, {k: float(v) for k, v in metrics.items()}
+        metrics = {k: float(v) for k, v in metrics.items()}
+        synchronize(mesh.devices)
+        return params, opt_state, metrics
 
     pipe = TokenPipeline(PipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=seq_len,
@@ -239,6 +246,10 @@ def main(argv=None) -> int:
                     help="model axis of the mesh: each model chip "
                          "computes its own heads, d_ff columns, experts "
                          "and vocabulary rows")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="CUDA cards the dp x tp chips are laid out over, "
+                         "each card a contiguous run of chips (must "
+                         "divide dp x tp)")
     ap.add_argument("--spmm-chips", type=int, default=0,
                     help="validate the sharded fused SpMM path on this "
                          "many chips before training (0 = skip)")
@@ -262,7 +273,7 @@ def main(argv=None) -> int:
         cfg, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr,
         microbatches=args.microbatches, remat=args.remat,
-        data_parallel=args.dp, model_parallel=args.tp,
+        data_parallel=args.dp, model_parallel=args.tp, cards=args.cards,
         spmm_chips=args.spmm_chips, spmm_backend=args.spmm_backend,
         spmm_x_sharding=args.x_sharding, spmm_autotune=args.autotune,
         device=args.device)

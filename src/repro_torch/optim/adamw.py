@@ -1,10 +1,14 @@
 """AdamW with float32 moments, global-norm clipping and a warmup+cosine
 schedule (port of ``src/repro/optim/adamw.py``).
 
-Updates run under ``torch.no_grad()`` on the parameters' device.  Trees
+Updates run under ``torch.no_grad()`` on the parameters' devices.  Trees
 are nested dicts of tensors; the global gradient norm sums the leaves'
 squared sums in the reference's leaf order (``pytree.tree_leaves``:
-sorted keys), so the two packages add them in the same order.
+sorted keys), so the two packages add them in the same order.  Leaves
+may lie on several cards (a mesh's blocks): the squares move to the
+first leaf's device in one copy a card and add there in leaf order, and
+the scale, bias corrections and learning rate are copied once to each
+card, so the arithmetic is one card's.
 """
 from __future__ import annotations
 
@@ -69,13 +73,22 @@ class AdamW:
         """-> (updates like params, new state, the global grad norm
         before clipping, float32; 0 with ``clip_norm=None``)."""
         grads = tree_map(lambda g: g.float(), grads)
+        leaves = tree_leaves(grads)
+        devices = tuple(dict.fromkeys(g.device for g in leaves))
         if self.clip_norm is not None:
+            # each card's squares stacked and moved to the first leaf's
+            # device in one copy, then added there in leaf order
+            squares = [torch.sum(torch.square(g)) for g in leaves]
+            moved = {d: iter(torch.stack([s for s in squares
+                                          if s.device == d])
+                             .to(devices[0]).unbind()) for d in devices}
             total = 0
-            for g in tree_leaves(grads):
-                total = total + torch.sum(torch.square(g))
+            for s in squares:
+                total = total + next(moved[s.device])
             gnorm = torch.sqrt(total)
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
+            scales = {d: scale.to(d) for d in devices}
+            grads = tree_map(lambda g: g * scales[g.device], grads)
         else:
             gnorm = torch.zeros((), dtype=torch.float32,
                                 device=state.count.device)
@@ -87,12 +100,15 @@ class AdamW:
         bc1 = 1 - torch.pow(b1, c)
         bc2 = 1 - torch.pow(b2, c)
         lr = self._lr(count)
+        # bc1, bc2 and lr once on each leaf's device
+        per = {d: (bc1.to(d), bc2.to(d), lr.to(d)) for d in devices}
 
         def upd(m, v, p):
-            step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            bc1_, bc2_, lr_ = per[m.device]
+            step = (m / bc1_) / (torch.sqrt(v / bc2_) + self.eps)
             if self.weight_decay:
                 step = step + self.weight_decay * p.float()
-            return (-lr * step).to(p.dtype)
+            return (-lr_ * step).to(p.dtype)
 
         updates = tree_map(upd, mu, nu, params)
         return updates, AdamWState(count=count, mu=mu, nu=nu), gnorm

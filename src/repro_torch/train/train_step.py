@@ -28,6 +28,17 @@ last bits.  One piece takes its gradients as they come, with no float32
 copy.  ``AdamW.update`` then runs on the blocks; its global grad norm
 sums the blocks' squares, whose order differs from the whole leaves' in
 the last bits.
+
+The chips may lie on several cards (``launch.mesh.make_host_mesh(cards=
+)``): each data group then computes on its first chip's card, each
+model chip on its own, and tensors cross cards as ``.to`` copies.  The
+backward runs on the calling thread alone, every card's nodes in the
+one order a single card runs them, and a chip whose part reaches it
+through a copy adds its gradient there as one sum.  On one card the
+last model chip's parts add first, so only that chip may lie off its
+group's card for every gradient to be the one-card mesh's bit for bit
+(``tests/test_torch_cards.py`` measures the order): the step refuses a
+mesh where another model chip does, e.g. (1, 4) over four cards.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..distributed.model_split import ModelSplit
 from ..distributed.sharding import LogicalMesh, gather, is_sharded
 from ..kernels.ops import resolve_device
 from ..models.model import Model
@@ -117,6 +129,23 @@ def _check_placements(params, placements) -> None:
     tree_map_with_path(leaf, params, placements, is_leaf=is_sharded)
 
 
+def _refuse_off_card_chips(mesh: LogicalMesh, dp) -> None:
+    """Raise where a data group's model chip other than its first and
+    last lies off the group's card: its part would reach the group's
+    tensors through a copy and add its gradient as one sum, where on one
+    card its parts add one by one after the later chips'."""
+    groups = math.prod(mesh.sizes[a] for a in dp)
+    for g in range(groups):
+        devices = ModelSplit(None, mesh, dp, group=g).devices
+        for m, dev in enumerate(devices[1:-1], 1):
+            if dev != devices[0]:
+                raise ValueError(
+                    f"data group {g}'s model chip {m} lies on {dev}, off "
+                    f"its group's card {devices[0]}: the step would not be "
+                    f"the one-card step bit for bit; only a group's last "
+                    f"model chip may lie on another card")
+
+
 def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
                     microbatches: int = 1, chunk_q: int = 512,
                     shard_ctx=None, causal_skip: bool = False,
@@ -139,11 +168,13 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
         if not isinstance(mesh, LogicalMesh):
             raise TypeError(f"shard_ctx['mesh'] must be a LogicalMesh, got "
                             f"{type(mesh).__name__}")
-        if not mesh.single_device:
-            raise ValueError(
-                "the sharded step adds every block's gradient square into "
-                "one norm on one device: its chips must share a device")
-        device = resolve_device(mesh.devices[0])
+        types = {d.type for d in mesh.devices}
+        if len(types) > 1 or "meta" in types:
+            raise ValueError(f"the sharded step computes on its chips' "
+                             f"devices: a mesh on {sorted(types)} mixes "
+                             f"device types or holds shapes only")
+        _refuse_off_card_chips(mesh, tuple(shard_ctx["dp"]))
+        device = str(mesh.devices[0])
     elif grad_shardings is not None:
         raise ValueError("grad_shardings places gradients on a mesh: it "
                          "needs shard_ctx")
@@ -153,7 +184,11 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         ctx = None if shard_ctx is None else {**shard_ctx, "group": group}
-        with torch.enable_grad():
+        # the backward on this thread alone: autograd otherwise runs a
+        # thread a card, and a tensor whose gradient sums parts from two
+        # cards would add them in the order they arrive
+        with torch.enable_grad(), \
+                torch.autograd.set_multithreading_enabled(False):
             loss, aux = model.loss_fn(
                 tree_unflatten(params, leaves), batch, remat=remat,
                 chunk_q=chunk_q, shard_ctx=ctx,

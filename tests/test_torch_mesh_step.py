@@ -218,7 +218,7 @@ def test_sharded_step_refuses_what_it_cannot_run():
         make_train_step(model, opt, shard_ctx={"mesh": None, "dp": ()})
     split = sharding.LogicalMesh(("data", "model"), (2, 1),
                                  ("cpu", "meta"))
-    with pytest.raises(ValueError, match="share a device"):
+    with pytest.raises(ValueError, match="mixes device types"):
         make_train_step(model, opt, shard_ctx={"mesh": split,
                                                "dp": ("data",)})
     # gradients are born on the parameters' placements: grad_shardings

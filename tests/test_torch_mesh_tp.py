@@ -118,12 +118,14 @@ def test_split_matches_the_unsharded_forward_and_step(arch, shape):
 
 
 class _Tick:
-    """A stand-in for a CUDA event: the order it was recorded in."""
+    """A stand-in for a CUDA event on ``device``: the order it was
+    recorded in."""
     clock = 0
 
-    def __init__(self):
+    def __init__(self, device):
         _Tick.clock += 1
         self.at = _Tick.clock
+        self.device = torch.device(device)
 
     def elapsed_time(self, later):
         return float(later.at - self.at)
