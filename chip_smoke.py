@@ -287,7 +287,13 @@ runs, with every chip on a card of its own:
      norm, parameters and both moments bit for bit; K6 launches by card
      and by chip, bytes gathered a chip a period and moved between cards,
      the model-axis sums, each chip's forward and backward and each
-     card's spans (``SplitTally``), each card's peak, the wall time.
+     card's spans (``SplitTally``), each card's busy window on one clock,
+     each data group's model chips' backward overlap (at least half the
+     shorter chip's) and the two groups', each card's peak, the wall
+     time (below the one card's), every host wait with its stack.
+(o6) the same on ``make_host_mesh(1, 4, cards=4)`` against the one-card
+     (1, 4) mesh at microbatches=2: every model chip off the group's
+     card but the first, 384 K6 launches a chip.
 (o3) ``run_training`` on reduced longformer at --dp 2 --tp 2 --cards 4,
      uninterrupted and stopped at RUN_STOP, then resumed on
      ``plan_remesh(2, model_parallel=1)`` over ``cuda:0..1``: losses and
@@ -5286,7 +5292,8 @@ def ab_segment(parent, a, x) -> None:
 # and on the one-card (2, 2) mesh in the same call; (o3) run_training at
 # --dp 2 --tp 2 --cards 4 stopped and resumed on plan_remesh(2,
 # model_parallel=1) over cuda:0..1, against the same runs on one card;
-# (o4) compressed_psum over 4 cards against one card's chips
+# (o4) compressed_psum over 4 cards against one card's chips; (o6) the
+# (l1) step on make_host_mesh(1, 4, cards=4) against one card's (1, 4)
 
 NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, each way (a card's links)
 
@@ -5294,8 +5301,10 @@ NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, each way (a card's links)
 class _Wire:
     """While active, adds up the bytes every ``Tensor.to`` copies from
     one CUDA card to another: ``moved[(src, dst)]``, and ``graded``, the
-    copies whose source carries a gradient (autograd sends each such
-    gradient back over the same wire; those copies are not counted)."""
+    plain ``.to`` copies whose source carries a gradient (autograd's own
+    backward sends each such gradient back over the same wire, not
+    counted; ``sharding.card_copy`` copies in both directions through
+    ``Tensor.to``, so both count)."""
 
     def __enter__(self):
         self.moved = collections.Counter()
@@ -5682,32 +5691,121 @@ def cards_attention(n: int) -> dict:
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def cards_step(n: int) -> dict:
-    """(o2) (l1)'s longformer-1.4b step on ``make_host_mesh(2, 2,
-    cards=n)`` and on the one-card (2, 2) mesh from the same weights,
+class _HostWaits:
+    """``torch.cuda.set_sync_debug_mode("warn")`` while active: every
+    host wait on a card warns ("called a synchronizing CUDA operation"),
+    and ``stacks`` counts each wait's Python stack (the port's and this
+    script's frames, innermost first, and the innermost frame outside
+    ``warnings`` where it left Python); ``other`` counts the other
+    warnings' first lines, which pass on to the enclosing handler
+    (``_Deterministic``'s record)."""
+
+    SYNC = "called a synchronizing CUDA operation"
+
+    def __enter__(self):
+        import traceback
+        import warnings
+        self.stacks = collections.Counter()
+        self.other = collections.Counter()
+        self.orig = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if self.SYNC not in str(message):
+                self.other[str(message).split("\n")[0][:100]] += 1
+                warnings._showwarnmsg_impl(warnings.WarningMessage(
+                    message, category, filename, lineno, file, line))
+                return
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            ours = [f for f in frames if "repro_torch" in f.filename
+                    or f.filename.endswith("chip_smoke.py")]
+            keep = ours[-7:] + ([frames[-1]] if frames[-1] not in ours
+                                else [])
+            self.stacks[" < ".join(
+                f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                for f in reversed(keep))] += 1
+        # the switch itself may wait; the hook counts from here on
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = show
+        return self
+
+    def __exit__(self, *exc):
+        import warnings
+        torch.cuda.set_sync_debug_mode("default")
+        warnings.showwarning = self.orig
+        return False
+
+    def total(self) -> int:
+        return sum(self.stacks.values())
+
+
+def _warm_artifacts(cfg, devices) -> None:
+    """The sattn layers' attention artifact planned on every card (a
+    training loop plans it at its first step): its build copies the
+    mask's tables to the card, host waits outside the step."""
+    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.models.sparse_attention import _mask_and_artifact
+    for dev in dict.fromkeys(devices):
+        _mask_and_artifact(MESH_SEQ, cfg.head_dim,
+                           int(cfg.sparse_attn_window),
+                           int(cfg.sparse_attn_global), "auto",
+                           resolve_device(dev), None)
+
+
+def _groups_overlap(tally, mesh) -> dict:
+    """On the tally's common clock: each card's busy window and ms; for
+    each data group, the least over its model chips' pairs of their
+    backward spans' overlap over the shorter's busy ms (1: the chips'
+    backward ran at once; 0: in turn); each group's spans and the two
+    groups' overlap."""
+    from repro_torch.distributed.model_split import busy, overlap
+    cards = {}
+    for chip, dev in enumerate(mesh.devices):
+        cards.setdefault(dev, []).append(chip)
+    card_busy = {}
+    for dev, chips in cards.items():
+        spans = tally.intervals(chips)
+        card_busy[str(dev)] = (spans[0][0], spans[-1][1], busy(spans))
+    groups, shares = {}, {}
+    for chip in range(mesh.size):
+        groups.setdefault(mesh.coords(chip)["data"], []).append(chip)
+    for g, chips in groups.items():
+        back = [tally.intervals([c], "backward") for c in chips]
+        shares[g] = min(overlap(a, b) / max(min(busy(a), busy(b)), 1e-9)
+                        for i, a in enumerate(back) for b in back[i + 1:])
+    group_spans = {g: tally.intervals(c) for g, c in groups.items()}
+    both = (overlap(group_spans[0], group_spans[1])
+            if len(groups) > 1 else 0.0)
+    return {"cards": card_busy, "shares": shares, "both": both,
+            "group_busy": {g: busy(v) for g, v in group_spans.items()}}
+
+
+def cards_step(n: int, shape: tuple, microbatches: int, name: str,
+               inputs: tuple) -> dict:
+    """(o2)/(o6) (l1)'s longformer-1.4b step on ``make_host_mesh(*shape,
+    cards=n)`` and on the one-card ``shape`` mesh from the same weights,
     state and batch, both under deterministic algorithms: loss, grad
     norm, parameters and both moments bit for bit; K6 launches, bytes
     gathered and crossing cards, the model-axis sums, each chip's and
-    card's spans, each card's peak and the step's wall time."""
+    card's spans, each group's model chips' overlap, each card's peak,
+    the step's wall time and every host wait in it with its stack."""
     from repro_torch.distributed import sharding
     from repro_torch.distributed.model_split import SplitTally
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import AdamW
     from repro_torch.train import make_train_step
 
-    _, model, params, batch = l1_inputs()
+    t_part = time.perf_counter()
+    model, initial, batch = inputs
     cfg = model.cfg
-    initial = _host(params)
-    del params
-    torch.cuda.empty_cache()
     opt = AdamW(learning_rate=TRAIN_LR)
     top = sum(math.prod(initial[k].shape) * 4
               for k in ("embed", "final_norm", "lm_head"))
     runs = {}
     for cards in (n, 1):
-        mesh = make_host_mesh(data=MESH_SHAPE[0], model=MESH_SHAPE[1],
-                              cards=cards)
+        mesh = make_host_mesh(data=shape[0], model=shape[1], cards=cards)
         devices = list(dict.fromkeys(mesh.devices))
+        _warm_artifacts(cfg, devices)
         p_shard = sharding.param_shardings(model.param_shapes(), mesh)
         sp = sharding.shard_tree(initial, p_shard)
         state = opt.init(sp)
@@ -5715,6 +5813,7 @@ def cards_step(n: int) -> dict:
             batch, mesh))
         tally = SplitTally(mesh, timed=True)
         step = make_train_step(model, opt, remat="full",
+                               microbatches=microbatches,
                                shard_ctx={"mesh": mesh, "dp": ("data",),
                                           "tally": tally},
                                grad_shardings=p_shard)
@@ -5723,74 +5822,81 @@ def cards_step(n: int) -> dict:
         for d in devices:
             torch.cuda.reset_peak_memory_stats(d)
             base.append(torch.cuda.memory_allocated(d))
+        tally.begin()
         with _Deterministic() as det, \
                 _PlainCalls(("repro_torch.kernels.attn_fused",
                              "_Carry")) as plain, \
                 _CardLaunches(("repro_torch.kernels.ops",
                                "attn_fused_staged")) as k6, \
                 _Wire() as wire:
-            # every host wait inside the step warns (and is counted)
-            torch.cuda.set_sync_debug_mode("warn")
             t0 = time.perf_counter()
-            try:
+            # every host wait inside the step warns, with its stack
+            with _HostWaits() as waits:
                 sp, state, metrics = step(sp, state, sbatch)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
             sharding.synchronize(devices)
             wall = (time.perf_counter() - t0) * 1e3
-        syncs = collections.Counter(
-            f"{Path(r.filename).name}:{r.lineno}" for r in det.records
-            if "synchroniz" in str(r.message))
         peaks = [torch.cuda.max_memory_allocated(d) / 2 ** 30
                  for d in devices]
         held = [b / 2 ** 30 for b in base]
         assert plain.calls == 0, plain.calls
         (fwd, bwd), sum_ms = tally.chip_ms(), tally.sum_ms()
         card_ms = tally.card_ms()
+        ov = _groups_overlap(tally, mesh)
         m = {k: float(v) for k, v in metrics.items()}
         firsts = {c for c in range(mesh.size)
                   if mesh.coords(c)["model"] == 0}
         per_period = [(b - (top if c in firsts else 0))
-                      / (2 * cfg.num_periods)
+                      / (2 * cfg.num_periods * microbatches)
                       for c, b in enumerate(tally.gathered)]
-        log(f"cards/o2 longformer-1.4b step on {MESH_SHAPE} over {cards} "
+        log(f"cards/{name} longformer-1.4b step on {shape} over {cards} "
             f"card(s) ({[str(d) for d in mesh.devices]}), fp32, global "
-            f"batch {MESH_BATCH}, S = {MESH_SEQ}, remat full, deterministic "
-            f"algorithms: wall {wall:.1f} ms (host clock, every card "
-            f"synchronised); loss {m['loss']!r}, grad norm "
-            f"{m['grad_norm']!r}; K6 launches by card "
-            f"{k6.cards(cards)}, by chip {tally.attn}; bytes gathered a "
-            f"chip a period {[round(b / 1e6, 3) for b in per_period]} MB "
-            f"(the embedding, final norm and head, {top / 1e6:.1f} MB, "
-            f"once a group besides); Tensor.to copies between cards "
+            f"batch {MESH_BATCH}, microbatches {microbatches}, S = "
+            f"{MESH_SEQ}, remat full, deterministic algorithms: wall "
+            f"{wall:.1f} ms (host clock, every card synchronised); loss "
+            f"{m['loss']!r}, grad norm {m['grad_norm']!r}; K6 launches by "
+            f"card {k6.cards(cards)}, by chip {tally.attn}; bytes gathered "
+            f"a chip a period a microbatch "
+            f"{[round(b / 1e6, 3) for b in per_period]} MB (the embedding, "
+            f"final norm and head, {top / 1e6:.1f} MB, once a group a "
+            f"microbatch besides); Tensor.to copies between cards "
             f"{wire.total() / 1e9:.3f} GB "
             f"({ {f'{s_}->{d}': round(v / 1e9, 3) for (s_, d), v in sorted(wire.moved.items())} }"
-            f" GB), {wire.graded / 1e9:.3f} GB of them carrying a "
+            f" GB, the card copies' gradients back included), "
+            f"{wire.graded / 1e9:.3f} GB by a plain .to carrying a "
             f"gradient back (not counted); model-axis sums {tally.sums} "
             f"in {sum_ms:.4f} ms; by chip, forward and recompute "
             f"{[round(v, 1) for v in fwd]} ms, backward "
             f"{[round(v, 1) for v in bwd]} ms (CUDA events on each "
             f"chip's card); by card, in its chips' spans and sums "
             f"{ {str(d): round(v, 1) for d, v in card_ms.items()} } ms; "
-            f"peak memory by card {[round(p, 2) for p in peaks]} GiB "
-            f"(params, moments and batch held before the step "
-            f"{[round(h, 2) for h in held]} GiB); host waits on a card "
-            f"inside the step {sum(syncs.values())} "
-            f"({dict(syncs.most_common(6))}); ops without a "
-            f"deterministic CUDA form: {det.warned or 'none'}")
+            f"each card's busy window on one clock (first event, last "
+            f"event, busy ms) "
+            f"{ {d: tuple(round(x, 1) for x in v) for d, v in ov['cards'].items()} }; "
+            f"each data group's model chips' backward overlap, over the "
+            f"shorter's busy ms (least pair) "
+            f"{ {g: round(v, 3) for g, v in ov['shares'].items()} }; the "
+            f"groups' busy ms "
+            f"{ {g: round(v, 1) for g, v in ov['group_busy'].items()} }, "
+            f"overlapping {ov['both']:.1f} ms; peak memory by card "
+            f"{[round(p, 2) for p in peaks]} GiB (params, moments and "
+            f"batch held before the step {[round(h, 2) for h in held]} "
+            f"GiB); ops without a deterministic CUDA form: "
+            f"{det.warned or 'none'}; other warnings in the step "
+            f"{dict(waits.other) or 'none'}; host waits on a card inside "
+            f"the step {waits.total()}" + "".join(
+                f"\n    {c} x {st}" for st, c in waits.stacks.most_common()))
         assert tally.attn == [384] * mesh.size, tally.attn
         if cards == n:
             assert k6.cards(n) == [384 * mesh.size // n] * n, k6.by_card
-        runs[cards] = dict(metrics=m, wall=wall, peaks=peaks,
+        runs[cards] = dict(metrics=m, wall=wall, peaks=peaks, ov=ov,
                            trees=(_host(sp), _host(state.mu),
                                   _host(state.nu)))
         del sp, state, metrics, sbatch, step, tally
         gc.collect()
         torch.cuda.empty_cache()
-    del initial
     four, one = runs[n], runs[1]
     diffs = [_leaf_diffs(a, b) for a, b in zip(four["trees"], one["trees"])]
-    log(f"cards/o2 {n} cards against one card: loss "
+    log(f"cards/{name} {n} cards against one card: loss "
         f"{four['metrics']['loss']!r} vs {one['metrics']['loss']!r}, grad "
         f"norm {four['metrics']['grad_norm']!r} vs "
         f"{one['metrics']['grad_norm']!r}; leaves bit for bit: "
@@ -5798,12 +5904,43 @@ def cards_step(n: int) -> dict:
                     zip(("params", "mu", "nu"), diffs))
         + f"; wall {four['wall']:.1f} ms vs {one['wall']:.1f} ms; largest "
         f"card peak {max(four['peaks']):.2f} GiB vs {one['peaks'][0]:.2f} "
-        f"GiB on one card; cards {', '.join(card_line(i) for i in range(n))}")
+        f"GiB on one card ({time.perf_counter() - t_part:.1f} s); cards "
+        f"{', '.join(card_line(i) for i in range(n))}")
     assert four["metrics"] == one["metrics"], (four["metrics"],
                                                one["metrics"])
     assert all(s_ == t for s_, t, _ in diffs), diffs
     assert max(four["peaks"]) < one["peaks"][0]
-    return {"wall": four["wall"], "one_wall": one["wall"]}
+    assert four["wall"] < one["wall"], (four["wall"], one["wall"])
+    return {"wall": four["wall"], "one_wall": one["wall"],
+            "shares": four["ov"]["shares"]}
+
+
+def cards_steps(n: int) -> dict:
+    """(o2) on a (2, 2) mesh, (o6) on (1, 4) at microbatches=2 (batch 2
+    in one group at once would reckon ≈ 73 GiB on one card), from the
+    same weights and batch: (l1)'s."""
+    _, model, params, batch = l1_inputs()
+    inputs = (model, _host(params), batch)
+    del params
+    torch.cuda.empty_cache()
+    out = {}
+    for name, shape, mb in (("o2", MESH_SHAPE, 1), ("o6", (1, 4), 2)):
+        try:
+            out[name] = cards_step(n, shape, mb, name, inputs)
+        except Exception:
+            out.setdefault("failed", []).append(name)
+            import traceback
+            print(f"chip_smoke: part {name} failed:\n"
+                  f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "o2" in out:
+        # each data group's model chips computed their backward at once
+        shares = out["o2"]["shares"]
+        assert all(v >= 0.5 for v in shares.values()), shares
+    if "failed" in out:
+        raise RuntimeError(f"parts {out['failed']} failed")
+    return out
 
 
 def cards_resume(n: int) -> None:
@@ -5919,7 +6056,7 @@ def cards_copy_order() -> None:
 
 
 def cards_main(args) -> int:
-    """--cards 4: none of the default phases; (o1)-(o5) over four
+    """--cards 4: none of the default phases; (o1)-(o6) over four
     cards."""
     n = args.cards
     visible = torch.cuda.device_count()
@@ -5966,7 +6103,7 @@ def cards_main(args) -> int:
 
     rows = part("o1 spmm", spmm) or {}
     rows["attn_fused_sharded"] = part("o1 attention", cards_attention, n)
-    step = part("o2", cards_step, n)
+    steps = part("o2 and o6", cards_steps, n)
     part("o3", cards_resume, n)
     part("o4", cards_psum, n)
     part("o5", cards_copy_order)
@@ -5974,7 +6111,9 @@ def cards_main(args) -> int:
         print(f"chip_smoke: --cards {n}: {failed} failed", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s; the step over {n} "
-        f"cards {step['wall']:.1f} ms, on one card {step['one_wall']:.1f} ms")
+        f"cards against one card: " + "; ".join(
+            f"{k} {v['wall']:.1f} ms vs {v['one_wall']:.1f} ms"
+            for k, v in steps.items()))
     print(json.dumps({"kernels": [rows[k] for k in SHARDED_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

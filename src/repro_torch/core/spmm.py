@@ -102,9 +102,13 @@ __all__ = ["BACKENDS", "FUSED_BACKENDS", "X_SHARDING_MODES", "ChipMesh",
            "sparse_attention", "spmm"]
 
 # bound on the (nonzeros x d) products one SDDMM chunk holds at a time:
-# 2^25 float32 entries, 128 MiB for each of dY[rows] and X[cols]; the
-# attention backward's chunks of whole query rows keep to it as well
-SDDMM_CHUNK = 1 << 25
+# 2^28 float32 entries, 1 GiB for each of dY[rows] and X[cols]; the
+# attention backward's chunks of whole query rows, over every instance
+# of a call, keep to it as well.  Each such chunk costs the host ~45
+# dispatches, and the one host thread enqueues every card's: a longformer
+# layer's 8 instances a model chip (2.19 M nonzeros each at S = 4096)
+# take 9 chunks
+SDDMM_CHUNK = 1 << 28
 # the fused backends' dvals run K7 over pairs padded to a multiple of
 # this many, its default pair group
 SDDMM_T = 128
@@ -946,21 +950,37 @@ def spmm(a: CSRMatrix, x: torch.Tensor, *, strategy: str = "nnz_split",
 
 # -- the fused sparse-attention sandwich (DESIGN.md §13) ---------------------
 
+def _to_device(arr: np.ndarray, device: str) -> torch.Tensor:
+    """``arr`` on ``device``; to a card from pinned memory without a host
+    wait (the first backward builds its tables inside a training step)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class _Attend(torch.autograd.Function):
-    """The attention artifact's forward with the reference's custom VJP:
-    the gradients of the plain-torch formulation, recomputed; a gradient
-    nobody asked for is not computed."""
+    """The attention artifact's forward, over one instance or over a
+    batch of instances sharing the mask (each its own launch), with the
+    reference's custom VJP: the gradients of the plain-torch formulation
+    (:meth:`CompiledSparseAttention._ref_vjp`, every instance at once); a
+    gradient nobody asked for is not computed."""
 
     @staticmethod
     def forward(ctx, c: "CompiledSparseAttention", vals, q, k, v):
         ctx.c = c
-        ctx.save_for_backward(vals, q, k, v)
-        return c._forward(vals, q, k, v)
+        if q.dim() == 2:
+            y = c._forward(vals, q, k, v)
+        else:
+            y = torch.stack([c._forward(vals, *t) for t in zip(q, k, v)])
+        ctx.save_for_backward(vals, q, k, v, y)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        return (None, *ctx.c._ref_vjp(*ctx.saved_tensors, dy,
-                                      ctx.needs_input_grad[1:]))
+        vals, q, k, v, y = ctx.saved_tensors
+        return (None, *ctx.c._ref_vjp(vals, q, k, v, dy,
+                                      ctx.needs_input_grad[1:], y))
 
 
 class CompiledSparseAttention:
@@ -977,10 +997,13 @@ class CompiledSparseAttention:
     kernel in workspace order through ``workspace_row_map``, and the
     score matrix never reaches device memory.
 
-    Gradients: the backward differentiates :meth:`_ref_forward`, the
-    plain-torch formulation, recomputed in chunks of whole query rows of
-    at most ``SDDMM_CHUNK`` gathered entries per operand (the reference
-    takes ``jax.vjp`` of its jnp oracle).  It calls no kernel.
+    Gradients: the backward is the gradient of :meth:`_ref_forward`,
+    the plain-torch formulation, written out (:meth:`_ref_vjp`) and
+    recomputed in chunks of whole query rows of at most ``SDDMM_CHUNK``
+    gathered entries per operand (the reference takes ``jax.vjp`` of its
+    jnp oracle).  It calls no kernel.  Called on (N, rows, width)
+    operands, the N instances share the mask: each forward is a launch
+    of its own, and one backward covers them all.
 
     Sharded (``mesh``/``n_chips``), each chip runs its rows' descriptor
     shard with Q in its own workspace order
@@ -1030,6 +1053,7 @@ class CompiledSparseAttention:
         self._kv_rows_pad = -(-a.shape[1] // bk) * bk
         self._rows: Optional[torch.Tensor] = None
         self._cols: Optional[torch.Tensor] = None
+        self._chunks: dict = {}
 
         self._fused: Optional[_FusedConsts] = None
         self._sharded: Optional[_ShardedConsts] = None
@@ -1093,19 +1117,20 @@ class CompiledSparseAttention:
         """(nnz,) int64 query row and key column of every nonzero on the
         device, for the reference formulation (built on first use)."""
         if self._rows is None:
-            self._rows = torch.from_numpy(np.repeat(
-                np.arange(self.shape[0]), np.diff(self._row_ptr))).to(
-                    self.device)
-            self._cols = torch.from_numpy(
-                self._col_indices.astype(np.int64)).to(self.device)
+            self._rows = _to_device(np.repeat(
+                np.arange(self.shape[0]), np.diff(self._row_ptr)),
+                self.device)
+            self._cols = _to_device(self._col_indices.astype(np.int64),
+                                    self.device)
         return self._rows, self._cols
 
-    def row_chunks(self):
+    def row_chunks(self, instances: int = 1):
         """``[(r0, r1), ...]``: the query rows in consecutive runs of at
-        most ``SDDMM_CHUNK // max(dh, dv)`` nonzeros (a longer row is a
-        run of its own), so each run's gathered Q/K/V rows stay within
-        ``SDDMM_CHUNK`` entries per operand."""
-        limit = max(1, SDDMM_CHUNK // max(self.dh, self.dv, 1))
+        most ``SDDMM_CHUNK // (max(dh, dv) * instances)`` nonzeros (a
+        longer row is a run of its own), so each run's gathered Q/K/V rows
+        of ``instances`` instances stay within ``SDDMM_CHUNK`` entries per
+        operand."""
+        limit = max(1, SDDMM_CHUNK // (max(self.dh, self.dv, 1) * instances))
         rp, m = self._row_ptr, self.shape[0]
         chunks, r0 = [], 0
         while r0 < m:
@@ -1114,6 +1139,17 @@ class CompiledSparseAttention:
             chunks.append((r0, r1))
             r0 = r1
         return chunks
+
+    def _chunk_index(self, r0: int, r1: int):
+        """Rows ``[r0, r1)``'s nonzeros on the device: (their rows counted
+        from ``r0``, their rows, their columns), int64, kept."""
+        key = (r0, r1)
+        if key not in self._chunks:
+            rows, cols = self._expanded()
+            p0, p1 = int(self._row_ptr[r0]), int(self._row_ptr[r1])
+            self._chunks[key] = (rows[p0:p1] - r0, rows[p0:p1],
+                                 cols[p0:p1])
+        return self._chunks[key]
 
     def _ref_rows(self, vals, q, k, v, r0: int, r1: int) -> torch.Tensor:
         """The reference formulation for query rows ``[r0, r1)``:
@@ -1149,38 +1185,72 @@ class CompiledSparseAttention:
             out[r0:r1] = self._ref_rows(vals[p0:p1], q[r0:r1], k, v, r0, r1)
         return out
 
-    def _ref_vjp(self, vals, q, k, v, dy, needs):
+    def _ref_vjp(self, vals, q, k, v, dy, needs, y):
         """The gradients of :meth:`_ref_forward` for the inputs ``needs``
-        marks (vals, q, k, v), chunk by chunk of query rows: each chunk's
-        rows are recomputed under autograd and differentiated against
-        its rows of ``dy``; K and V gradients add up across chunks."""
+        marks (vals, q, k, v), of one instance or of N sharing the mask
+        (q, k, v, dy of (N, rows, width); vals' gradient sums over them),
+        written out rather than taken by autograd.  Over a row's
+        nonzeros, with t = z − zmax, p = w·exp(min(t, 0)), D = Σ p (1
+        where that is not > 0), P = p / D and out = Σ P·v: Δ = dy·out
+        (0 where D is 1) gives dp = (dy·v − Δ) / D, dz = p·dp (0 where t
+        clamps), dw = exp(min(t, 0))·dp, dq = scale·Σ dz·k, dk = scale·Σ
+        dz·q and dv = Σ P·dy; zmax only shifts t, so it carries none.
+        ``y`` is the forward's output.  Chunk by chunk of whole query
+        rows (:meth:`row_chunks`): a row's dq and dw come from its chunk
+        alone, and dk and dv add chunk after chunk in nonzero order, so
+        chunking does not change them."""
         if not any(needs):
             return None, None, None, None
-        inputs = [t.detach() for t in (vals, q, k, v)]
-        kl = inputs[2].requires_grad_(needs[2])
-        vl = inputs[3].requires_grad_(needs[3])
-        grads = [torch.zeros_like(t, dtype=torch.float32) if need else None
-                 for t, need in zip(inputs, needs)]
-        for r0, r1 in self.row_chunks():
+        one = q.dim() == 2
+        if one:
+            q, k, v, dy, y = (t[None] for t in (q, k, v, dy, y))
+        n_inst = q.shape[0]
+        w = vals.detach().float()
+        absent = w <= 0
+        qs = q.detach().float() * self.sm_scale
+        k32, v32 = k.detach().float(), v.detach().float()
+        dy = dy.float()
+        delta = (dy * y.float()).sum(-1)                    # (N, m)
+        dq = torch.zeros_like(qs) if needs[1] else None
+        dk = torch.zeros_like(k32) if needs[2] else None
+        dv = torch.zeros_like(v32) if needs[3] else None
+        dw = torch.zeros_like(w) if needs[0] else None
+        for r0, r1 in self.row_chunks(n_inst):
             p0, p1 = int(self._row_ptr[r0]), int(self._row_ptr[r1])
             if p1 == p0:
                 continue    # empty rows: output 0 whatever the inputs
-            with torch.enable_grad():
-                vc = inputs[0][p0:p1].detach().requires_grad_(needs[0])
-                qc = inputs[1][r0:r1].detach().requires_grad_(needs[1])
-                out = self._ref_rows(vc, qc, kl, vl, r0, r1)
-                wrt = [t for t, need in zip((vc, qc, kl, vl), needs) if need]
-                got = iter(torch.autograd.grad(out, wrt, dy[r0:r1]))
-            for i, span in enumerate(((p0, p1), (r0, r1), None, None)):
-                if not needs[i]:
-                    continue
-                g = next(got)
-                if span is None:
-                    grads[i] += g
-                else:
-                    grads[i][span[0]:span[1]] = g
+            local, rows, cols = self._chunk_index(r0, r1)
+            wc = w[p0:p1]
+            qr, kc = qs.index_select(1, rows), k32.index_select(1, cols)
+            z = (qr * kc).sum(-1)                           # (N, nnz)
+            zm = z.masked_fill(absent[p0:p1], -1e30)
+            zmax = torch.full((n_inst, r1 - r0), float("-inf"),
+                              device=z.device).scatter_reduce_(
+                1, local.expand(n_inst, -1), zm, "amax")
+            t = z - zmax.index_select(1, local)
+            x = t.clamp(max=0).exp_()
+            p = x * wc
+            den = torch.zeros_like(zmax).index_add_(1, local, p)
+            pos = den > 0
+            dyr = dy.index_select(1, rows)
+            dP = (dyr * v32.index_select(1, cols)).sum(-1)
+            D = torch.where(pos, den, 1.0).index_select(1, local)
+            dp = (dP - (delta[:, r0:r1] * pos).index_select(1, local)) / D
+            if dw is not None:
+                dw[p0:p1] = (x * dp).sum(0)
+            dz = (p * dp).masked_fill_(t > 0, 0.0)[..., None]
+            if dq is not None:
+                dq.index_add_(1, rows, (dz * self.sm_scale) * kc)
+            if dk is not None:
+                dk.index_add_(1, cols, dz * qr)
+            if dv is not None:
+                dv.index_add_(1, cols, (p / D)[..., None] * dyr)
+        out = [dw, dq, dk, dv]
+        if one:
+            out = [g if g is None or i == 0 else g[0]
+                   for i, g in enumerate(out)]
         return tuple(None if g is None else g.to(t.dtype)
-                     for g, t in zip(grads, (vals, q, k, v)))
+                     for g, t in zip(out, (vals, q, k, v)))
 
     def _check_operands(self, vals, q, k, v) -> None:
         m, n = self.shape
@@ -1263,6 +1333,9 @@ class CompiledSparseAttention:
         return y_ws[fw.inv_perm, :self.dv]
 
     def __call__(self, vals, q, k, v) -> torch.Tensor:
+        """``out`` (m, dv) of ``q`` (m, dh), ``k`` (n, dh), ``v`` (n, dv);
+        or of N instances sharing the mask, each (N, ...): (N, m, dv),
+        every instance's forward a launch of its own."""
         return _Attend.apply(self, vals, q, k, v)
 
 

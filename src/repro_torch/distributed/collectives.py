@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ..optim.compression import _quantize
-from .sharding import ChipMesh, LogicalMesh, aligned16, place_on_chips
+from .sharding import (ChipMesh, LogicalMesh, aligned16, card_copy,
+                       place_on_chips)
 
 
 def exact_panel_exchange(strips, send_tbl: Sequence[torch.Tensor],
@@ -170,10 +171,11 @@ def wire_bytes_ratio(shape: Tuple[int, ...]) -> float:
 
 def model_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     """The model-axis all-reduce: each chip's partial moved to
-    ``device`` and added in chip order (one part comes back as it is)."""
-    out = parts[0].to(device)
+    ``device`` (``card_copy``: from another card on a stream of its own)
+    and added in chip order (one part comes back as it is)."""
+    out = card_copy(parts[0], device)
     for p in parts[1:]:
-        out = out + p.to(device)
+        out = out + card_copy(p, device)
     return out
 
 
@@ -183,7 +185,7 @@ def vocab_max(shards: Sequence[torch.Tensor], device) -> torch.Tensor:
     It only shifts the exponentials, so it carries no gradient."""
     out = None
     for s in shards:
-        m = torch.amax(s.detach(), dim=-1).to(device)
+        m = card_copy(torch.amax(s.detach(), dim=-1), device)
         out = m if out is None else torch.maximum(out, m)
     return out
 
@@ -191,18 +193,22 @@ def vocab_max(shards: Sequence[torch.Tensor], device) -> torch.Tensor:
 def vocab_sumexp(shards: Sequence[torch.Tensor], top: torch.Tensor,
                  device) -> torch.Tensor:
     """Σ exp(logit - top) of each row over every shard: each chip sums
-    its own, then the chips' sums add in chip order."""
-    return model_sum([torch.sum(torch.exp(s - top.to(s.device)[..., None]),
-                                dim=-1) for s in shards], device)
+    its own, then the chips' sums add in chip order.  ``top`` goes to
+    every chip before the first chip's sum is enqueued."""
+    tops = [card_copy(top, s.device) for s in shards]
+    return model_sum([torch.sum(torch.exp(s - t[..., None]), dim=-1)
+                      for s, t in zip(shards, tops)], device)
 
 
 def vocab_target(shards: Sequence[torch.Tensor], starts: Sequence[int],
                  labels: torch.Tensor, device) -> torch.Tensor:
     """The logit of each row's label, from the chip whose shard (columns
-    ``starts[m]`` on) holds it; the other chips give 0."""
+    ``starts[m]`` on) holds it; the other chips give 0.  The labels go
+    to every chip first."""
     parts = []
-    for s, lo in zip(shards, starts):
-        local = labels.to(s.device).long() - lo
+    taken = [card_copy(labels, s.device) for s in shards]
+    for s, lo, lab in zip(shards, starts, taken):
+        local = lab.long() - lo
         mine = (local >= 0) & (local < s.shape[-1])
         picked = torch.gather(s, -1, local.clamp(0, s.shape[-1] - 1)[..., None])
         parts.append(torch.where(mine, picked[..., 0],

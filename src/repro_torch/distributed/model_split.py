@@ -10,19 +10,27 @@ columns, the experts, the vocabulary rows), which chips compute the
 block (:meth:`ModelSplit.chips_for`): every model coordinate when the
 rules split that dim over ``model``, else one computation on the group's
 device (``None``), since a rule that fell back to replication leaves
-every model chip the same work, which the port does once.  Chip ``m``
-then takes the part of each leaf it needs (:meth:`ModelSplit.take`:
+every model chip the same work, which the port does once.  A block
+runs through :meth:`ModelSplit.run` in two phases.  First every chip
+takes what it needs: the part of each leaf (:meth:`ModelSplit.take`:
 its own block, gathered over the data axis only, or the slice of a
-replicated leaf that its part of the block reads), computes its partial
-on its own device, and :meth:`ModelSplit.sum` adds the partials in chip
-order on the group's device (``collectives.model_sum``).  Without a
+replicated leaf that its part of the block reads) and its inputs
+(:meth:`ModelSplit.to`), each through a node of its own (a copy between
+cards on a stream of its own, ``sharding.card_copy``; a view on the
+chip's own card).  Then each chip computes its partial on its own
+device, and :meth:`ModelSplit.sum` adds the partials in chip order on
+the group's device (``collectives.model_sum``).  So no take waits
+behind another chip's part, the backward (later-made nodes first) runs
+every chip's part before any take's copy back, and each chip's gradient
+of an input adds as one term whatever card the chip lies on.  Without a
 mesh the split is one computation over plain tensors, the unsharded
 stack's own arithmetic.
 
 A :class:`SplitTally` (``shard_ctx["tally"]``) counts what each chip
 gathered and the attention artifact calls it made, and the model-axis
 sums; on request it times each sum, and each chip's part of every block
-in the forward and in the backward, with CUDA events.
+in the forward and in the backward, with CUDA events, on a clock
+common to the cards (:meth:`SplitTally.intervals`).
 """
 from __future__ import annotations
 
@@ -44,9 +52,10 @@ class SplitTally:
     and a ``timeline`` of CUDA events, in the order the host records
     them, each on its own device's stream: the start and end of each
     chip's part of a block, on the chip's device (a block computed once
-    counts on the group's first chip), and in the backward, a mark on
-    the gradient's device where the gradient of each leaf part a chip
-    took, or of a sum, is complete."""
+    counts on the group's first chip); in the backward, a ``"back"``
+    mark where the gradient of a chip's part output is complete (its
+    part's backward begins), and a ``"grad"`` mark where the gradient of
+    each leaf part or input a chip took, or of a sum, is complete."""
 
     def __init__(self, mesh: sharding.LogicalMesh, timed: bool = False):
         self.devices = mesh.devices
@@ -56,6 +65,14 @@ class SplitTally:
         self.timed = timed
         self.sum_spans: List[tuple] = []
         self.timeline: List[tuple] = []
+        self.zero: dict = {}
+
+    def begin(self) -> None:
+        """Synchronise the mesh's devices and record an event on each:
+        the common origin of :meth:`intervals` (each device idle, so
+        its event completes when the host records it)."""
+        sharding.synchronize(self.devices)
+        self.zero = {d: _event(d) for d in dict.fromkeys(self.devices)}
 
     def sum_ms(self) -> float:
         """The timed sums' milliseconds in all (synchronises)."""
@@ -63,52 +80,95 @@ class SplitTally:
         return sum(a.elapsed_time(b) for a, b in self.sum_spans)
 
     def _spans(self):
-        """Each span of the timeline a chip owns: ``(kind, chip,
-        device, ms)``, pairing an event only with the one before it on
-        its own device (synchronises).  The forward's spans run from a
-        chip part's start to its device's next event; the backward
-        walks the marks: the time up to a mark of chip ``c`` since its
-        device's last event is ``c``'s (the autograd engine runs a
-        later-made node first, so one chip's part of an attention, FFN
-        or head block runs whole before the next's; the recurrent slots'
-        chained loops interleave), the time up to a sum's mark or a
-        mark taken outside a chip's part is no chip's.  On one device
-        that is every event paired with the next."""
+        """Each span of the timeline a chip owns: ``(kind, chip, device,
+        start event, end event)``, pairing an event only with the one
+        before it on its own device (synchronises).  A span from a
+        part's start is that chip's forward (the recompute's included).
+        In the backward a device runs one chip's part from the chip's
+        ``"back"`` mark to its next ``"grad"`` mark (the chip's takes,
+        which the backward reaches after every part): each span in
+        between not from a start is that chip's backward; the spans up
+        to a sum's or a take's mark are no chip's.  On one device that is
+        every event paired with the next."""
         sharding.synchronize(self.devices)
-        last = {}
+        last, owner = {}, {}
         for kind, chip, ev in self.timeline:
             before = last.get(ev.device)
             last[ev.device] = (kind, chip, ev)
-            if before is None:
-                continue
-            if before[0] == "start":
-                yield "forward", before[1], ev.device, \
-                    before[2].elapsed_time(ev)
-            elif kind == "grad" and chip is not None:
-                yield "backward", chip, ev.device, \
-                    before[2].elapsed_time(ev)
+            if before is not None:
+                if before[0] == "start":
+                    yield "forward", before[1], ev.device, before[2], ev
+                elif owner.get(ev.device) is not None:
+                    yield "backward", owner[ev.device], ev.device, \
+                        before[2], ev
+            if kind == "back":
+                owner[ev.device] = chip
+            elif kind == "grad":
+                owner[ev.device] = None
 
     def chip_ms(self) -> Tuple[List[float], List[float]]:
         """Each chip's milliseconds (synchronises): ``(forward,
         backward)``.  The forward is its parts' spans, the recompute's
-        included; the backward its marks' spans (``_spans``).  The
-        loss's own forward and backward count with the head's last
-        chip."""
+        included; the backward its parts' backward spans (``_spans``).
+        The loss's own forward and backward count with the head's
+        chips."""
         fwd = [0.0] * len(self.attn)
         bwd = [0.0] * len(self.attn)
-        for kind, chip, _, ms in self._spans():
-            (fwd if kind == "forward" else bwd)[chip] += ms
+        for kind, chip, _, a, b in self._spans():
+            (fwd if kind == "forward" else bwd)[chip] += a.elapsed_time(b)
         return fwd, bwd
 
     def card_ms(self) -> dict:
         """Each device's milliseconds inside its chips' spans and the
         sums recorded on it (synchronises)."""
         out = dict.fromkeys(self.devices, 0.0)
-        for _, _, dev, ms in self._spans():
-            out[dev] += ms
+        for _, _, dev, a, b in self._spans():
+            out[dev] += a.elapsed_time(b)
         for a, b in self.sum_spans:
             out[a.device] += a.elapsed_time(b)
         return out
+
+    def intervals(self, chips=None, kind=None) -> List[Tuple[float, float]]:
+        """The spans of ``chips`` (default all) of ``kind`` (``"forward"``,
+        ``"backward"`` or both) as (start, end) milliseconds since their
+        device's :meth:`begin` event, merged where they meet: a common
+        clock for the devices (synchronises)."""
+        out = []
+        for k, chip, dev, a, b in self._spans():
+            if (chips is None or chip in chips) and kind in (None, k):
+                z = self.zero[dev]
+                out.append((z.elapsed_time(a), z.elapsed_time(b)))
+        return _union(out)
+
+
+def _union(spans) -> List[Tuple[float, float]]:
+    """(start, end) spans merged where they overlap or meet, in order."""
+    out: List[Tuple[float, float]] = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def busy(spans) -> float:
+    """The milliseconds merged ``spans`` cover."""
+    return sum(hi - lo for lo, hi in spans)
+
+
+def overlap(a, b) -> float:
+    """The milliseconds during which a span of merged ``a`` and one of
+    merged ``b`` run at once."""
+    out, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        out += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
 
 
 class _Event:
@@ -126,6 +186,16 @@ class _Event:
 _event = _Event
 
 
+def reach(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device`` through a node of its own: a copy from another
+    device (``sharding.card_copy``), a view where it lies there.  Each
+    chip's use of a tensor then sends its gradient back as one term, and
+    the term arrives when that node's backward runs, whichever device
+    the chip is on."""
+    out = sharding.card_copy(t, device)
+    return out.view_as(out) if out is t else out
+
+
 def _merged(ranges: Sequence[Range]) -> List[Range]:
     out: List[Range] = []
     for lo, hi in ranges:
@@ -141,13 +211,17 @@ class ModelSplit:
     of the chip at model coordinate ``m`` (the lowest whose batch-axis
     coordinates, row-major, are ``group``), ``devices[m]`` its device;
     ``device`` is the group's, where the residual stream lives.  With no
-    mesh there is one model coordinate and no chip index."""
+    mesh there is one model coordinate and no chip index.  ``ready``
+    (``sharding.written``, a step's start) is when the leaves' blocks
+    were last written: a gather from another card waits for it only."""
 
     def __init__(self, device, mesh: Optional[sharding.LogicalMesh] = None,
                  dp: Sequence[str] = (), group: int = 0,
-                 tally: Optional[SplitTally] = None):
-        self.device, self.tally = device, tally
-        self._body = None           # the chip whose part is running
+                 tally: Optional[SplitTally] = None,
+                 ready: Optional[dict] = None):
+        self.device, self.tally, self.ready = device, tally, ready
+        self._body = None           # the chip whose inputs or part run
+        self._in_part = False
         if mesh is None:
             self.tp, self.chips, self.devices = 1, (None,), (device,)
             return
@@ -169,12 +243,13 @@ class ModelSplit:
 
     @classmethod
     def of(cls, shard_ctx, device) -> "ModelSplit":
-        """The split ``shard_ctx`` names (its ``"group"``, default 0), or
-        the one computation of an unsharded call."""
+        """The split ``shard_ctx`` names (its ``"group"``, default 0, and
+        ``"ready"``), or the one computation of an unsharded call."""
         if shard_ctx is None:
             return cls(device)
         return cls(device, shard_ctx["mesh"], tuple(shard_ctx["dp"]),
-                   shard_ctx.get("group", 0), shard_ctx.get("tally"))
+                   shard_ctx.get("group", 0), shard_ctx.get("tally"),
+                   shard_ctx.get("ready"))
 
     def chips_for(self, leaf, dim: int) -> list:
         """The model coordinates that compute a block whose split dim is
@@ -209,37 +284,70 @@ class ModelSplit:
     def _timed(self) -> bool:
         return self.tally is not None and self.tally.timed
 
-    def _mark(self, t: torch.Tensor, chip) -> torch.Tensor:
-        """``t``; under a timed tally, a hook on it appends ``("grad",
-        chip, event)`` to the timeline when its gradient is complete.  A
-        hook adds no node to the graph, so the backward's arithmetic and
-        order are the untimed one's.  A leaf is not marked (its hook
-        would outlive the step)."""
-        if self._timed() and t.grad_fn is not None:
-            timeline = self.tally.timeline
-            t.register_hook(
-                lambda g: timeline.append(("grad", chip, _event(g.device))))
+    def _mark(self, t, chip, kind: str = "grad"):
+        """``t`` (a tensor, or a tuple of them: each); under a timed
+        tally, a hook on it appends ``(kind, chip, event)`` to the
+        timeline when its gradient is complete.  A hook adds no node to
+        the graph, so the backward's arithmetic and order are the untimed
+        one's.  A leaf is not marked (its hook would outlive the
+        step)."""
+        if not self._timed():
+            return t
+        timeline = self.tally.timeline
+        for x in (t if isinstance(t, tuple) else (t,)):
+            if isinstance(x, torch.Tensor) and x.grad_fn is not None:
+                x.register_hook(lambda g: timeline.append(
+                    (kind, chip, _event(g.device))))
         return t
 
-    def each(self, chips):
-        """The model chips ``chips`` in turn; under a timed tally each
-        chip's part, the loop body, is bracketed by CUDA events."""
-        timeline = self.tally.timeline if self._timed() else None
+    def run(self, chips, take, part) -> list:
+        """The model chips ``chips``' parts of a block: first every
+        chip's inputs and weights, ``take(m)`` (a tuple, each tensor
+        through a node of its own: :meth:`take`, :meth:`to`), then each
+        chip's ``part(m, *taken)`` in turn on its own device.  So the
+        takes are enqueued before the first part (a copy to chip ``m``
+        waits behind no other chip's part), and the backward, which runs
+        later-made nodes first, runs every chip's part before any take
+        (a copy back to the group's card waits behind no part).  Returns
+        the parts' outputs in chip order.  Under a timed tally each part
+        is bracketed by CUDA events and its outputs marked ``"back"``."""
+        taken = []
         for m in chips:
+            self._body = self.chip(m)
+            taken.append(take(m))
+        timeline = self.tally.timeline if self._timed() else None
+        outs = []
+        for m, args in zip(chips, taken):
             self._body = self.chip(m)
             if timeline is not None:
                 timeline.append(("start", self._body, _event(self.on(m))))
-            yield m
+            self._in_part = True
+            try:
+                out = part(m, *args)
+            finally:
+                self._in_part = False
             if timeline is not None:
                 timeline.append(("end", self._body, _event(self.on(m))))
-            self._body = None
+            outs.append(self._mark(out, self._body, "back"))
+        self._body = None
+        return outs
 
     def on(self, m) -> str:
         """Model chip ``m``'s device (``None``: the group's)."""
         return self.device if m is None else self.devices[m]
 
+    def _taking(self) -> None:
+        if self._in_part:
+            raise RuntimeError("a chip's inputs are taken ahead of the "
+                               "first chip's part (ModelSplit.run's take)")
+
     def to(self, t: torch.Tensor, m) -> torch.Tensor:
-        return t.to(self.on(m))
+        """``t`` on model chip ``m``'s device; with more than one model
+        chip through a node of its own (:func:`reach`)."""
+        self._taking()
+        if self.tp == 1:
+            return t.to(self.on(m))
+        return self._mark(reach(t, self.on(m)), self._body)
 
     def take(self, leaf, m=None, dim: Optional[int] = None,
              ranges: Sequence[Range] = ()) -> torch.Tensor:
@@ -247,22 +355,29 @@ class ModelSplit:
         the (start, stop) ``ranges``, concatenated in order.  A sharded
         leaf is gathered from the blocks that hold that part (for a
         leaf split over ``model`` on ``dim``, chip ``m``'s own range
-        reads its own blocks only); the bytes count on the chip."""
+        reads its own blocks only; a block on another card is copied on
+        a stream of its own, after ``ready``); the bytes count on the
+        chip.  With more than one model chip every take is a node of its
+        own (a block read whole where it lies comes back as a view)."""
+        self._taking()
         dev = self.on(m)
         whole = dim is None or _merged(ranges) == [(0, leaf.shape[dim])]
         if not sharding.is_sharded(leaf):
             if not whole:
                 leaf = torch.cat([leaf.narrow(dim, lo, hi - lo)
                                   for lo, hi in _merged(ranges)], dim)
-            return self._mark(leaf.to(dev), self._body)
+            out = leaf.to(dev) if self.tp == 1 else reach(leaf, dev)
+            return self._mark(out, self._body)
         full = [(0, n) for n in leaf.shape]
         if whole:
-            parts = [sharding.gather_slice(leaf, full, dev)]
+            parts = [sharding.gather_slice(leaf, full, dev, self.ready)]
         else:
             parts = [sharding.gather_slice(
-                leaf, full[:dim] + [r] + full[dim + 1:], dev)
+                leaf, full[:dim] + [r] + full[dim + 1:], dev, self.ready)
                 for r in _merged(ranges)]
         out = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+        if self.tp > 1 and any(out is b for b in leaf.blocks):
+            out = out.view_as(out)
         if self.tally is not None:
             self.tally.gathered[self.chip(m)] += \
                 out.numel() * out.element_size()
@@ -278,6 +393,13 @@ class ModelSplit:
         if self.tally.timed:
             self.tally.sum_spans.append((start, _event(self.device)))
         self.tally.sums += 1
+        return self._mark(out, None)
+
+    def cat(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """The chips' parts moved to the group's device and concatenated
+        along ``dim`` in chip order (one part: itself)."""
+        moved = [sharding.card_copy(p, self.device) for p in parts]
+        out = moved[0] if len(moved) == 1 else torch.cat(moved, dim)
         return self._mark(out, None)
 
     def count_attn(self, m, calls: int) -> None:

@@ -6,8 +6,9 @@ Two meshes live here, both single-controller: one process drives every
 chip, and a chip is a torch device, which may repeat, so four chips can
 share ``cuda:0`` or the CPU (the counterpart of the reference's
 ``--xla_force_host_platform_device_count`` virtual devices), or lie on
-four cards, where what moves between chips crosses NVLink as ``.to``
-copies (:func:`spread` lays chips out over cards).
+four cards, where what moves between chips crosses NVLink as copies on
+streams of their own (:func:`card_copy`; :func:`spread` lays chips out
+over cards).
 
 * :class:`ChipMesh` is the sharded fused path's 1-D ``("chips",)`` mesh
   (K8).  :func:`place_on_chips` is the counterpart of
@@ -298,6 +299,81 @@ def synchronize(devices) -> None:
     for dev in dict.fromkeys(torch.device(d) for d in devices):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+
+def written(devices) -> Dict[torch.device, Any]:
+    """An event on each CUDA card of ``devices``, recorded on its current
+    stream now: a tensor on that card written before this call is ready
+    once its card's event is (what :func:`card_copy` waits for)."""
+    out = {}
+    for dev in dict.fromkeys(_normalise(d) for d in devices):
+        if dev.type == "cuda":
+            out[dev] = torch.cuda.Event()
+            out[dev].record(torch.cuda.current_stream(dev))
+    return out
+
+
+_COPY_STREAMS: Dict[Tuple[torch.device, torch.device], Any] = {}
+
+
+def _copy_stream(src: torch.device, dst: torch.device):
+    """The copy stream of ``src`` that carries its copies to ``dst`` (one
+    a pair of cards, so a copy waits behind no other pair's)."""
+    key = (src, dst)
+    if key not in _COPY_STREAMS:
+        _COPY_STREAMS[key] = torch.cuda.Stream(device=src)
+    return _COPY_STREAMS[key]
+
+
+def _side_copy(t: torch.Tensor, device: torch.device, ready=None):
+    """``t`` copied to ``device``.  Between CUDA cards the copy runs on the
+    source card's copy stream for the pair, which waits for ``ready`` (an
+    event after ``t`` was written; None: recorded now on the source's
+    current stream) and for the destination's current stream, where the
+    copy is allocated; that stream then waits for the copy (PyTorch's
+    barrier of a copy between cards, on our stream in the source's
+    place), and the allocator learns that the copy stream read ``t``."""
+    if not (t.is_cuda and device.type == "cuda"):
+        return t.to(device, copy=True)
+    stream = _copy_stream(t.device, device)
+    if ready is None:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(t.device))
+    stream.wait_event(ready)
+    with torch.cuda.stream(stream):
+        out = t.to(device)
+    t.record_stream(stream)
+    return out
+
+
+class _CardCopy(torch.autograd.Function):
+    """A differentiable copy between devices whose backward copies the
+    gradient back the same way (:func:`_side_copy`, ``ready`` now)."""
+
+    @staticmethod
+    def forward(ctx, t, device, ready):
+        ctx.source = t.device
+        return _side_copy(t, device, ready)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _side_copy(grad, ctx.source), None, None
+
+
+def card_copy(t: torch.Tensor, device, ready=None) -> torch.Tensor:
+    """``t`` on ``device``: itself where it lies there; from one CUDA card
+    to another a copy on a stream of its own (:func:`_side_copy`: it
+    waits for ``ready``, or for ``t``'s producer, not behind the source
+    card's whole queue), whose gradient goes back on a stream of its own
+    too; otherwise ``t.to(device)``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = _normalise(device)
+    if t.device == device:
+        return t
+    if t.is_cuda and device.type == "cuda":
+        return _CardCopy.apply(t, device, ready)
+    return t.to(device)
 
 
 def logical_mesh(shape: Sequence[int], axis_names: Sequence[str],
@@ -606,14 +682,26 @@ def owned_range(placement: Placement, shape: Sequence[int],
 
 
 def gather_slice(sharded: ShardedTensor, index: Sequence[Range],
-                 device) -> torch.Tensor:
+                 device, ready: Optional[Dict] = None) -> torch.Tensor:
     """The part ``index`` (one (start, stop) range per dim) of the global
     tensor on ``device``: the blocks that hold it, cut to it, moved
     there and concatenated dim by dim, differentiably as :func:`gather`
     (a block read whole and already on ``device`` comes back
-    uncopied)."""
+    uncopied).  A block on another card moves by :func:`card_copy`, on
+    its card's copy stream for the pair, waiting only for its card's
+    event in ``ready`` (``{card: event}`` from :func:`written`, recorded
+    where the blocks were last written, e.g. a training step's start),
+    so a data group reading another group's blocks does not queue behind
+    that group's forward and backward; its gradient goes back the same
+    way.  Without an event the copy waits for what the block's card has
+    queued so far."""
+    ready = ready or {}
+
+    def move(block):
+        return card_copy(block, device, ready.get(block.device))
+
     if sharded.ndim == 0:
-        return sharded.blocks[0].to(device)
+        return move(sharded.blocks[0])
     grid = sharded.placement.grid(sharded.ndim)
     part = sharded.placement.shard_shape(tuple(sharded.shape))
     pieces = []
@@ -628,7 +716,7 @@ def gather_slice(sharded: ShardedTensor, index: Sequence[Range],
             block = sharded.blocks[int(np.ravel_multi_index(at, grid))]
             if any((a, b) != (0, n) for (a, b), n in zip(cut, part)):
                 block = block[tuple(slice(a, b) for a, b in cut)]
-            return block.to(device)
+            return move(block)
         rows = [assemble(dim + 1, at + (i,), cut + ((a, b),))
                 for i, a, b in pieces[dim]]
         return rows[0] if len(rows) == 1 else torch.cat(rows, dim)

@@ -5,7 +5,8 @@ mitigation, on the card (``device=None``) or the CPU (``"cpu"``), over a
 with ``cards`` > 1 laid out over that many cards, each a contiguous run
 of chips (``launch.mesh.make_host_mesh``; ``--cards 4`` on ``--dp 2 --tp
 2`` gives each chip a card): parameters, optimizer state and batch
-placed by ``distributed.sharding``'s rules, the data groups run in turn
+placed by ``distributed.sharding``'s rules, the data groups enqueued in
+turn and computing at once where they lie on cards of their own
 (``train.train_step``), each over its model chips: ``--tp`` splits
 compute as GSPMD's Megatron split does (heads, ``d_ff``, experts and
 vocabulary per chip, ``distributed/model_split.py``).

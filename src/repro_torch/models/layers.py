@@ -176,32 +176,35 @@ def attn_project_qkv(p, x, cfg_heads, cfg_kv_heads, head_dim, *, qk_norm,
     return q, k, v
 
 
-def attn_chips(split: ModelSplit, p, num_heads: int, num_kv_heads: int):
-    """For each chip that computes an attention block: ``(m, leaves,
-    idx)``, chip ``m``'s leaves (``wq``/``bq``/``wo`` of its query heads,
-    ``wk``/``wv``/``bk``/``bv`` of the KV heads those read, the norms
-    whole) and ``idx`` (``kv_heads``: None, or each local query head's
-    KV head, for :func:`per_head`).  ``wq`` (D, H, hd) and ``wo`` (H, hd,
-    D) carry the head on a dim of its own, so a split of it is whole
-    heads."""
+def attn_chips(split: ModelSplit, p) -> list:
+    """The model chips that compute an attention block (``chips_for``
+    of ``wq``'s heads).  ``wq`` (D, H, hd) and ``wo`` (H, hd, D) carry
+    the head on a dim of its own, so a split of it is whole heads."""
     chips = split.chips_for(p["wq"], 1)
     if split.chips_for(p["wo"], 0) != chips:
         raise ValueError("wq and wo must split the same heads")
-    for m in split.each(chips):
-        heads = split.owned(p["wq"], 1, m)
-        kv, idx = kv_heads(*heads, num_heads // num_kv_heads)
-        leaves = {"wq": split.take(p["wq"], m, 1, [heads]),
-                  "wk": split.take(p["wk"], m, 1, [kv]),
-                  "wv": split.take(p["wv"], m, 1, [kv]),
-                  "wo": split.take(p["wo"], m, 0, [heads])}
-        if "bq" in p:
-            leaves["bq"] = split.take(p["bq"], m, 0, [heads])
-            leaves["bk"] = split.take(p["bk"], m, 0, [kv])
-            leaves["bv"] = split.take(p["bv"], m, 0, [kv])
-        for name in ("q_norm", "k_norm"):
-            if name in p:
-                leaves[name] = split.take(p[name], m)
-        yield m, leaves, idx
+    return chips
+
+
+def attn_take(split: ModelSplit, p, num_heads: int, num_kv_heads: int, m):
+    """Chip ``m``'s ``(leaves, idx)`` of an attention block: ``wq``/
+    ``bq``/``wo`` of its query heads, ``wk``/``wv``/``bk``/``bv`` of the
+    KV heads those read, the norms whole, and ``idx`` (``kv_heads``:
+    None, or each local query head's KV head, for :func:`per_head`)."""
+    heads = split.owned(p["wq"], 1, m)
+    kv, idx = kv_heads(*heads, num_heads // num_kv_heads)
+    leaves = {"wq": split.take(p["wq"], m, 1, [heads]),
+              "wk": split.take(p["wk"], m, 1, [kv]),
+              "wv": split.take(p["wv"], m, 1, [kv]),
+              "wo": split.take(p["wo"], m, 0, [heads])}
+    if "bq" in p:
+        leaves["bq"] = split.take(p["bq"], m, 0, [heads])
+        leaves["bk"] = split.take(p["bk"], m, 0, [kv])
+        leaves["bv"] = split.take(p["bv"], m, 0, [kv])
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            leaves[name] = split.take(p[name], m)
+    return leaves, idx
 
 
 def per_head(t, idx):
@@ -228,9 +231,12 @@ def self_attention_layer(p, x, *, positions, head_dim, num_heads,
         raise ValueError("the model split runs the training forward: no "
                          "decode cache")
     h = rms_norm(x, split.take(p["ln"]), norm_eps)
-    parts = []
-    for m, lp, idx in attn_chips(split, p, num_heads, num_kv_heads):
-        hm, pos = split.to(h, m), split.to(positions, m)
+
+    def take(m):
+        return (*attn_take(split, p, num_heads, num_kv_heads, m),
+                split.to(h, m), split.to(positions, m))
+
+    def part(m, lp, idx, hm, pos):
         q, k, v = attn_project_qkv(lp, hm, num_heads, num_kv_heads,
                                    head_dim, qk_norm=qk_norm,
                                    norm_eps=norm_eps)
@@ -249,9 +255,9 @@ def self_attention_layer(p, x, *, positions, head_dim, num_heads,
             out = gqa_attention(q, k, v, q_positions=pos,
                                 kv_positions=kv_positions, causal=causal,
                                 window=window, chunk_q=chunk_q)
-        parts.append(torch.einsum("bshk,hkd->bsd", out,
-                                  lp["wo"].to(x.dtype)))
-    return x + split.sum(parts)
+        return torch.einsum("bshk,hkd->bsd", out, lp["wo"].to(x.dtype))
+
+    return x + split.sum(split.run(attn_chips(split, p), take, part))
 
 
 def cross_attention_layer(p, x, kv_src, *, head_dim, num_heads,
@@ -265,9 +271,12 @@ def cross_attention_layer(p, x, kv_src, *, head_dim, num_heads,
     split = split or ModelSplit(x.device)
     h = rms_norm(x, split.take(p["ln"]), norm_eps)
     kv = rms_norm(kv_src, split.take(p["ln_kv"]), norm_eps)
-    parts = []
-    for m, lp, idx in attn_chips(split, p, num_heads, num_kv_heads):
-        hm, kvm = split.to(h, m), split.to(kv, m)
+
+    def take(m):
+        return (*attn_take(split, p, num_heads, num_kv_heads, m),
+                split.to(h, m), split.to(kv, m))
+
+    def part(m, lp, idx, hm, kvm):
         q = torch.einsum("bsd,dhk->bshk", hm, lp["wq"].to(x.dtype))
         k = torch.einsum("bsd,dhk->bshk", kvm, lp["wk"].to(x.dtype))
         v = torch.einsum("bsd,dhk->bshk", kvm, lp["wv"].to(x.dtype))
@@ -281,10 +290,10 @@ def cross_attention_layer(p, x, kv_src, *, head_dim, num_heads,
         kpos = torch.zeros((B, Sk), dtype=torch.int32, device=q.device)
         out = gqa_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
                             causal=False, chunk_q=chunk_q)
-        parts.append(torch.einsum("bshk,hkd->bsd", out,
-                                  lp["wo"].to(x.dtype)))
+        return torch.einsum("bshk,hkd->bsd", out, lp["wo"].to(x.dtype))
+
     gate = torch.tanh(split.take(p["gate"]).float()).to(x.dtype)
-    return x + gate * split.sum(parts)
+    return x + gate * split.sum(split.run(attn_chips(split, p), take, part))
 
 
 # ---------------------------------------------------------------------------
@@ -297,17 +306,18 @@ def swiglu_mlp(p, x, *, norm_eps=1e-5, split: Optional[ModelSplit] = None):
     and rows of W_down."""
     split = split or ModelSplit(x.device)
     h = rms_norm(x, split.take(p["ln"]), norm_eps)
-    chips = split.chips_for(p["w_gate"], 1)
-    parts = []
-    for m in split.each(chips):
+
+    def take(m):
         cols = [split.owned(p["w_gate"], 1, m)]
-        hm = split.to(h, m)
-        g = torch.einsum("bsd,df->bsf", hm,
-                         split.take(p["w_gate"], m, 1, cols).to(x.dtype))
-        u = torch.einsum("bsd,df->bsf", hm,
-                         split.take(p["w_up"], m, 1, cols).to(x.dtype))
+        return (split.to(h, m), split.take(p["w_gate"], m, 1, cols),
+                split.take(p["w_up"], m, 1, cols),
+                split.take(p["w_down"], m, 0, cols))
+
+    def part(m, hm, w_gate, w_up, w_down):
+        g = torch.einsum("bsd,df->bsf", hm, w_gate.to(x.dtype))
+        u = torch.einsum("bsd,df->bsf", hm, w_up.to(x.dtype))
         act = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-        parts.append(torch.einsum(
-            "bsf,fd->bsd", act,
-            split.take(p["w_down"], m, 0, cols).to(x.dtype)))
-    return x + split.sum(parts)
+        return torch.einsum("bsf,fd->bsd", act, w_down.to(x.dtype))
+
+    chips = split.chips_for(p["w_gate"], 1)
+    return x + split.sum(split.run(chips, take, part))

@@ -95,16 +95,21 @@ def mamba_block(p: Dict, x: torch.Tensor, *, state_dim: int,
 
     h = rms_norm(x, split.take(p["ln"]), norm_eps)
     chips = split.chips_for(p["conv_w"], 1)
-    ranges = [split.owned(p["conv_w"], 1, m) for m in chips]
 
     # per chip: its x and z channels, the conv, and its x_proj partial
-    convs, proj_parts = [], []
-    for m, (lo, hi) in zip(split.each(chips), ranges):
-        w_in = split.take(p["in_proj"], m, 1, [(lo, hi), (Di + lo, Di + hi)])
-        xz = torch.einsum("bsd,de->bse", split.to(h, m), w_in.to(h.dtype))
+    def take_in(m):
+        lo, hi = split.owned(p["conv_w"], 1, m)
+        return (lo, hi, split.to(h, m),
+                split.take(p["in_proj"], m, 1, [(lo, hi), (Di + lo, Di + hi)]),
+                split.take(p["conv_w"], m, 1, [(lo, hi)]),
+                split.take(p["conv_b"], m, 0, [(lo, hi)]),
+                split.take(p["x_proj"], m, 0, [(lo, hi)]))
+
+    def conv_part(m, lo, hi, hm, w_in, conv_w, conv_b, x_proj):
+        nonlocal conv_buf
+        xz = torch.einsum("bsd,de->bse", hm, w_in.to(h.dtype))
         xi, z = torch.chunk(xz, 2, dim=-1)                   # (B,S,Di_m)
-        conv_w = split.take(p["conv_w"], m, 1, [(lo, hi)]).to(xi.dtype)
-        conv_b = split.take(p["conv_b"], m, 0, [(lo, hi)]).to(xi.dtype)
+        conv_w, conv_b = conv_w.to(xi.dtype), conv_b.to(xi.dtype)
 
         # causal depthwise conv (width K)
         if init_state is not None and S == 1:
@@ -118,29 +123,35 @@ def mamba_block(p: Dict, x: torch.Tensor, *, state_dim: int,
             # the reference assigns conv_buf twice; the second one stands
             conv_buf = xp[:, -(conv_width - 1):]
         xc = F.silu(xc.float()).to(xi.dtype)
-        convs.append((xc, z))
         # input-dependent SSM parameters: a partial sum over channels
-        proj_parts.append(torch.einsum(
-            "bsd,dr->bsr", xc,
-            split.take(p["x_proj"], m, 0, [(lo, hi)]).to(xc.dtype)))
-    proj = split.sum(proj_parts)
+        return (torch.einsum("bsd,dr->bsr", xc, x_proj.to(xc.dtype)), xc,
+                z)
+
+    conv_buf = None
+    firsts = dict(zip(chips, split.run(chips, take_in, conv_part)))
+    proj = split.sum([firsts[m][0] for m in chips])
     dt_low, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
 
-    parts = []
-    for m, (lo, hi), (xc, z) in zip(split.each(chips), ranges, convs):
-        cols = [(lo, hi)]
-        dtl, Bc, Cc = (split.to(t, m) for t in (dt_low, Bm, Cm))
+    def take_scan(m):
+        cols = [split.owned(p["conv_w"], 1, m)]
+        return (*firsts[m][1:], *(split.to(t, m) for t in (dt_low, Bm, Cm)),
+                *(split.take(p[n], m, d, cols) for n, d in
+                  (("dt_proj", 1), ("dt_bias", 0), ("A_log", 0), ("D", 0),
+                   ("out_proj", 0))))
+
+    def scan_part(m, xc, z, dtl, Bc, Cc, dt_proj, dt_bias, A_log, D_m,
+                  out_proj):
+        nonlocal h_last
         dt = F.softplus(
-            torch.einsum("bsr,rd->bsd", dtl,
-                         split.take(p["dt_proj"], m, 1, cols).to(xc.dtype))
-            .float() + split.take(p["dt_bias"], m, 0, cols).float())
-        A = -torch.exp(split.take(p["A_log"], m, 0, cols).float())  # (Di,N)
+            torch.einsum("bsr,rd->bsd", dtl, dt_proj.to(xc.dtype)).float()
+            + dt_bias.float())
+        A = -torch.exp(A_log.float())                        # (Di,N)
         a = torch.exp(dt[..., None] * A)                     # (B,S,Di,N)
         b = (dt[..., None] * Bc[:, :, None, :].float()
              * xc[..., None].float())                        # (B,S,Di,N)
 
         h0 = (init_state["ssm"] if init_state is not None
-              else torch.zeros((B, hi - lo, N), dtype=torch.float32,
+              else torch.zeros((B, xc.shape[-1], N), dtype=torch.float32,
                                device=xc.device))
 
         if S == 1:
@@ -163,12 +174,12 @@ def mamba_block(p: Dict, x: torch.Tensor, *, state_dim: int,
                 del states
             y = torch.cat(ys, dim=1)
 
-        y = y + xc.float() * split.take(p["D"], m, 0, cols).float()
+        y = y + xc.float() * D_m.float()
         y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-        parts.append(torch.einsum(
-            "bse,ed->bsd", y,
-            split.take(p["out_proj"], m, 0, cols).to(y.dtype)))
-    res = x + split.sum(parts)
+        return torch.einsum("bse,ed->bsd", y, out_proj.to(y.dtype))
+
+    h_last = None
+    res = x + split.sum(split.run(chips, take_scan, scan_part))
     if return_state:
         return res, {"ssm": h_last, "conv": conv_buf}
     return res

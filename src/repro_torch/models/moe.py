@@ -72,21 +72,24 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
     by_expert = sharding.is_sharded(w) and \
         sharding.model_dim(w.placement, w.ndim) == 0
     chips = split.chips_for(w, 0 if by_expert else 2)
-    parts = []
-    for m in split.each(chips):
-        ids, sl, hm, E = expert_ids, slots, split.to(h, m), num_experts
+
+    def take(m):
+        ids, sl, E = expert_ids, slots, num_experts
         if by_expert:
             lo, hi = split.owned(w, 0, m)
             if (lo, hi) != (0, num_experts):
                 ids, sl, E = *_mine(ids, sl, lo, hi, C), hi - lo
-            w_gate, w_up, w_down = (split.take(p[n], m, 0, [(lo, hi)])
-                                    for n in ("w_gate", "w_up", "w_down"))
+            ws = tuple(split.take(p[n], m, 0, [(lo, hi)])
+                       for n in ("w_gate", "w_up", "w_down"))
         else:
             cols = [split.owned(w, 2, m)]
-            w_gate, w_up = (split.take(p[n], m, 2, cols)
-                            for n in ("w_gate", "w_up"))
-            w_down = split.take(p["w_down"], m, 1, cols)
-        ids, sl = split.to(ids, m), split.to(sl, m)
+            ws = (split.take(p["w_gate"], m, 2, cols),
+                  split.take(p["w_up"], m, 2, cols),
+                  split.take(p["w_down"], m, 1, cols))
+        return (E, split.to(h, m), split.to(ids, m), split.to(sl, m),
+                split.to(gates, m), *ws)
+
+    def part(m, E, hm, ids, sl, gm, w_gate, w_up, w_down):
         xe = torch.stack([moe_spmm.dispatch(hm[b], ids[b], sl[b], E, C)
                           for b in range(B)])              # (B,E,C,D)
         g = torch.einsum("becd,edf->becf", xe, w_gate.to(xe.dtype))
@@ -94,11 +97,11 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
         act = torch.nn.functional.silu(g.float()).to(xe.dtype) * u
         del g, u
         oe = torch.einsum("becf,efd->becd", act, w_down.to(xe.dtype))
-        gm = split.to(gates, m).to(oe.dtype)
-        parts.append(torch.stack([moe_spmm.combine(oe[b], gm[b], ids[b],
-                                                   sl[b])
-                                  for b in range(B)]))     # (B,S,D)
-    out = split.sum(parts)
+        gm = gm.to(oe.dtype)
+        return torch.stack([moe_spmm.combine(oe[b], gm[b], ids[b], sl[b])
+                            for b in range(B)])            # (B,S,D)
+
+    out = split.sum(split.run(chips, take, part))
 
     # aux losses: switch load-balance + router z-loss
     probs = torch.softmax(logits, dim=-1)                  # (B,S,E)

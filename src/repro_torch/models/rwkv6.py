@@ -94,28 +94,34 @@ def time_mix(p: Dict, x, *, num_heads: int, head_dim: int,
                   split.take(p["lora_w_b"])).reshape(B, S, H, N)
     inputs = {name: mixed(name) for name in ("r", "k", "v", "g")}
     chips = split.chips_for(p["w_r"], 1)
-    parts = []
-    for m in split.each(chips):
+
+    def take(m):
         heads = [split.owned(p["w_r"], 1, m)]
         lo, hi = heads[0]
-
-        def proj(name):
-            return torch.einsum("bsd,dhn->bshn", split.to(inputs[name], m),
-                                split.take(p[f"w_{name}"], m, 1,
-                                           heads).to(h.dtype))
-
-        def by_head(name):
-            return split.take(p[name], m, 0, heads).float()
-
-        r, k, v, g = proj("r"), proj("k"), proj("v"), proj("g")
         wl = wlora if (lo, hi) == (0, H) else wlora[:, :, lo:hi]
-        wraw = by_head("w0") + split.to(wl, m)
+        return (*(split.to(inputs[n], m) for n in ("r", "k", "v", "g")),
+                *(split.take(p[f"w_{n}"], m, 1, heads)
+                  for n in ("r", "k", "v", "g")),
+                split.to(wl, m),
+                *(split.take(p[n], m, 0, heads)
+                  for n in ("w0", "u", "gn_w", "gn_b", "w_o")))
+
+    def part(m, xr, xk, xv, xg, w_r, w_k, w_v, w_g, wl, w0, u, gn_w, gn_b,
+             w_o):
+        nonlocal state
+
+        def proj(xm, w):
+            return torch.einsum("bsd,dhn->bshn", xm, w.to(h.dtype))
+
+        r, k, v, g = proj(xr, w_r), proj(xk, w_k), proj(xv, w_v), \
+            proj(xg, w_g)
+        wraw = w0.float() + wl
         w = torch.exp(-torch.exp(wraw))                  # (B,S,Hl,N) in (0,1)
 
         rf, kf, vf = (t.float() for t in (r, k, v))
-        u = by_head("u")                                 # (Hl,N)
+        u = u.float()                                    # (Hl,N)
         state = (init_state["wkv"] if init_state is not None
-                 else torch.zeros((B, hi - lo, N, N), dtype=torch.float32,
+                 else torch.zeros((B, w0.shape[0], N, N), dtype=torch.float32,
                                   device=r.device))
 
         if S <= chunk:
@@ -126,12 +132,12 @@ def time_mix(p: Dict, x, *, num_heads: int, head_dim: int,
                                  f"a multiple of it")
             outs = []
             for c0 in range(0, S, chunk):
-                part = tuple(t[:, c0:c0 + chunk] for t in (rf, kf, vf, w))
+                piece = tuple(t[:, c0:c0 + chunk] for t in (rf, kf, vf, w))
                 if torch.is_grad_enabled():
-                    state, o = checkpoint(_wkv_chunk, state, *part, u,
+                    state, o = checkpoint(_wkv_chunk, state, *piece, u,
                                           use_reentrant=False)
                 else:
-                    state, o = _wkv_chunk(state, *part, u)
+                    state, o = _wkv_chunk(state, *piece, u)
                 outs.append(o)
             out = torch.cat(outs, dim=1)
 
@@ -139,11 +145,12 @@ def time_mix(p: Dict, x, *, num_heads: int, head_dim: int,
         mu = torch.mean(out, dim=-1, keepdim=True)
         var = torch.var(out, dim=-1, keepdim=True, correction=0)
         out = (out - mu) * torch.rsqrt(var + norm_eps)
-        out = out * by_head("gn_w") + by_head("gn_b")
+        out = out * gn_w.float() + gn_b.float()
         out = out.to(x.dtype) * F.silu(g.float()).to(x.dtype)
-        parts.append(torch.einsum("bshn,hnd->bsd", out,
-                                  split.take(p["w_o"], m, 0,
-                                             heads).to(x.dtype)))
+        return torch.einsum("bshn,hnd->bsd", out, w_o.to(x.dtype))
+
+    state = None
+    parts = split.run(chips, take, part)
     res = x + split.sum(parts)
     if return_state:
         return res, {"wkv": state, "x_prev_tm": h[:, -1]}
@@ -165,30 +172,35 @@ def channel_mix(p: Dict, x, *, norm_eps: float = 1e-5,
     dx = hp - h
     hk = h + dx * split.take(p["mu_k"]).to(h.dtype)
     hr = h + dx * split.take(p["mu_r"]).to(h.dtype)
-    chips = split.chips_for(p["w_k"], 1)
-    parts = []
-    for m in split.each(chips):
+
+    def take_k(m):
         cols = [split.owned(p["w_k"], 1, m)]
-        kk = torch.einsum("bsd,df->bsf", split.to(hk, m),
-                          split.take(p["w_k"], m, 1, cols).to(h.dtype))
+        return (split.to(hk, m), split.take(p["w_k"], m, 1, cols),
+                split.take(p["w_v"], m, 0, cols))
+
+    def key_part(m, hkm, w_k, w_v):
+        kk = torch.einsum("bsd,df->bsf", hkm, w_k.to(h.dtype))
         kk = torch.square(torch.relu(kk.float())).to(h.dtype)
-        parts.append(torch.einsum(
-            "bsf,fd->bsd", kk, split.take(p["w_v"], m, 0, cols).to(h.dtype)))
-    vv = split.sum(parts)
+        return torch.einsum("bsf,fd->bsd", kk, w_v.to(h.dtype))
+
+    vv = split.sum(split.run(split.chips_for(p["w_k"], 1), take_k,
+                             key_part))
+
     # the receptance gate multiplies the summed output: each chip gates
     # its own w_r columns of the sum
-    chips = split.chips_for(p["w_r"], 1)
-    gated = []
-    for m in split.each(chips):
+    def take_r(m):
         lo, hi = split.owned(p["w_r"], 1, m)
-        rr = torch.sigmoid(
-            torch.einsum("bsd,de->bse", split.to(hr, m),
-                         split.take(p["w_r"], m, 1,
-                                    [(lo, hi)]).to(h.dtype)).float()
-        ).to(h.dtype)
         vm = vv if (lo, hi) == (0, D) else vv[..., lo:hi]
-        gated.append(split.to(rr * split.to(vm, m), None))
-    res = x + (gated[0] if len(gated) == 1 else torch.cat(gated, dim=-1))
+        return (split.to(hr, m), split.take(p["w_r"], m, 1, [(lo, hi)]),
+                split.to(vm, m))
+
+    def gate_part(m, hrm, w_r, vm):
+        rr = torch.sigmoid(torch.einsum("bsd,de->bse", hrm,
+                                        w_r.to(h.dtype)).float()).to(h.dtype)
+        return rr * vm
+
+    res = x + split.cat(split.run(split.chips_for(p["w_r"], 1), take_r,
+                                  gate_part), -1)
     if return_state:
         return res, {"x_prev_cm": h[:, -1]}
     return res

@@ -8,8 +8,10 @@ fused SDDMM → online softmax → S·V artifact
 (:func:`~repro_torch.core.compile_sparse_attention`).  The (batch, head)
 instances all share one structure, so they share one artifact; each is
 one fused launch, with the score matrix never in device memory.  The
-layer loops over (batch, head) as the reference does; under a model
-split (``distributed.model_split``) each model chip loops over its own
+layer calls the artifact once on all its (batch, head) instances: a
+launch each, as the reference's loop over them, and one backward over
+them all, each chunk of it over every instance.  Under a model split
+(``distributed.model_split``) each model chip calls it on its own
 heads only, so K6 is launched per chip on its own heads, against the
 one shared artifact.
 """
@@ -77,8 +79,9 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
 
     ``p`` holds ``ln`` (D,), ``wq`` (D, H, hd), ``wk``/``wv``
     (D, KV, hd) and ``wo`` (H, hd, D); ``x`` is (B, S, D) and
-    ``positions`` (B, S).  The attend step runs the fused artifact per
-    (batch, head) with GQA head sharing (kv head = h // (H // KV)).
+    ``positions`` (B, S).  The attend step runs the fused artifact on
+    every (batch, head) at once with GQA head sharing (kv head = h //
+    (H // KV)).
     ``device`` is resolved as for every entry point (the card unless
     ``"cpu"``) and joins the artifact's cache key; ``staging`` is the
     artifact's (``None`` = the card's ``"dma"``: K6; ``"resident"``:
@@ -92,28 +95,36 @@ def sparse_self_attention_layer(p, x, *, positions, head_dim, num_heads,
     split = split or ModelSplit(device)
     B, S, _ = x.shape
     h = layers.rms_norm(x, split.take(p["ln"]), norm_eps)
-    parts = []
-    for m, lp, idx in layers.attn_chips(split, p, num_heads, num_kv_heads):
-        dev = resolve_device(split.on(m))
-        hm, pos = split.to(h, m), split.to(positions, m)
+
+    def take(m):
+        # the chip's artifact too: its first build on a card copies the
+        # mask's tables there, a host wait kept out of the parts
+        art = _mask_and_artifact(S, head_dim, int(window), int(num_global),
+                                 backend, resolve_device(split.on(m)),
+                                 staging)
+        return (*layers.attn_take(split, p, num_heads, num_kv_heads, m),
+                split.to(h, m), split.to(positions, m), *art)
+
+    def part(m, lp, idx, hm, pos, a, art):
         q, k, v = layers.attn_project_qkv(lp, hm, num_heads, num_kv_heads,
                                           head_dim, qk_norm=qk_norm,
                                           norm_eps=norm_eps)
         q = layers.apply_rope(q, pos, rope_theta)
         k = layers.apply_rope(k, pos, rope_theta)
         k, v = layers.per_head(k, idx), layers.per_head(v, idx)
-        a, art = _mask_and_artifact(S, head_dim, int(window),
-                                    int(num_global), backend, dev, staging)
-        H, G = q.shape[2], q.shape[2] // k.shape[2]
-        outs = []
-        for b in range(B):
-            per_head = [art(a.vals, q[b, :, hh, :].float(),
-                            k[b, :, hh // G, :].float(),
-                            v[b, :, hh // G, :].float())
-                        for hh in range(H)]
-            outs.append(torch.stack(per_head, dim=1))      # (S, H, hd)
+        H = q.shape[2]
+
+        def instances(t):
+            # (B, S, heads, hd) -> (B·H, S, hd), query head hh reading
+            # KV head hh // (H // heads)
+            t = t[:, :, :, None].expand(B, S, t.shape[2], H // t.shape[2],
+                                        t.shape[3]).reshape(B, S, H, -1)
+            return t.permute(0, 2, 1, 3).reshape(B * H, S, -1).float()
+
+        # one call: a K6 launch each (batch, head), one backward for all
+        y = art(a.vals, instances(q), instances(k), instances(v))
         split.count_attn(m, B * H)
-        out = torch.stack(outs, dim=0).to(x.dtype)         # (B, S, H, hd)
-        parts.append(torch.einsum("bshk,hkd->bsd", out,
-                                  lp["wo"].to(x.dtype)))
-    return x + split.sum(parts)
+        out = y.reshape(B, H, S, -1).permute(0, 2, 1, 3).to(x.dtype)
+        return torch.einsum("bshk,hkd->bsd", out, lp["wo"].to(x.dtype))
+
+    return x + split.sum(split.run(layers.attn_chips(split, p), take, part))

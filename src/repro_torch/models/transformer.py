@@ -28,10 +28,12 @@ default 0; the data axes' split of the batch, the reference's
 that group's model chips, the Megatron split of GSPMD under the
 reference's ``tp`` rules (``distributed/model_split.py``): inside each
 period's body (so ``remat="full"`` regathers in the recompute) each
-block asks which chips compute it, and chip ``m`` gathers over the data
+block asks which chips compute it, chip ``m`` gathers over the data
 axis only its own part of each leaf (its heads, ``d_ff`` columns,
 experts, ``d_inner`` channels) with differentiable ops, so gradients
-land on the blocks, and computes a partial output; the partials add in
+land on the blocks, and takes its inputs, every chip's before the first
+chip's part (``ModelSplit.run``), then computes a partial output on its
+own device; the partials add in
 chip order on the group's device at the reference's all-reduce points
 (after ``wo``, ``w_down``, the experts' ``combine``, ``out_proj``,
 ``w_o``, rwkv's ``w_v``, and mamba's ``x_proj`` inside its block).  A
@@ -350,15 +352,19 @@ def _embed(split: ModelSplit, embed, tokens):
     chips = split.chips_for(embed, 0)
     if len(chips) == 1:
         return split.take(embed, chips[0])[split.to(tokens, chips[0])]
-    parts = []
-    for m in split.each(chips):
+
+    def take(m):
         lo, hi = split.owned(embed, 0, m)
-        rows = split.take(embed, m, 0, [(lo, hi)])
-        local = split.to(tokens, m).long() - lo
+        return lo, hi, split.take(embed, m, 0, [(lo, hi)]), \
+            split.to(tokens, m)
+
+    def part(m, lo, hi, rows, tok):
+        local = tok.long() - lo
         mine = (local >= 0) & (local < hi - lo)
         e = rows[local.clamp(0, hi - lo - 1)]
-        parts.append(torch.where(mine[..., None], e, e.new_zeros(())))
-    return split.sum(parts)
+        return torch.where(mine[..., None], e, e.new_zeros(()))
+
+    return split.sum(split.run(chips, take, part))
 
 
 def _head_parts(cfg, split: ModelSplit, top, x):
@@ -368,14 +374,16 @@ def _head_parts(cfg, split: ModelSplit, top, x):
     x = layers.rms_norm(x, split.take(top["final_norm"]), cfg.norm_eps)
     head = top["lm_head"]
     chips = split.chips_for(head, 1)
-    shards, starts = [], []
-    for m in split.each(chips):
+
+    def take(m):
         lo, hi = split.owned(head, 1, m)
-        w = split.take(head, m, 1, [(lo, hi)])
-        shards.append(torch.einsum("bsd,dv->bsv", split.to(x, m),
-                                   w.to(x.dtype)).float())
-        starts.append(lo)
-    return shards, starts
+        return split.take(head, m, 1, [(lo, hi)]), split.to(x, m)
+
+    def part(m, w, xm):
+        return torch.einsum("bsd,dv->bsv", xm, w.to(x.dtype)).float()
+
+    shards = split.run(chips, take, part)
+    return shards, [split.owned(head, 1, m)[0] for m in chips]
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:

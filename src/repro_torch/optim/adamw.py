@@ -54,8 +54,9 @@ class AdamW:
     def _lr(self, step):
         if callable(self.learning_rate):
             return self.learning_rate(step)
-        return torch.tensor(self.learning_rate, dtype=torch.float32,
-                            device=step.device)
+        # a fill on the device: a host scalar copied there would wait
+        return torch.full((), self.learning_rate, dtype=torch.float32,
+                          device=step.device)
 
     def init(self, params) -> AdamWState:
         leaves = tree_leaves(params)

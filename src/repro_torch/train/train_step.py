@@ -11,10 +11,12 @@ optimizer-state trees, as the reference's functional step does.
 On a mesh (``shard_ctx``) the parameters and optimizer state are trees
 of ``ShardedTensor`` s and each microbatch splits further into its data
 groups (``data_groups``, the reference's ``_constrain`` of the batch),
-run in turn on one controller.  Each group runs its model chips in turn
+enqueued in turn by one controller, every piece's rows moved to its
+group's card first.  Each group runs its model chips
 (``models/transformer.py``, the Megatron split of
-``distributed/model_split.py``): every chip gathers over the data axis
-only its own part of each period's weights and computes its heads,
+``distributed/model_split.py``): every chip takes its inputs and
+gathers over the data axis only its own part of each period's weights,
+all chips' before the first chip's part, then computes its heads,
 ``d_ff`` columns, experts or channels, and the chips' partial sums add
 on the group's device.  The groups' gradients are born on the
 parameters' blocks, which is where the reference's reduce-scatter puts
@@ -23,22 +25,34 @@ them (its ``grad_shardings``): the step sums them in float32 over every
 arithmetic of ``microbatches * groups`` microbatches.  With one model
 chip a group computes as the unsharded step does, so a (2, 1) mesh's
 step is the unsharded ``microbatches=2`` step's loss bit for bit; with
-more, the partial sums' order differs from the whole products' in the
-last bits.  One piece takes its gradients as they come, with no float32
+more, the partial sums' order, and each chip's gradient of a taken
+input added as one term, differ from the whole products' in the last
+bits.  One piece takes its gradients as they come, with no float32
 copy.  ``AdamW.update`` then runs on the blocks; its global grad norm
 sums the blocks' squares, whose order differs from the whole leaves' in
 the last bits.
 
 The chips may lie on several cards (``launch.mesh.make_host_mesh(cards=
-)``): each data group then computes on its first chip's card, each
-model chip on its own, and tensors cross cards as ``.to`` copies.  The
-backward runs on the calling thread alone, every card's nodes in the
-one order a single card runs them, and a chip whose part reaches it
-through a copy adds its gradient there as one sum.  On one card the
-last model chip's parts add first, so only that chip may lie off its
-group's card for every gradient to be the one-card mesh's bit for bit
-(``tests/test_torch_cards.py`` measures the order): the step refuses a
-mesh where another model chip does, e.g. (1, 4) over four cards.
+)``), any layout: each data group then computes on its first chip's
+card, each model chip on its own.  A
+tensor crosses cards by ``sharding.card_copy``, on a copy stream of
+the source card for the pair of cards, so it waits for its own
+producer, not behind the source card's queue: a data group's gathers
+of the other group's blocks wait only for the step's start
+(``sharding.written``), not for that group's forward and backward.  The
+gradients a group sends back to the blocks it read on another group's
+card still join that card's stream (their copies' barrier, their sums,
+the step's ``acc + g``), so there the second group starts once the
+first group's backward is done; a group's model chips compute at once.
+The backward runs on the calling thread alone (no thread a card), every
+card's nodes in the one order a single card runs them: later-made nodes
+first, so every chip's part before any chip's take, whose gradient a
+copy sends back to the group's card behind no part.  Every chip
+reaches its inputs through a node of its own (a copy across cards, a
+view on one card), so each chip's gradient of an input adds as one
+term in the same order whichever chips lie off the group's card: the
+step over any number of cards is the one-card mesh's bit for bit
+(``tests/test_torch_cards.py``).
 """
 from __future__ import annotations
 
@@ -48,8 +62,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..distributed.model_split import ModelSplit
-from ..distributed.sharding import LogicalMesh, gather, is_sharded
+from ..distributed.sharding import (LogicalMesh, card_copy, gather,
+                                    is_sharded, written)
 from ..kernels.ops import resolve_device
 from ..models.model import Model
 from ..optim.adamw import AdamW, AdamWState
@@ -129,23 +143,6 @@ def _check_placements(params, placements) -> None:
     tree_map_with_path(leaf, params, placements, is_leaf=is_sharded)
 
 
-def _refuse_off_card_chips(mesh: LogicalMesh, dp) -> None:
-    """Raise where a data group's model chip other than its first and
-    last lies off the group's card: its part would reach the group's
-    tensors through a copy and add its gradient as one sum, where on one
-    card its parts add one by one after the later chips'."""
-    groups = math.prod(mesh.sizes[a] for a in dp)
-    for g in range(groups):
-        devices = ModelSplit(None, mesh, dp, group=g).devices
-        for m, dev in enumerate(devices[1:-1], 1):
-            if dev != devices[0]:
-                raise ValueError(
-                    f"data group {g}'s model chip {m} lies on {dev}, off "
-                    f"its group's card {devices[0]}: the step would not be "
-                    f"the one-card step bit for bit; only a group's last "
-                    f"model chip may lie on another card")
-
-
 def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
                     microbatches: int = 1, chunk_q: int = 512,
                     shard_ctx=None, causal_skip: bool = False,
@@ -173,17 +170,17 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
             raise ValueError(f"the sharded step computes on its chips' "
                              f"devices: a mesh on {sorted(types)} mixes "
                              f"device types or holds shapes only")
-        _refuse_off_card_chips(mesh, tuple(shard_ctx["dp"]))
         device = str(mesh.devices[0])
     elif grad_shardings is not None:
         raise ValueError("grad_shardings places gradients on a mesh: it "
                          "needs shard_ctx")
     else:
         device = resolve_device(device)
-    def value_and_grad(params, batch, group, dev):
+    def value_and_grad(params, batch, group, dev, ready=None):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        ctx = None if shard_ctx is None else {**shard_ctx, "group": group}
+        ctx = None if shard_ctx is None else {**shard_ctx, "group": group,
+                                              "ready": ready}
         # the backward on this thread alone: autograd otherwise runs a
         # thread a card, and a tensor whose gradient sums parts from two
         # cards would add them in the order they arrive
@@ -201,17 +198,24 @@ def make_train_step(model: Model, optimizer: AdamW, *, remat: str = "full",
 
     def compute_grads(params, batch):
         pieces = _pieces(batch, microbatches, shard_ctx, device)
+        # the blocks and the batch are written: a data group's copies
+        # from another group's card wait for this, not for that group
+        ready = None if shard_ctx is None else written(mesh.devices)
         if len(pieces) == 1:
-            return value_and_grad(params, batch, *pieces[0][:2])
+            return value_and_grad(params, batch, *pieces[0][:2], ready)
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         loss_sum, nlls = 0.0, []
-        for group, dev, rows in pieces:
-            piece = {k: v[rows].to(dev) for k, v in batch.items()}
-            loss, aux, grads = value_and_grad(params, piece, group, dev)
+        # every piece's rows on its group's card before the first piece
+        # computes
+        moved = [{k: card_copy(v[rows], dev) for k, v in batch.items()}
+                 for _, dev, rows in pieces]
+        for (group, dev, _), piece in zip(pieces, moved):
+            loss, aux, grads = value_and_grad(params, piece, group, dev,
+                                              ready)
             acc = tree_map(lambda a, g: a + g.float(), acc, grads)
-            loss_sum = loss_sum + loss.to(device)
-            nlls.append(aux["nll"].to(device))
+            loss_sum = loss_sum + card_copy(loss, device)
+            nlls.append(card_copy(aux["nll"], device))
         # nll: the last microbatch's, over its data groups
         per = len(pieces) // microbatches
         aux = {"nll": sum(nlls[-per:]) / per}

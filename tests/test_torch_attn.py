@@ -284,6 +284,36 @@ def test_chunked_backward_equals_unchunked(backend, monkeypatch):
         assert torch.equal(g0, g1)
 
 
+@pytest.mark.parametrize("backend", ("ref", "pallas_ell"))
+@pytest.mark.parametrize("fixture", ("weighted", "multi_trip", "empty_rows"))
+def test_instances_at_once_are_each_instance_alone(fixture, backend,
+                                                   monkeypatch):
+    """N instances in one call (the sattn layer's heads): each output and
+    each Q/K/V gradient is that instance's alone bit for bit, the mask
+    weights' gradient their sum; under a chunk of a few nonzeros too."""
+    _, pa, dh, dv, _ = instance(fixture)
+    rng = np.random.default_rng(21)
+    n = 3
+    qs, ks, vs = (t(rng.standard_normal((n, rows, w)))
+                  for rows, w in ((pa.m, dh), (pa.n, dh), (pa.n, dv)))
+    monkeypatch.setattr(spmm_mod, "SDDMM_CHUNK", 4 * max(dh, dv) * n)
+    c = port_artifact(pa, dh, dv, backend)
+    inputs = [x.clone().requires_grad_(True) for x in (pa.vals, qs, ks, vs)]
+    y = c(*inputs)
+    torch.sin(y).sum().backward()
+    wsum = torch.zeros_like(pa.vals)
+    for i in range(n):
+        one = [x.clone().requires_grad_(True)
+               for x in (pa.vals, qs[i], ks[i], vs[i])]
+        yi = c(*one)
+        torch.sin(yi).sum().backward()
+        assert torch.equal(y[i], yi)
+        for x, xi in zip(inputs[1:], one[1:]):
+            assert torch.equal(x.grad[i], xi.grad)
+        wsum += one[0].grad
+    torch.testing.assert_close(inputs[0].grad, wsum, rtol=1e-6, atol=1e-6)
+
+
 def test_backward_computes_only_requested_gradients():
     _, pa, dh, dv, (q, k, v) = instance("weighted")
     c = port_artifact(pa, dh, dv, "pallas_ell")
@@ -291,7 +321,7 @@ def test_backward_computes_only_requested_gradients():
     torch.sin(c(pa.vals, qq, t(k), t(v))).sum().backward()
     assert qq.grad is not None and qq.grad.abs().sum() > 0
     assert c._ref_vjp(pa.vals, t(q), t(k), t(v), torch.ones(pa.m, dv),
-                      (False,) * 4) == (None,) * 4
+                      (False,) * 4, torch.zeros(pa.m, dv)) == (None,) * 4
 
 
 def test_jit_cache_key_separates_knobs():
@@ -376,3 +406,42 @@ def test_wrappers_reject_malformed_operands(bad):
         operands[6] = operands[6][:-1]
     with pytest.raises(ValueError):
         attn_fused(*operands, **knobs)
+
+
+def test_the_backward_of_a_chip_layer_dispatches_few_ops(monkeypatch):
+    """The longformer layer's backward on one model chip's 8 (batch,
+    head) instances, at S = 1024 and head width 16 with the chunk scaled
+    so the mask takes as many chunks as at S = 4096 and width 128
+    (2,193,696 nonzeros a head): 9 chunks,
+    each a few dozen dispatches (the one host thread enqueues every
+    card's).  Prints the count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.sparse_attention import sparse_attention_mask
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    S, hd, n = 1024, 16, 8
+    a = sparse_attention_mask(S, 512, 64, device="cpu")
+    # head width 16 for 128: the chunk scaled by both, so a chunk holds
+    # the nonzeros it holds at full size
+    monkeypatch.setattr(spmm_mod, "SDDMM_CHUNK", int(
+        spmm_mod.SDDMM_CHUNK * a.row_ptr[-1] / 2_193_696 * hd / 128))
+    # the backward is every backend's; ``ref``'s forward is the quickest
+    c = compile_sparse_attention(a, hd, hd, backend="ref", device="cpu",
+                                 cache=JitCache())
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(n, S, hd, generator=g).requires_grad_(True)
+               for _ in range(3))
+    y = c(a.vals, q, k, v)
+    with Count():
+        y.backward(torch.ones_like(y))
+    chunks = len(c.row_chunks(n))
+    print(f"{chunks} chunks, {Count.n} dispatches")
+    assert chunks == 9
+    assert Count.n <= 50 * chunks

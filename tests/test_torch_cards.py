@@ -160,27 +160,28 @@ def test_the_step_builds_on_cards_and_refuses_mixed_types():
                                                    "dp": ("data",)})
 
 
-@pytest.mark.parametrize("shape,cards,refused", (
-    ((2, 2), 4, False),      # the last model chip of each group off its card
-    ((2, 2), 2, False),      # each group's chips on its card
-    ((4, 2), 4, False),
-    ((4, 1), 4, False),
-    ((1, 2), 2, False),
-    ((1, 4), 4, True),       # model chips 1 and 2 off the group's card
-    ((1, 4), 2, True),       # model chip 2 off it
-    ((2, 4), 4, True),
+@pytest.mark.parametrize("shape,cards", (
+    ((2, 2), 4),      # the last model chip of each group off its card
+    ((2, 2), 2),      # each group's chips on its card
+    ((4, 2), 4),
+    ((4, 1), 4),
+    ((1, 2), 2),
+    ((1, 4), 4),      # model chips 1, 2 and 3 off the group's card
+    ((1, 4), 2),      # model chips 2 and 3 off it
+    ((2, 4), 4),
 ))
-def test_the_step_refuses_a_middle_model_chip_off_its_card(shape, cards,
-                                                           refused):
-    """Only a group's last model chip may lie on another card: the order
-    the backward test below measures."""
+def test_every_layout_over_cards_builds(shape, cards):
+    """Every chip reaches its inputs through a node of its own, so any
+    model chip may lie off its group's card: each layout builds, its
+    groups' model chips on the cards ``spread`` gives them."""
     model = Model(reduced(get_config("longformer-1.4b")))
-    ctx = {"mesh": _mesh(cards, shape), "dp": ("data",)}
-    if refused:
-        with pytest.raises(ValueError, match="not be the one-card step"):
-            make_train_step(model, AdamW(), shard_ctx=ctx)
-    else:
-        assert callable(make_train_step(model, AdamW(), shard_ctx=ctx))
+    mesh = _mesh(cards, shape)
+    ctx = {"mesh": mesh, "dp": ("data",)}
+    assert callable(make_train_step(model, AdamW(), shard_ctx=ctx))
+    for g in range(shape[0]):
+        split = ModelSplit(None, mesh, ("data",), group=g)
+        assert split.devices == tuple(
+            str(mesh.devices[g * shape[1] + m]) for m in range(shape[1]))
 
 
 # -- the tally on several cards ----------------------------------------------
@@ -195,15 +196,36 @@ class _At:
         return later.at - self.at
 
 
-def _old_chip_ms(timeline, n):
-    """The one-device pairing: every event with the next."""
+def _one_stream_ms(timeline, n):
+    """The one-device pairing: every event with the next, a span from a
+    start forward, one from a chip's back mark to its next grad mark
+    backward."""
     fwd, bwd = [0.0] * n, [0.0] * n
-    for (kind, chip, a), (nkind, nchip, b) in zip(timeline, timeline[1:]):
+    owner = None
+    for (kind, chip, a), (_, _, b) in zip(timeline, timeline[1:]):
+        if kind == "back":
+            owner = chip
+        elif kind == "grad":
+            owner = None
         if kind == "start":
             fwd[chip] += a.elapsed_time(b)
-        elif nkind == "grad" and nchip is not None:
-            bwd[nchip] += a.elapsed_time(b)
+        elif owner is not None:
+            bwd[owner] += a.elapsed_time(b)
     return fwd, bwd
+
+
+def _timeline(tally):
+    c0, c1 = "cuda:0", "cuda:1"
+    tally.timeline += [
+        ("start", 0, _At(c0, 0)), ("end", 0, _At(c0, 5)),
+        ("start", 1, _At(c1, 1)), ("end", 1, _At(c1, 8)),
+        ("back", 1, _At(c1, 10)), ("grad", 1, _At(c1, 12)),
+        ("grad", 1, _At(c1, 13)),
+        ("back", 0, _At(c0, 14)), ("grad", 0, _At(c0, 20)),
+        ("grad", None, _At(c0, 21)),
+        ("start", 0, _At(c0, 30)), ("grad", 0, _At(c0, 31)),
+    ]
+    tally.sum_spans.append((_At(c0, 21), _At(c0, 23)))
 
 
 def test_the_tally_pairs_events_within_a_card(monkeypatch):
@@ -211,25 +233,42 @@ def test_the_tally_pairs_events_within_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
     mesh = _mesh(4)
     tally = SplitTally(mesh, timed=True)
-    c0, c1 = "cuda:0", "cuda:1"
-    tally.timeline += [
-        ("start", 0, _At(c0, 0)), ("end", 0, _At(c0, 5)),
-        ("start", 1, _At(c1, 1)), ("end", 1, _At(c1, 8)),
-        ("grad", 1, _At(c1, 12)), ("grad", 1, _At(c1, 13)),
-        ("grad", 0, _At(c0, 20)), ("grad", None, _At(c0, 21)),
-        ("start", 0, _At(c0, 30)), ("grad", 0, _At(c0, 31)),
-    ]
-    tally.sum_spans.append((_At(c0, 21), _At(c0, 23)))
+    _timeline(tally)
     fwd, bwd = tally.chip_ms()
     # chip 1's part is 1 -> 8 on its card, not 1 -> chip 0's next event
     assert fwd == [5.0 + 1.0, 7.0, 0.0, 0.0]
-    # a grad mark owns the time since its card's last event
-    assert bwd == [15.0, 5.0, 0.0, 0.0]
+    # a chip's backward runs from its back mark to its card's next grad
+    # mark; a take's or a sum's mark ends it
+    assert bwd == [6.0, 2.0, 0.0, 0.0]
     assert tally.sum_ms() == 2.0
     assert tally.card_ms() == {torch.device("cuda", i): ms for i, ms in
-                               enumerate((5 + 1 + 15 + 2, 7 + 5, 0, 0))}
+                               enumerate((5 + 1 + 6 + 2, 7 + 2, 0, 0))}
     # every card of the mesh synchronised, each once a read
     assert synced[:4] == list(mesh.devices)
+
+
+def test_the_tally_puts_every_card_on_one_clock(monkeypatch):
+    """``intervals`` measures each span from its card's zero event, so
+    spans on two cards compare: the chips' overlap is the time both run."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(model_split, "_event", lambda d: _At(d, 0))
+    tally = SplitTally(_mesh(4), timed=True)
+    tally.begin()
+    assert set(tally.zero) == set(_cards(4))
+    tally.zero[torch.device("cuda", 1)] = _At("cuda:1", -100)
+    _timeline(tally)
+    assert tally.intervals([0], "backward") == [(14.0, 20.0)]
+    assert tally.intervals([1], "backward") == [(110.0, 112.0)]
+    zero = _At("cuda:1", 0)
+    tally.zero[torch.device("cuda", 1)] = zero
+    a, b = tally.intervals([0]), tally.intervals([1])
+    assert a == [(0.0, 5.0), (14.0, 20.0), (30.0, 31.0)]
+    assert b == [(1.0, 8.0), (10.0, 12.0)]
+    assert model_split.overlap(a, b) == 4.0 == model_split.overlap(b, a)
+    assert model_split.busy(a) == 12.0
+    # spans that meet merge
+    assert tally.intervals() == [(0.0, 8.0), (10.0, 12.0), (14.0, 20.0),
+                                 (30.0, 31.0)]
 
 
 def test_on_one_card_the_tally_is_the_one_stream_pairing(monkeypatch):
@@ -239,12 +278,14 @@ def test_on_one_card_the_tally_is_the_one_stream_pairing(monkeypatch):
     tally = SplitTally(mesh, timed=True)
     t = 0.0
     for _ in range(200):
-        kind = rng.choice(["start", "end", "grad"])
+        kind = rng.choice(["start", "end", "back", "grad"])
         chip = None if kind == "grad" and rng.random() < 0.2 else \
             int(rng.integers(4))
         t += float(rng.integers(1, 9))
         tally.timeline.append((str(kind), chip, _At("cuda:0", t)))
-    assert tally.chip_ms() == _old_chip_ms(tally.timeline, 4)
+    fwd, bwd = tally.chip_ms()
+    assert (fwd, bwd) == _one_stream_ms(tally.timeline, 4)
+    assert sum(bwd) > 0
 
 
 def test_a_timed_step_records_each_event_on_its_chips_device(monkeypatch):
@@ -318,10 +359,205 @@ def test_a_copied_second_chip_adds_first_as_one_sum():
 ))
 def test_with_three_chips_only_the_last_may_be_copied(copied, same):
     """A copied middle chip's sum adds to the later chips' as one term,
-    where on one device its parts add one by one: what makes the step
-    refuse a middle model chip off its group's card."""
+    where on one device its parts add one by one: why every chip reaches
+    its inputs through a node of its own (below)."""
     direct = _chips_grad(3, copied=())
     assert torch.equal(_chips_grad(3, copied=copied), direct) == same
+
+
+def _chips_grad_ahead(n, copied):
+    """``_chips_grad`` as the split runs it: every chip takes ``h``
+    through a node of its own before the first part, a copy for the
+    chips in ``copied`` (``_CardCopy``, the copy between cards) and a
+    view for the rest (``model_split.reach`` on its own device)."""
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(48, 32, generator=gen).requires_grad_(True)
+    ws = [torch.randn(32, 32, generator=gen) * 10.0 ** (2 * k - 3)
+          for k in range(2 * n)]
+    g = torch.randn(48, 32, generator=gen)
+    with torch.autograd.set_multithreading_enabled(False):
+        h = x * 3.0
+        taken = [sharding._CardCopy.apply(h, h.device, None) if m in copied
+                 else model_split.reach(h, h.device) for m in range(n)]
+        parts = [hm @ ws[2 * m] + hm @ ws[2 * m + 1]
+                 for m, hm in enumerate(taken)]
+        loss = (sum(parts) * g).sum()
+        return torch.autograd.grad(loss, x)[0]
+
+
+def _subsets(n):
+    return [tuple(m for m in range(n) if bits >> m & 1)
+            for bits in range(2 ** n)]
+
+
+@pytest.mark.parametrize("n,copied", [(n, c) for n in (2, 3, 4)
+                                      for c in _subsets(n)])
+def test_any_set_of_copied_chips_gives_the_one_device_gradient(n, copied):
+    """With a node a chip, taken ahead, each chip's gradient arrives as
+    one term whether its node is a copy or a view: four cards are one
+    card bit for bit whichever chips lie off the group's card."""
+    ones = _chips_grad_ahead(n, copied=())
+    assert torch.equal(_chips_grad_ahead(n, copied=copied), ones)
+
+
+# -- the backward reaches every chip's part before any take --------------------
+
+class _Blocks:
+    """Records every ``ModelSplit.run`` of a forward: its kind (the
+    block's function), each chip's taken tensors and part outputs."""
+
+    def __init__(self, monkeypatch):
+        self.blocks = []
+        run = ModelSplit.run
+
+        def spied(split, chips, take, part):
+            rec = {"kind": take.__qualname__.split(".")[0] + "."
+                   + take.__name__, "takes": [], "parts": []}
+            self.blocks.append(rec)
+
+            def took(m):
+                out = take(m)
+                rec["takes"].append([t for t in out if isinstance(
+                    t, torch.Tensor) and t.grad_fn is not None])
+                return out
+
+            outs = run(split, chips, took, part)
+            for o in outs:
+                rec["parts"].append([t for t in (o if isinstance(o, tuple)
+                                                 else (o,))
+                                     if t.grad_fn is not None])
+            return outs
+        monkeypatch.setattr(ModelSplit, "run", spied)
+
+
+def _nodes_after(roots, floor):
+    """The autograd nodes reachable from ``roots`` made after sequence
+    number ``floor``."""
+    seen, todo = {}, list(roots)
+    while todo:
+        node = todo.pop()
+        if node is None or node._sequence_nr() <= floor or node in seen:
+            continue
+        seen[node] = None
+        todo += [nxt for nxt, _ in node.next_functions]
+    return list(seen)
+
+
+ORDER_ARCHS = {
+    "longformer-1.4b": {"sparse_self_attention_layer.take",
+                        "swiglu_mlp.take", "_head_parts.take"},
+    "mixtral-8x7b": {"self_attention_layer.take", "moe_ffn.take"},
+    "jamba-1.5-large-398b": {"mamba_block.take_in", "mamba_block.take_scan"},
+    "rwkv6-1.6b": {"time_mix.take", "channel_mix.take_k",
+                   "channel_mix.take_r"},
+    "llama-3.2-vision-11b": {"cross_attention_layer.take"},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ORDER_ARCHS))
+def test_the_backward_runs_every_chips_part_before_any_take(arch,
+                                                            monkeypatch):
+    """On (1, 4) at ``reduced()``, for every split block kind: hooks on
+    the autograd nodes show the backward running each chip's part whole
+    before the first take's node (a copy back to the group's card on
+    four cards), so no card waits for another's part."""
+    cfg = reduced(get_config(arch))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(2), device="cpu")
+    mesh = make_host_mesh(data=1, model=4, device="cpu")
+    sp = sharding.shard_tree(params, sharding.param_shardings(
+        model.param_shapes(), mesh))
+    batch = _order_batch(cfg)
+    rec = _Blocks(monkeypatch)
+    log = []
+    real_grad = torch.autograd.grad
+
+    def grad(loss, *args, **kw):
+        for i, b in enumerate(rec.blocks):
+            takes = [t.grad_fn for ts in b["takes"] for t in ts]
+            for m, (ts, outs) in enumerate(zip(b["takes"], b["parts"])):
+                # chip m's part: the nodes made after its own takes
+                floor = max(t.grad_fn._sequence_nr() for t in ts)
+                for node in _nodes_after([t.grad_fn for t in outs], floor):
+                    node.register_prehook(
+                        lambda g, i=i, m=m: log.append(("part", i, m)))
+            for node in takes:
+                node.register_prehook(
+                    lambda g, i=i: log.append(("take", i, None)))
+        return real_grad(loss, *args, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    opt = AdamW(learning_rate=1e-3)
+    step = make_train_step(model, opt, chunk_q=8, remat="none",
+                           shard_ctx={"mesh": mesh, "dp": ("data",)})
+    step(sp, opt.init(sp), batch)
+    kinds = set()
+    for i, b in enumerate(rec.blocks):
+        events = [(n, kind, m) for n, (kind, j, m) in enumerate(log)
+                  if j == i]
+        parts = [n for n, kind, _ in events if kind == "part"]
+        takes = [n for n, kind, _ in events if kind == "take"]
+        assert parts and takes, (b["kind"], events[:4])
+        assert max(parts) < min(takes), b["kind"]
+        if len(b["parts"]) == 4:
+            kinds.add(b["kind"])
+            # and each chip's part whole before the next's: chip 3 first
+            chips = [m for _, kind, m in events if kind == "part"]
+            assert chips == sorted(chips, reverse=True), b["kind"]
+    assert ORDER_ARCHS[arch] <= kinds, kinds
+
+
+def _order_batch(cfg):
+    tok = torch.randint(0, cfg.vocab_size, (2, 17),
+                        generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.num_image_tokens:
+        batch["image_embeds"] = torch.randn(
+            2, cfg.num_image_tokens, cfg.d_model,
+            generator=torch.Generator().manual_seed(2))
+    return batch
+
+
+# -- forced copies: the steps a card crossing gives ---------------------------
+
+def _forced_copy(t, device, ready=None):
+    """``sharding.card_copy`` with every move a copy, as if each chip lay
+    on a card of its own."""
+    return sharding._CardCopy.apply(t, torch.device(device), ready)
+
+
+@pytest.mark.parametrize("shape", ((1, 4), (2, 4)))
+@pytest.mark.parametrize("arch", ("longformer-1.4b", "mixtral-8x7b"))
+def test_steps_with_copies_are_the_steps_with_views(arch, shape,
+                                                    monkeypatch):
+    """The reduced step with every take and gather a copy (standing in
+    for each chip on a card of its own) is ``torch.equal`` to the same
+    step with views: loss, grad norm, parameters and both moments."""
+    cfg = reduced(get_config(arch))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(4), device="cpu")
+    mesh = make_host_mesh(data=shape[0], model=shape[1], device="cpu")
+    sp = sharding.shard_tree(params, sharding.param_shardings(
+        model.param_shapes(), mesh))
+    batch = _order_batch(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    outs = []
+    for forced in (False, True):
+        copies = []
+        if forced:
+            def counted(t, device, ready=None):
+                copies.append(1)
+                return _forced_copy(t, device, ready)
+            monkeypatch.setattr(sharding, "card_copy", counted)
+        step = make_train_step(model, opt, chunk_q=8, shard_ctx={
+            "mesh": mesh, "dp": ("data",)})
+        outs.append(step(sp, opt.init(sp), batch))
+        assert bool(copies) == forced
+    (p0, s0, m0), (p1, s1, m1) = outs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    for a, b in zip(tree_leaves((p0, s0.mu, s0.nu)),
+                    tree_leaves((p1, s1.mu, s1.nu))):
+        assert torch.equal(a, b)
 
 
 # -- AdamW over blocks ---------------------------------------------------------
@@ -376,7 +612,8 @@ def test_adamw_over_blocks_is_the_one_device_sum(sharded):
 # -- on four cards -------------------------------------------------------------
 
 @pytest.mark.cuda
-def test_four_cards_step_is_the_one_card_step_bit_for_bit():
+@pytest.mark.parametrize("shape", ((2, 2), (1, 4)))
+def test_four_cards_step_is_the_one_card_step_bit_for_bit(shape):
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
     cfg = reduced(get_config("longformer-1.4b"))
@@ -392,7 +629,8 @@ def test_four_cards_step_is_the_one_card_step_bit_for_bit():
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for cards in (4, 1):
-            mesh = make_host_mesh(data=2, model=2, cards=cards)
+            mesh = make_host_mesh(data=shape[0], model=shape[1],
+                                  cards=cards)
             sp = sharding.shard_tree(params, sharding.param_shardings(
                 model.param_shapes(), mesh))
             step = make_train_step(model, opt, chunk_q=16, shard_ctx={

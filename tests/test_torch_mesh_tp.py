@@ -251,7 +251,9 @@ def test_sattn_calls_its_artifact_for_its_heads_a_chip(monkeypatch):
         arts.add(id(art))
 
         def call(vals, q, k, v):
-            heads.append(q.shape)
+            # one call a chip and layer, on each of its (batch, head)s
+            heads.extend([q.shape[-2:]] * (q.shape[0] if q.dim() == 3
+                                           else 1))
             return art(vals, q, k, v)
         return a, call
     monkeypatch.setattr(sparse_attention, "_mask_and_artifact", counting)
@@ -265,7 +267,7 @@ def test_sattn_calls_its_artifact_for_its_heads_a_chip(monkeypatch):
                                       shard_ctx={"mesh": mesh,
                                                  "dp": ("data",),
                                                  "tally": tally})
-        # H calls a layer in all, H / tp on each chip
+        # H heads a layer in all, H / tp on each chip
         assert len(heads) == cfg.num_layers * cfg.num_heads
         assert tally.attn == [cfg.num_layers * cfg.num_heads // tp] * tp
     # the artifact is planned once, whichever chip and split asks
